@@ -1,0 +1,262 @@
+"""PD-SGDM — Periodic Decentralized Momentum SGD (paper Algorithm 1).
+
+Port of ``src/repro/core/pdsgdm.py:36-620`` on the dense simulation backend.
+Per worker k, per iteration t::
+
+    m⁽ᵏ⁾ₜ   = μ m⁽ᵏ⁾ₜ₋₁ + ∇F(x⁽ᵏ⁾ₜ; ξ⁽ᵏ⁾ₜ)
+    x⁽ᵏ⁾ₜ₊½ = x⁽ᵏ⁾ₜ − η m⁽ᵏ⁾ₜ
+    x⁽ᵏ⁾ₜ₊₁ = Σⱼ w_kj x⁽ʲ⁾ₜ₊½      if mod(t+1, p) == 0   (gossip)
+            = x⁽ᵏ⁾ₜ₊½              otherwise
+
+Weight decay is folded into the gradient before the momentum update
+(PyTorch SGD semantics, as in the paper's experiments).
+
+Params are flat worker-stacked dicts (:mod:`repro_torch.tree`).  The fused
+round runs p local steps as a Python loop and then one unconditional
+gossip; with ``use_kernel`` it runs on the flatten-once ``(K, rows, 1024)``
+layout through the CUDA kernels (:meth:`PDSGDM.kernel_round`).  The step
+counter and the learning rate stay 0-d tensors on the device: a round
+makes no host sync.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.gossip import CommBackend, DenseComm, \
+    gossip_bytes_per_round
+from repro_torch.kernels import LANE
+from repro_torch.kernels import ops as kops
+from repro_torch.tree import tree_leaves, tree_map
+
+__all__ = ["PDSGDMConfig", "PDSGDM"]
+
+
+def _unstack(batches) -> list:
+    """A batch dict with a leading dim of n → n batch dicts."""
+    n = next(iter(batches.values())).shape[0]
+    return [{k: v[i] for k, v in batches.items()} for i in range(n)]
+
+
+@dataclasses.dataclass(frozen=True)
+class PDSGDMConfig:
+    eta: float = 0.1                 # step size η (peak LR if schedule given)
+    mu: float = 0.9                  # momentum coefficient μ ∈ [0, 1)
+    p: int = 4                       # communication period
+    weight_decay: float = 0.0
+    nesterov: bool = False           # beyond-paper option (off by default)
+    lr_schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    # the fused round runs on the flatten-once (rows, 1024) kernel layout
+    use_kernel: bool = False
+    # one-round-stale gossip hidden behind the local steps
+    overlap: bool = False
+
+    def lr(self, step: torch.Tensor) -> torch.Tensor:
+        """The 0-d f32 learning rate of ``step``, on its device."""
+        if self.lr_schedule is None:
+            return torch.full((), self.eta, dtype=torch.float32,
+                              device=step.device)
+        return (self.eta * self.lr_schedule(step)).to(torch.float32)
+
+
+class PDSGDM:
+    """Algorithm 1.  ``round`` is the fused form (p local steps + one
+    unconditional gossip) that :class:`~repro_torch.train.trainer.SimTrainer`
+    executes."""
+
+    def __init__(self, config: PDSGDMConfig, comm: CommBackend):
+        if not (0.0 <= config.mu < 1.0):
+            raise ValueError("momentum μ must be in [0, 1)")
+        if config.p < 1:
+            raise ValueError("communication period p must be ≥ 1")
+        if config.overlap:
+            raise NotImplementedError(
+                "overlapped rounds are ROADMAP queue A item 9")
+        if not isinstance(comm, DenseComm):
+            raise NotImplementedError(
+                "only the dense simulation backend is ported; the sharded "
+                "backend is ROADMAP queue A item 12")
+        self.config = config
+        self.comm = comm
+
+    # -- state ---------------------------------------------------------------
+    def init(self, params) -> dict:
+        device = tree_leaves(params)[0].device
+        return {
+            "m": tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                          params),
+            "step": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    # -- local computation (Alg. 1 lines 2-4) ---------------------------------
+    def local_step(self, state, params, grads):
+        """One momentum step on the param tree, each op rounded as the
+        fused kernel rounds it (the tree path; ``use_kernel`` rounds go
+        through :meth:`kernel_round` instead)."""
+        cfg = self.config
+        lr = cfg.lr(state["step"])
+
+        def upd(x, m, g):
+            x32 = x.to(torch.float32)
+            g32 = g.to(torch.float32) + cfg.weight_decay * x32
+            m_new = cfg.mu * m + g32
+            d = (g32 + cfg.mu * m_new) if cfg.nesterov else m_new
+            return (x32 - lr * d).to(x.dtype), m_new
+
+        pairs = tree_map(upd, params, state["m"], grads)
+        new_state = dict(state)
+        new_state["m"] = {k: m for k, (_, m) in pairs.items()}
+        new_state["step"] = state["step"] + 1
+        return {k: x for k, (x, _) in pairs.items()}, new_state
+
+    # -- communication (Alg. 1 lines 5-9) --------------------------------------
+    def round_index(self, state):
+        """0-based index of the gossip round being applied: ``comm_round``
+        runs after the local steps advanced the counter to (r+1)·p."""
+        return state["step"] // self.config.p - 1
+
+    def comm_round(self, state, params):
+        """One gossip round (unconditional), with round ``r``'s topology."""
+        return self.comm.mix(params, r=self.round_index(state)), state
+
+    # -- fused round (the hot path) ---------------------------------------------
+    def round(self, state, params, grads_fn, batches, *, gossip=True):
+        """p local steps then exactly one unconditional gossip round.
+
+        ``grads_fn(params, batch) -> (loss, grads)``; ``batches`` is a dict
+        whose values carry a leading dim of length p.  ``gossip=False`` runs
+        a tail of local steps only (a run whose length is not a multiple of
+        p).  With ``use_kernel`` the round runs on the flatten-once layout
+        (:meth:`kernel_round`).  Returns ``(params, state, losses)`` with
+        ``losses`` stacked over the local steps, on the device.
+        """
+        if self.config.use_kernel:
+            return self.kernel_round(state, params, grads_fn, batches,
+                                     gossip=gossip)
+        losses = []
+        for batch in _unstack(batches):
+            loss, grads = grads_fn(params, batch)
+            params, state = self.local_step(state, params, grads)
+            losses.append(loss)
+        if gossip:
+            params, state = self.comm_round(state, params)
+        return params, state, torch.stack(losses)
+
+    # -- kernel round: flatten once, local steps + gossip on (K, rows, 1024) --
+    def mat_state(self, plan, state) -> dict:
+        """Flatten the per-element optimizer state into kernel matrices."""
+        return {"m": plan.flatten(state["m"])}
+
+    def unmat_state(self, plan, mats, state, step) -> dict:
+        new_state = dict(state)
+        new_state["m"] = plan.unflatten(mats["m"], dtype=torch.float32)
+        new_state["step"] = step
+        return new_state
+
+    def local_step_mat(self, x_mat, mats, g_mat, step):
+        """One fused momentum update on the kernel layout (one launch)."""
+        cfg = self.config
+        x_new, m_new = kops.momentum_update_mat(
+            x_mat, mats["m"], g_mat, mu=cfg.mu, lr=cfg.lr(step),
+            weight_decay=cfg.weight_decay, nesterov=cfg.nesterov)
+        return x_new, {**mats, "m": m_new}
+
+    def _shift_view_mat(self, mat, ax: int, sh: int):
+        """The matrix each worker receives from its (ax, sh) neighbour."""
+        return self.comm._roll(mat, ax, sh)
+
+    def _mat_wire_static(self) -> bool:
+        """Whether :meth:`_gossip_mat` runs the shift-structured AXPY wire,
+        whose neighbour exchanges ship the ``plan.used_rows`` extent.  The
+        complete graph mixes through ``comm.mix`` on the matrix instead."""
+        return self.comm.topology.name != "complete"
+
+    def _gossip_mat(self, x_mat, r, *, plan=None):
+        """Gossip mix on the kernel layout: one fused AXPY launch per
+        topology axis over the self view and the shifted neighbour views.
+        With a ``plan`` each neighbour view is cut to the ``used_rows`` wire
+        extent and re-padded, so what is exchanged is what is accounted."""
+        if not self._mat_wire_static():
+            return self.comm.mix(x_mat, r=r)
+        u = plan.used_rows if plan is not None else None
+        per_axis: dict = {}
+        for (ax, sh, w) in self.comm.topology.shifts:
+            per_axis.setdefault(ax, []).append((sh, w))
+        y = x_mat
+        for ax in sorted(per_axis):
+            views, weights = [], []
+            for (sh, w) in per_axis[ax]:
+                if sh == 0:
+                    views.append(y)
+                elif u is not None and u < y.shape[-2]:
+                    views.append(plan.pad_wire(
+                        self._shift_view_mat(plan.wire(y), ax, sh)))
+                else:
+                    views.append(self._shift_view_mat(y, ax, sh))
+                weights.append(w)
+            y = kops.gossip_mix_mat(tuple(views), tuple(weights))
+        return y
+
+    def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
+        """One gossip round on the kernel layout (``counts`` is unused here;
+        the compressed wire of CPD-SGDM reads it)."""
+        return self._gossip_mat(x_mat, r, plan=plan), mats
+
+    def kernel_round(self, state, params, grads_fn, batches, *, gossip=True):
+        """The fused round on the flatten-once kernel layout.
+
+        Params and momentum are flattened into ``(K, rows, 1024)`` once;
+        each local step evaluates the grads on views of the param matrix,
+        flattens them (one copy) and runs one momentum launch; the gossip
+        runs on the same matrix; the trees are rebuilt once at the end.
+        """
+        plan = kops.KernelPlan.for_tree(params, worker_dim=True)
+        x_mat = plan.flatten(params)
+        mats = self.mat_state(plan, state)
+        step = state["step"]
+        losses = []
+        for batch in _unstack(batches):
+            loss, grads = grads_fn(plan.unflatten(x_mat), batch)
+            x_mat, mats = self.local_step_mat(x_mat, mats, plan.flatten(grads),
+                                              step)
+            step = step + 1
+            losses.append(loss)
+        if gossip:
+            r = step // self.config.p - 1
+            x_mat, mats = self.comm_round_mat(x_mat, mats, plan.row_counts(),
+                                              r, plan=plan)
+        params = plan.unflatten(x_mat)
+        state = self.unmat_state(plan, mats, state, step)
+        return params, state, torch.stack(losses)
+
+    # -- comm-cost model ----------------------------------------------------------
+    def _mat_wire_rows(self, params) -> int:
+        """``used_rows`` wire extent of the kernel layout: Σ per-leaf
+        ceil(size/1024) rows."""
+        return sum(-(-int(np.prod(tuple(l.shape), dtype=np.int64)) // LANE)
+                   for l in tree_leaves(params))
+
+    def _mat_wire_bytes(self, params) -> int:
+        """Bytes of one neighbour exchange on the kernel layout: the
+        ``used_rows`` extent × 1024 at the wire dtype."""
+        item = min(4, self.comm.wire_itemsize)
+        return self._mat_wire_rows(params) * LANE * item
+
+    def _kernel_wire_active(self) -> bool:
+        return self.config.use_kernel and self._mat_wire_static()
+
+    def bytes_per_comm_round(self, params, r: int = 0) -> int:
+        """Per-worker bytes of gossip round ``r``; ``params`` is one
+        worker's tree (no worker dim)."""
+        if self._kernel_wire_active():
+            return self.comm.topology_at(r).degree * self._mat_wire_bytes(params)
+        return gossip_bytes_per_round(params, self.comm, r=r)
+
+    def bytes_per_round_cycle(self, params) -> tuple:
+        """Per-round bytes over one schedule cycle (a 1-tuple for a static
+        graph); the trainer accumulates these for comm-MB accounting."""
+        return tuple(self.bytes_per_comm_round(params, r=r)
+                     for r in range(self.comm.round_cycle))

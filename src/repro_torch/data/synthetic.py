@@ -1,0 +1,70 @@
+"""Synthetic class stream: CIFAR-shaped mixture-of-Gaussians images.
+
+Port of ``ClassStreamCfg``/``class_batch`` in
+``src/repro/data/synthetic.py:72-120``.  Every batch is a pure function of
+``(cfg, step)``: its ``torch.Generator`` is seeded from ``(seed, step)``
+and the class means from ``seed`` alone, so every run and every worker is
+reproducible.  The numbers differ from the reference's threefry stream;
+the parity tests feed both packages the reference's batches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+__all__ = ["ClassStreamCfg", "class_batch", "worker_class_probs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassStreamCfg:
+    n_classes: int = 10
+    image: tuple = (32, 32, 3)
+    batch: int = 16              # per worker (paper: 16 for CIFAR-10)
+    n_workers: int = 8
+    seed: int = 0
+    noise: float = 0.8
+    dirichlet_alpha: Optional[float] = None  # None = IID
+
+
+def _generator(device: torch.device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the integer ``key``."""
+    seed = int(np.random.SeedSequence(list(key)).generate_state(
+        1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def worker_class_probs(cfg: ClassStreamCfg, device="cuda") -> torch.Tensor:
+    """(n_workers, n_classes) per-worker label marginal: uniform (IID)
+    without ``dirichlet_alpha``, else one Dirichlet(α·1) draw per worker,
+    fixed by ``cfg.seed`` (drawn on the host)."""
+    device = resolve_device(device)
+    if cfg.dirichlet_alpha is None:
+        return torch.full((cfg.n_workers, cfg.n_classes), 1.0 / cfg.n_classes,
+                          device=device)
+    rng = np.random.default_rng([cfg.seed, 2000])
+    probs = rng.dirichlet(np.full(cfg.n_classes, cfg.dirichlet_alpha),
+                          cfg.n_workers)
+    return torch.as_tensor(probs, dtype=torch.float32, device=device)
+
+
+def class_batch(cfg: ClassStreamCfg, step: int, device="cuda") -> dict:
+    """``{"images": (n_workers, batch, 32, 32, 3) f32, "labels":
+    (n_workers, batch) int64}`` on ``device``."""
+    device = resolve_device(device)
+    means = torch.randn((cfg.n_classes,) + tuple(cfg.image),
+                        generator=_generator(device, cfg.seed, 1000),
+                        device=device) * 1.5
+    g = _generator(device, cfg.seed, int(step))
+    # labels by inverse CDF: one uniform per sample against the cumulative
+    # marginal (clamp_max guards a cumsum that rounds below 1)
+    cdf = worker_class_probs(cfg, device).cumsum(-1)
+    u = torch.rand((cfg.n_workers, cfg.batch), generator=g, device=device)
+    labels = torch.searchsorted(cdf, u, right=True).clamp_max(cfg.n_classes - 1)
+    noise = torch.randn((cfg.n_workers, cfg.batch) + tuple(cfg.image),
+                        generator=g, device=device)
+    return {"images": means[labels] + cfg.noise * noise, "labels": labels}

@@ -1,0 +1,177 @@
+"""The flatten-once kernel layout (``KernelPlan``) and the matrix wrappers.
+
+Port of ``src/repro/kernels/ops.py:54-218``.  Every kernel works on one
+layout: an f32 matrix of shape ``(rows, 1024)``, or ``(K, rows, 1024)``
+with a leading worker dim.  ``KernelPlan`` maps a flat param dict onto it:
+
+  * each leaf starts on a fresh row and its tail row is zero-padded, so a
+    row never spans two leaves and the zero tail keeps the elementwise
+    kernels exact;
+  * leaves take rows in the reference's leaf order
+    (:func:`repro_torch.tree.leaf_order`), so row starts, ``row_counts``
+    and the wire extent equal the reference's;
+  * rows are padded up to ``PLAN_BLOCK_ROWS``, and ``used_rows`` is the
+    extent that carries leaf data — what the wire ships.
+
+``unflatten`` returns views into the matrix (no copy); ``flatten`` writes
+each leaf into a zeroed matrix (one copy per leaf).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import LANE
+from repro_torch.kernels.gossip_mix import gossip_mix
+from repro_torch.kernels.momentum import momentum_update
+from repro_torch.tree import leaf_order
+
+__all__ = ["KernelPlan", "PLAN_BLOCK_ROWS", "LANE", "momentum_update_mat",
+           "gossip_mix_mat", "delayed_mix_mat"]
+
+# The reference pads rows to the lcm of its Pallas kernels' BLOCK_ROWS
+# (128 and 256); the port keeps that value so both layouts have equal rows.
+PLAN_BLOCK_ROWS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class _Slot:
+    """Where one leaf lives in the (rows, 1024) matrix."""
+    shape: Tuple[int, ...]     # per-worker shape (worker dim stripped)
+    dtype: torch.dtype
+    size: int                  # prod(shape)
+    row_start: int
+    n_rows: int                # ceil(size / 1024)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """Flatten-once mapping: flat param dict ⇄ zero-padded (rows, 1024) f32.
+
+    ``worker_dim=True`` treats each leaf's leading axis as the stacked
+    worker dim: ``flatten`` returns ``(K, rows, 1024)`` with the same row
+    layout for every worker.
+    """
+    names: Tuple[str, ...]
+    slots: Tuple[_Slot, ...]
+    rows: int
+    block_rows: int
+    worker_dim: bool
+
+    @classmethod
+    def for_tree(cls, tree: dict, *, worker_dim: bool = False,
+                 block_rows: int = PLAN_BLOCK_ROWS) -> "KernelPlan":
+        """Build a plan from a flat dict of tensors (any device, or meta)."""
+        names = tuple(leaf_order(tree))
+        slots = []
+        row = 0
+        for name in names:
+            leaf = tree[name]
+            shape = tuple(leaf.shape[1:] if worker_dim else leaf.shape)
+            size = int(np.prod(shape)) if shape else 1
+            if size <= 0:
+                raise ValueError(f"empty leaf {name} {tuple(leaf.shape)} has "
+                                 "no kernel rows")
+            n_rows = -(-size // LANE)
+            slots.append(_Slot(shape, leaf.dtype, size, row, n_rows))
+            row += n_rows
+        rows = -(-row // block_rows) * block_rows
+        return cls(names, tuple(slots), rows, block_rows, worker_dim)
+
+    # -- geometry ----------------------------------------------------------
+    @property
+    def n_valid(self) -> int:
+        """Total real (non-padding) elements per worker."""
+        return sum(s.size for s in self.slots)
+
+    @property
+    def used_rows(self) -> int:
+        """Rows that carry leaf data: the wire extent.  Payloads are sliced
+        to it before a neighbour exchange, so the bytes shipped equal the
+        accounted ``Σ ceil(size/1024)`` rows."""
+        last = self.slots[-1]
+        return last.row_start + last.n_rows
+
+    def pad_wire(self, mat: torch.Tensor) -> torch.Tensor:
+        """Re-pad a wire-sliced ``(..., used_rows, d)`` payload with zero
+        rows back to ``(..., rows, d)``."""
+        return F.pad(mat, (0, 0, 0, self.rows - mat.shape[-2]))
+
+    def wire(self, mat: torch.Tensor) -> torch.Tensor:
+        """Slice a kernel matrix to the ``used_rows`` wire extent (a view;
+        the identity when the alignment tail is empty).  The tail is zero on
+        every worker and row-local mixing keeps it zero, so this is exact."""
+        if self.used_rows >= self.rows:
+            return mat
+        return mat[..., :self.used_rows, :]
+
+    def row_counts(self) -> torch.Tensor:
+        """(rows, 1) f32 on the CPU: valid elements per row (the sign-scale
+        divisor of the compressed wire)."""
+        c = np.zeros((self.rows,), np.float32)
+        for s in self.slots:
+            c[s.row_start:s.row_start + s.n_rows] = float(LANE)
+            c[s.row_start + s.n_rows - 1] = float(
+                s.size - (s.n_rows - 1) * LANE)
+        return torch.from_numpy(c).reshape(self.rows, 1)
+
+    # -- tree ⇄ matrix -----------------------------------------------------
+    def flatten(self, tree: dict) -> torch.Tensor:
+        """(rows, 1024) f32 — or (K, rows, 1024) when ``worker_dim`` — on
+        the leaves' device."""
+        first = tree[self.names[0]]
+        lead = (first.shape[0],) if self.worker_dim else ()
+        mat = torch.zeros(lead + (self.rows, LANE), dtype=torch.float32,
+                          device=first.device)
+        for name, slot in zip(self.names, self.slots):
+            block = mat[..., slot.row_start:slot.row_start + slot.n_rows, :]
+            block.view(lead + (-1,))[..., :slot.size].copy_(
+                tree[name].reshape(lead + (-1,)))
+        return mat
+
+    def unflatten(self, mat: torch.Tensor, dtype=None) -> dict:
+        """Inverse of :meth:`flatten`, as views into ``mat`` where the leaf
+        dtype is f32; ``dtype`` overrides the recorded per-leaf dtypes."""
+        lead = (mat.shape[0],) if self.worker_dim else ()
+        out = {}
+        for name, slot in zip(self.names, self.slots):
+            block = mat[..., slot.row_start:slot.row_start + slot.n_rows, :]
+            flat = block.view(lead + (-1,))[..., :slot.size]
+            out[name] = flat.view(lead + slot.shape).to(dtype or slot.dtype)
+        return out
+
+
+def _rows2d(mat: torch.Tensor) -> torch.Tensor:
+    """Collapse any leading worker dims onto the row axis: (..., R, 1024) →
+    (N·R, 1024).  The kernels are elementwise, so rows of two workers may
+    share a block."""
+    return mat.reshape(-1, LANE)
+
+
+# --------------------------------------------------------------------- mat ops
+def momentum_update_mat(x_mat, m_mat, g_mat, *, mu: float, lr,
+                        weight_decay: float = 0.0, nesterov: bool = False):
+    """Fused SGDM on the kernel layout; accepts (..., rows, 1024)."""
+    shape = x_mat.shape
+    x_new, m_new = momentum_update(
+        _rows2d(x_mat), _rows2d(m_mat), _rows2d(g_mat), lr, mu=mu,
+        wd=weight_decay, nesterov=nesterov)
+    return x_new.reshape(shape), m_new.reshape(shape)
+
+
+def gossip_mix_mat(mats, weights):
+    """Fused W-row AXPY of n aligned matrices; accepts (..., rows, 1024)."""
+    shape = mats[0].shape
+    out = gossip_mix(tuple(_rows2d(m) for m in mats),
+                     weights=tuple(float(w) for w in weights))
+    return out.reshape(shape)
+
+
+def delayed_mix_mat(x_mat, dx_mat):
+    """Land an overlapped round's one-round-stale correction on the
+    matrix: ``x + dx`` as the fused AXPY with weights (1, 1)."""
+    return gossip_mix_mat((x_mat, dx_mat), (1.0, 1.0))
