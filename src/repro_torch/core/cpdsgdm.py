@@ -1,0 +1,204 @@
+"""CPD-SGDM — Communication-efficient PD-SGDM (paper Algorithm 2).
+
+Port of ``src/repro/core/cpdsgdm.py:60-661`` on the dense simulation
+backend.  The local loop is PD-SGDM's; at a communication round::
+
+    x⁽ᵏ⁾ₜ₊₁ = x⁽ᵏ⁾ₜ₊½ + γ Σⱼ w_kj (x̂⁽ʲ⁾ₜ − x̂⁽ᵏ⁾ₜ)        (line 6, consensus)
+    q⁽ᵏ⁾ₜ   = Q(x⁽ᵏ⁾ₜ₊₁ − x̂⁽ᵏ⁾ₜ)                        (line 7, compress)
+    send q⁽ᵏ⁾ / recv q⁽ʲ⁾ for j ∈ N_k                    (line 8)
+    x̂⁽ʲ⁾ₜ₊₁ = x̂⁽ʲ⁾ₜ + q⁽ʲ⁾                              (line 9, error comp.)
+
+What crosses the wire is the compressor's codec payload
+(:mod:`repro_torch.core.wire`): bit-packed signs and scales, or packed QSGD
+levels and norms.  Three wire paths, one dispatch, as in the reference:
+
+* **kernel wire**: the codec has a ``(rows, LANE)`` format and its block
+  is the lane, so one pack and one unpack on the flatten-once layout run
+  through the CUDA codec kernels (:meth:`CPDSGDM.comm_round_mat` inside
+  the kernel round; :meth:`CPDSGDM._comm_kernel_wire` on the tree path);
+* **per-leaf codec wire**: any codec, any block, packed and unpacked per
+  leaf and per worker (``torch.func.vmap``);
+* **legacy apply** (``packed_wire=False``): Q applied leaf-wise and the f32
+  result charged at full precision.
+
+The dense backend keeps one stacked x̂: every worker's copies of its
+neighbours' x̂ equal their owners', so the consensus is ``W @ x̂`` — a plain
+matrix product, as the reference leaves it to XLA — and the round ships
+nothing but the payload accounted by :meth:`CPDSGDM.bytes_per_comm_round`.
+
+Not ported: overlapped rounds (ROADMAP queue A item 9, refused by
+:class:`~repro_torch.core.pdsgdm.PDSGDM`), the sharded backend with its
+``xhat_nbrs`` copies (item 12) and membership with its commit masks
+(item 7; :class:`~repro_torch.core.gossip.DenseComm` refuses it).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.compression import Compressor, SignCompressor
+from repro_torch.core.gossip import CommBackend, gossip_bytes_per_round
+from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
+from repro_torch.core.wire import make_codec
+from repro_torch.kernels import LANE
+from repro_torch.kernels import ops as kops
+from repro_torch.tree import tree_leaves, tree_map
+
+__all__ = ["CPDSGDMConfig", "CPDSGDM"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CPDSGDMConfig(PDSGDMConfig):
+    gamma: float = 0.4               # consensus step size γ (paper: 0.4/0.5)
+    # ship the codec payload (False: apply Q leaf-wise and charge the
+    # full-precision f32 result, the reference's debugging baseline)
+    packed_wire: bool = True
+
+
+class CPDSGDM(PDSGDM):
+    """Algorithm 2.  Inherits the local momentum step from PD-SGDM."""
+
+    def __init__(self, config: CPDSGDMConfig, comm: CommBackend,
+                 compressor: Optional[Compressor] = None):
+        super().__init__(config, comm)
+        self.compressor = (compressor if compressor is not None
+                           else SignCompressor())
+        try:
+            self.codec = make_codec(self.compressor)
+        except TypeError:                # custom operator without a codec
+            self.codec = None
+
+    # -- state ---------------------------------------------------------------
+    def init(self, params) -> dict:
+        state = super().init(params)
+        # x̂₀ = x₀: the first round's q then encodes only the local drift
+        state["xhat"] = tree_map(
+            lambda x: x.detach().to(torch.float32, copy=True), params)
+        return state
+
+    # -- wire dispatch -------------------------------------------------------
+    def _kernel_wire(self) -> bool:
+        """Whether the payload comes from the codec kernels on the
+        flatten-once layout: the codec has a rows format and its block is
+        the kernel lane, so the kernel rows are the per-leaf blocks."""
+        return (self.config.packed_wire and self.codec is not None
+                and self.codec.rows_supported and self.codec.block == LANE)
+
+    def _payload_wire(self) -> bool:
+        """Per-leaf codec wire: codecs without a (matching) kernel format."""
+        return self.config.packed_wire and self.codec is not None
+
+    def _apply_Q(self, tree, r):
+        """Q leaf-wise and per worker (the ``packed_wire=False`` path)."""
+        comp = self.compressor
+        return tree_map(lambda leaf: torch.func.vmap(comp.apply)(leaf), tree)
+
+    # -- communication round (Alg. 2 lines 6-9) --------------------------------
+    def comm_round(self, state, params):
+        return self._comm_round_at(state, params, self.round_index(state))
+
+    def _comm_round_at(self, state, params, r):
+        gamma = self.config.gamma
+        xhat = state["xhat"]
+        # line 6: consensus from the stored copies — zero communication
+        mixhat = self.comm.mix(xhat, r=r)
+        params_new = tree_map(
+            lambda x, mh, h: (x.to(torch.float32)
+                              + gamma * (mh - h)).to(x.dtype),
+            params, mixhat, xhat)
+        diff = tree_map(lambda x, h: x.to(torch.float32) - h, params_new,
+                        xhat)
+        new_state = dict(state)
+        if self._kernel_wire():
+            self._comm_kernel_wire(new_state, xhat, diff)
+        elif self._payload_wire():
+            self._comm_payload_wire(new_state, xhat, diff, r)
+        else:
+            q = self._apply_Q(diff, r)
+            new_state["xhat"] = tree_map(
+                lambda h, qq: h + qq.to(torch.float32), xhat, q)
+        return params_new, new_state
+
+    def _comm_kernel_wire(self, new_state, xhat, diff):
+        """Lines 7-9 on the flatten-once layout from the tree path: one
+        codec pack of the stacked drift matrix and one unpack."""
+        plan = kops.KernelPlan.for_tree(diff, worker_dim=True)
+        mat = plan.flatten(diff)
+        payload = self.codec.rows_pack(mat, counts=self.row_counts(plan, mat),
+                                       plan=plan)
+        q_self = plan.unflatten(self.codec.rows_unpack(payload, plan=plan),
+                                dtype=torch.float32)
+        new_state["xhat"] = tree_map(lambda h, q: h + q, xhat, q_self)
+
+    def _comm_payload_wire(self, new_state, xhat, diff, r):
+        """Lines 7-9 with per-leaf codec payloads, packed and unpacked per
+        stacked worker (the dense backend simulates the exchange)."""
+        codec = self.codec
+
+        def round_trip(leaf):
+            shape = tuple(leaf.shape[1:])
+            n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+            payload = torch.func.vmap(codec.pack)(leaf)
+            return torch.func.vmap(
+                lambda p: codec.unpack(p, n, shape, torch.float32))(payload)
+
+        new_state["xhat"] = tree_map(lambda h, d: h + round_trip(d), xhat,
+                                     diff)
+
+    # -- kernel round (flatten-once matrix domain) ------------------------------
+    @property
+    def kernel_comm_supported(self) -> bool:
+        """Matrix-domain comm needs the kernel wire format; other codecs
+        (a sign block other than the lane, say) fall back to the tree comm
+        at the round boundary."""
+        return self._kernel_wire()
+
+    def mat_state(self, plan, state) -> dict:
+        mats = super().mat_state(plan, state)
+        if self._kernel_wire():
+            mats["xhat"] = plan.flatten(state["xhat"])
+        return mats
+
+    def unmat_state(self, plan, mats, state, step) -> dict:
+        new_state = super().unmat_state(plan, mats, state, step)
+        if "xhat" in mats:
+            new_state["xhat"] = plan.unflatten(mats["xhat"],
+                                               dtype=torch.float32)
+        return new_state
+
+    def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
+        """Alg. 2 lines 6-9 on the kernel layout: the consensus ``W @ x̂``
+        (a matmul, not the gossip kernel), the drift, one codec pack and one
+        unpack; ``counts`` are the device row counts tiled over the
+        workers."""
+        if plan is None:
+            raise ValueError("CPD-SGDM matrix comm needs the KernelPlan")
+        gamma = self.config.gamma
+        xhat = mats["xhat"]
+        mixhat = self.comm.mix(xhat, r=r)
+        x_new = x_mat + gamma * (mixhat - xhat)
+        payload = self.codec.rows_pack(x_new - xhat, counts=counts, plan=plan)
+        new_mats = dict(mats)
+        new_mats["xhat"] = xhat + self.codec.rows_unpack(payload, plan=plan)
+        return x_new, new_mats
+
+    # -- comm-cost model ---------------------------------------------------------
+    def bytes_per_comm_round(self, params, r: int = 0) -> int:
+        """Per-worker wire bytes of communication round ``r``; ``params`` is
+        one worker's tree.  Codec wire: per leaf the codec's exact payload
+        (padding blocks included, they really ship), × the degree.
+        ``packed_wire=False`` ships the full-precision f32 q."""
+        if self.config.packed_wire and self.codec is not None:
+            payload = sum(
+                self.codec.wire_bytes(int(np.prod(tuple(l.shape),
+                                                  dtype=np.int64)))
+                for l in tree_leaves(params))
+            return self.comm.topology_at(r).degree * payload
+        bits = (32.0 if self.codec is not None
+                else self.compressor.wire_bits_per_element(
+                    tree_leaves(params)[0].dtype))
+        return gossip_bytes_per_round(params, self.comm,
+                                      bits_per_element=bits, r=r)

@@ -81,6 +81,10 @@ class PDSGDM:
                 "backend is ROADMAP queue A item 12")
         self.config = config
         self.comm = comm
+        # device copies of KernelPlan.row_counts, tiled over the workers,
+        # one per plan geometry: a steady-state round copies nothing from
+        # the host
+        self._counts: dict = {}
 
     # -- state ---------------------------------------------------------------
     def init(self, params) -> dict:
@@ -146,6 +150,26 @@ class PDSGDM:
         return params, state, torch.stack(losses)
 
     # -- kernel round: flatten once, local steps + gossip on (K, rows, 1024) --
+    @property
+    def kernel_comm_supported(self) -> bool:
+        """Whether :meth:`comm_round_mat` can run this optimizer's gossip on
+        the kernel matrix (PD-SGDM: always).  Where it cannot,
+        :meth:`kernel_round` unflattens and runs the tree ``comm_round`` at
+        the round boundary."""
+        return True
+
+    def row_counts(self, plan, mat) -> torch.Tensor:
+        """``plan.row_counts()`` on ``mat``'s device, tiled over its leading
+        worker dims: built and copied once per plan geometry."""
+        lead = tuple(mat.shape[:-2])
+        key = (plan, lead, mat.device)
+        counts = self._counts.get(key)
+        if counts is None:
+            counts = kops.tile_counts(plan.row_counts(mat.device), plan.rows,
+                                      lead)
+            self._counts[key] = counts
+        return counts
+
     def mat_state(self, plan, state) -> dict:
         """Flatten the per-element optimizer state into kernel matrices."""
         return {"m": plan.flatten(state["m"])}
@@ -224,12 +248,16 @@ class PDSGDM:
                                               step)
             step = step + 1
             losses.append(loss)
-        if gossip:
+        if gossip and self.kernel_comm_supported:
             r = step // self.config.p - 1
-            x_mat, mats = self.comm_round_mat(x_mat, mats, plan.row_counts(),
-                                              r, plan=plan)
+            x_mat, mats = self.comm_round_mat(
+                x_mat, mats, self.row_counts(plan, x_mat), r, plan=plan)
         params = plan.unflatten(x_mat)
         state = self.unmat_state(plan, mats, state, step)
+        if gossip and not self.kernel_comm_supported:
+            # e.g. CPD-SGDM with a codec that has no kernel format: the tree
+            # comm round at the boundary
+            params, state = self.comm_round(state, params)
         return params, state, torch.stack(losses)
 
     # -- comm-cost model ----------------------------------------------------------
@@ -246,7 +274,8 @@ class PDSGDM:
         return self._mat_wire_rows(params) * LANE * item
 
     def _kernel_wire_active(self) -> bool:
-        return self.config.use_kernel and self._mat_wire_static()
+        return (self.config.use_kernel and self.kernel_comm_supported
+                and self._mat_wire_static())
 
     def bytes_per_comm_round(self, params, r: int = 0) -> int:
         """Per-worker bytes of gossip round ``r``; ``params`` is one

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for the port's memory-bound hot spots.
 
-momentum    — fused SGDM update (PD-SGDM inner loop)
-gossip_mix  — fused W-row neighbour AXPY
+momentum       — fused SGDM update (PD-SGDM and CPD-SGDM inner loop)
+gossip_mix     — fused W-row neighbour AXPY (PD-SGDM gossip)
+sign_compress  — blockwise scaled-sign pack / unpack (CPD-SGDM sign wire)
+qsgd_quant     — blockwise QSGD quantize / dequantize (CPD-SGDM QSGD wire)
 
 Each kernel module holds a wrapper that checks its operands, launches the
 CUDA kernel on a CUDA tensor (or raises) and runs the plain PyTorch version

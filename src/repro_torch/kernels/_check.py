@@ -7,26 +7,44 @@ import torch
 from repro_torch.kernels import LANE
 
 
+def check_operand(t, name: str, dtype, shape, device) -> None:
+    """``t`` is a contiguous ``dtype`` tensor of exactly ``shape`` on
+    ``device`` (a CPU or CUDA device) and, on a CUDA device, 16-byte
+    aligned for the kernels' vector access."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def row_count(t, name: str) -> int:
+    """The leading (row) extent of tensor ``t``, which must be ≥ 1."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.dim() == 0 or t.shape[0] == 0:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} has no rows")
+    return t.shape[0]
+
+
 def check_matrix(t, name: str, like=None) -> None:
     """``t`` is a contiguous f32 ``(rows, LANE)`` tensor on a CPU or CUDA
     device — on ``like``'s device and of its shape when ``like`` is given —
     and, on a CUDA device, 16-byte aligned for the kernels' float4 access."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
-    if t.dim() != 2 or t.shape[1] != LANE:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"(rows, {LANE})")
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
     if like is not None:
-        if t.device != like.device:
-            raise ValueError(f"{name}: on {t.device}, expected {like.device}")
-        if t.shape != like.shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                             f"{tuple(like.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    if t.device.type == "cuda" and t.data_ptr() % 16:
-        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+        check_operand(t, name, torch.float32, like.shape, like.device)
+    else:
+        rows = t.shape[0] if t.dim() == 2 else -1
+        check_operand(t, name, torch.float32, (rows, LANE), t.device)

@@ -1,6 +1,6 @@
 """The flatten-once kernel layout (``KernelPlan``) and the matrix wrappers.
 
-Port of ``src/repro/kernels/ops.py:54-218``.  Every kernel works on one
+Port of ``src/repro/kernels/ops.py:54-295``.  Every kernel works on one
 layout: an f32 matrix of shape ``(rows, 1024)``, or ``(K, rows, 1024)``
 with a leading worker dim.  ``KernelPlan`` maps a flat param dict onto it:
 
@@ -26,12 +26,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import LANE
+from repro_torch.kernels import qsgd_quant as qq
+from repro_torch.kernels import sign_compress as sc
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.momentum import momentum_update
 from repro_torch.tree import leaf_order
 
 __all__ = ["KernelPlan", "PLAN_BLOCK_ROWS", "LANE", "momentum_update_mat",
-           "gossip_mix_mat", "delayed_mix_mat"]
+           "gossip_mix_mat", "delayed_mix_mat", "tile_counts", "sign_pack",
+           "sign_unpack", "qsgd_pack", "qsgd_unpack"]
 
 # The reference pads rows to the lcm of its Pallas kernels' BLOCK_ROWS
 # (128 and 256); the port keeps that value so both layouts have equal rows.
@@ -109,15 +112,18 @@ class KernelPlan:
             return mat
         return mat[..., :self.used_rows, :]
 
-    def row_counts(self) -> torch.Tensor:
-        """(rows, 1) f32 on the CPU: valid elements per row (the sign-scale
-        divisor of the compressed wire)."""
+    def row_counts(self, device=None) -> torch.Tensor:
+        """(rows, 1) f32 on ``device`` (the CPU by default): valid elements
+        per row, the sign-scale divisor of the compressed wire.  Built on
+        the host, so each call on a card copies it over: callers on the
+        round's path keep one device copy per plan (see
+        :func:`tile_counts`)."""
         c = np.zeros((self.rows,), np.float32)
         for s in self.slots:
             c[s.row_start:s.row_start + s.n_rows] = float(LANE)
             c[s.row_start + s.n_rows - 1] = float(
                 s.size - (s.n_rows - 1) * LANE)
-        return torch.from_numpy(c).reshape(self.rows, 1)
+        return torch.from_numpy(c).reshape(self.rows, 1).to(device)
 
     # -- tree ⇄ matrix -----------------------------------------------------
     def flatten(self, tree: dict) -> torch.Tensor:
@@ -175,3 +181,54 @@ def delayed_mix_mat(x_mat, dx_mat):
     """Land an overlapped round's one-round-stale correction on the
     matrix: ``x + dx`` as the fused AXPY with weights (1, 1)."""
     return gossip_mix_mat((x_mat, dx_mat), (1.0, 1.0))
+
+
+def tile_counts(counts: torch.Tensor, rows: int, lead) -> torch.Tensor:
+    """The ``(N·rows, 1)`` counts operand of a ``(*lead, rows, 1024)``
+    matrix folded onto rows (N = prod(lead)): ``counts`` of ``rows``
+    elements is tiled over the leading worker dims (the per-row layout is
+    the same for every worker); one of ``N·rows`` elements is taken as
+    already tiled.  Port of ``_tile_counts`` (reference ``ops.py:243``)."""
+    n = int(np.prod(tuple(lead), dtype=np.int64))
+    c = counts.reshape(-1, 1)
+    if c.shape[0] == rows and n != 1:
+        c = c.repeat(n, 1)
+    if c.shape[0] != n * rows:
+        raise ValueError(f"counts of {counts.numel()} rows for {n} × {rows} "
+                         "kernel rows")
+    return c
+
+
+def sign_pack(x_mat, counts):
+    """(..., rows, 1024) → (packed (..., rows, 128) u8, scales
+    (..., rows, 1) f32).  ``counts``: per-row valid lengths on the
+    matrix's device, per worker or tiled (:func:`tile_counts`)."""
+    lead, rows = x_mat.shape[:-2], x_mat.shape[-2]
+    packed, scales = sc.sign_pack(_rows2d(x_mat),
+                                  tile_counts(counts, rows, lead))
+    return (packed.reshape(lead + (rows, sc.PACKED)),
+            scales.reshape(lead + (rows, 1)))
+
+
+def sign_unpack(packed, scales):
+    """Inverse of :func:`sign_pack`: (..., rows, 1024) f32 = scale·sign."""
+    lead, rows = packed.shape[:-2], packed.shape[-2]
+    out = sc.sign_unpack(packed.reshape(-1, sc.PACKED), scales.reshape(-1, 1))
+    return out.reshape(lead + (rows, LANE))
+
+
+def qsgd_pack(x_mat, *, levels: int):
+    """(..., rows, 1024) → (levels (..., rows, 1024·bits/8) u8, norms
+    (..., rows, 1) f32): the blockwise QSGD wire payload."""
+    lead, rows = x_mat.shape[:-2], x_mat.shape[-2]
+    packed, norms = qq.qsgd_quant(_rows2d(x_mat), levels=levels)
+    return (packed.reshape(lead + (rows, packed.shape[-1])),
+            norms.reshape(lead + (rows, 1)))
+
+
+def qsgd_unpack(packed, norms, *, levels: int):
+    """Inverse of :func:`qsgd_pack`: (..., rows, 1024) f32."""
+    lead, rows = packed.shape[:-2], packed.shape[-2]
+    out = qq.qsgd_dequant(packed.reshape(-1, packed.shape[-1]),
+                          norms.reshape(-1, 1), levels=levels)
+    return out.reshape(lead + (rows, LANE))

@@ -7,10 +7,21 @@ call, so every product and sum is rounded separately — the CUDA kernels
 pin the same rounding with ``__fmul_rn``/``__fadd_rn`` and are bit-exact
 against these.  Python float scalars (μ, wd, weights) are rounded to f32
 by PyTorch, as the kernels' launch arguments are.
+
+The codec rows math lives here once, for the kernels' plain versions and
+for the per-leaf codecs of :mod:`repro_torch.core.compression` and
+:mod:`repro_torch.core.wire` alike: :func:`tree_sum` (the one summation
+order of the sign scale), :func:`qsgd_bits` and the QSGD level arithmetic.
 """
 from __future__ import annotations
 
-__all__ = ["momentum_update_ref", "gossip_mix_ref"]
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["momentum_update_ref", "gossip_mix_ref", "tree_sum", "qsgd_bits",
+           "qsgd_inv_levels", "sign_pack_rows_ref", "sign_unpack_ref",
+           "qsgd_rows_ref", "qsgd_rows_unpack_ref"]
 
 
 def momentum_update_ref(x, m, g, lr, *, mu, wd=0.0, nesterov=False):
@@ -30,3 +41,96 @@ def gossip_mix_ref(tensors, weights):
     for w, t in zip(weights[1:], tensors[1:]):
         acc = acc + w * t
     return acc
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a fixed balanced binary tree: neighbours
+    first, then neighbouring pairs, and so on (zero-padded to a power of
+    two).  The reference's Pallas sign kernel sums with ``jnp.sum``, whose
+    order is not pinned; the port pins this one in the plain version, the
+    per-leaf codec and the CUDA kernel alike, so all three agree bit for
+    bit."""
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = F.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _pack_fields(u: torch.Tensor, bits: int) -> torch.Tensor:
+    """(R, B) u8 fields of ``bits`` bits → (R, B·bits/8) u8, element ``i``
+    of each group of ``8/bits`` at bit ``bits·i`` (LSB first)."""
+    vpb = 8 // bits
+    shifts = bits * torch.arange(vpb, dtype=torch.uint8, device=u.device)
+    grouped = u.reshape(u.shape[0], -1, vpb) << shifts
+    return grouped.sum(-1).to(torch.uint8)
+
+
+def _unpack_fields(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_fields`: (R, W) u8 → (R, W·8/bits) u8."""
+    vpb = 8 // bits
+    shifts = bits * torch.arange(vpb, dtype=torch.uint8, device=packed.device)
+    fields = (packed[:, :, None] >> shifts) & ((1 << bits) - 1)
+    return fields.reshape(packed.shape[0], -1)
+
+
+def sign_pack_rows_ref(x, counts):
+    """x (R, B) f32, counts (R, 1) f32 valid elements per row → ``(packed
+    (R, B/8) u8, scales (R, 1) f32)``: ``scale = tree_sum(|x|) /
+    max(count, 1)`` (padding lanes are zero, so only the divisor needs the
+    count); bit ``x ≥ 0`` (−0.0 and padding pack as 1)."""
+    scales = tree_sum(x.abs()) / torch.clamp(counts.reshape(-1), min=1.0)
+    packed = _pack_fields((x >= 0).to(torch.uint8), 1)
+    return packed, scales.reshape(-1, 1)
+
+
+def sign_unpack_ref(packed, scales):
+    """(R, B/8) u8, (R, 1) f32 → (R, B) f32 ``(2·bit − 1)·scale``: a zero
+    scale decodes to ±0 by the bit."""
+    signs = _unpack_fields(packed, 1).to(torch.float32) * 2.0 - 1.0
+    return signs * scales.reshape(-1, 1)
+
+
+def qsgd_bits(levels: int) -> int:
+    """Bits per element packing the 2·levels+1 symmetric quantization
+    levels: the smallest divisor of 8 that holds them (so whole elements
+    pack into bytes)."""
+    need = 2 * levels + 1
+    for b in (2, 4, 8):
+        if (1 << b) >= need:
+            return b
+    raise ValueError(f"qsgd levels={levels} needs > 8 bits; use ≤ 127")
+
+
+def qsgd_inv_levels(levels: int) -> float:
+    """``1/s`` as the f32 the reference precomputes (``np.float32(1) /
+    np.float32(levels)``), held in a Python float that converts to that f32
+    exactly."""
+    return float(np.float32(1.0) / np.float32(levels))
+
+
+def qsgd_rows_ref(x, levels: int):
+    """x (R, B) f32 → ``(packed (R, B·bits/8) u8, norms (R, 1) f32)``:
+    ``norm = max|x|``; ``u = rint(x·(s / max(norm, 1e-30))) + s`` with
+    round-half-even, packed ``8/bits`` per byte."""
+    bits = qsgd_bits(levels)
+    s = float(levels)
+    norms = x.abs().amax(dim=1, keepdim=True)
+    # a tensor divided by a tensor: PyTorch computes ``scalar / tensor``
+    # as ``reciprocal(tensor) · scalar``, which is not the IEEE quotient
+    qscale = torch.full_like(norms, s) / torch.clamp(norms, min=1e-30)
+    u = (torch.round(x * qscale) + s).to(torch.uint8)
+    return _pack_fields(u, bits), norms
+
+
+def qsgd_rows_unpack_ref(packed, norms, levels: int):
+    """Inverse of :func:`qsgd_rows_ref` → (R, B) f32 ``(u − s)·(inv_s·norm)``
+    with ``inv_s`` the reference's f32 reciprocal, then ``+0`` where
+    ``norm ≤ 0``."""
+    u = _unpack_fields(packed, qsgd_bits(levels))
+    norms = norms.reshape(-1, 1)
+    scale = qsgd_inv_levels(levels) * norms
+    vals = (u.to(torch.float32) - float(levels)) * scale
+    return torch.where(norms > 0, vals, 0.0)

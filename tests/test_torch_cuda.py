@@ -6,8 +6,9 @@ reference package, so it runs on a GPU machine that has neither:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-The kernels pin their rounding (``__fmul_rn``/``__fadd_rn``), so each must
-equal its plain version bit for bit.
+The kernels pin their rounding (``__fmul_rn``/``__fadd_rn``, the sign
+scale's sum order, ``rintf``), so each must equal its plain version bit for
+bit, signs of zero included.
 """
 import numpy as np
 import pytest
@@ -17,7 +18,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import LANE  # noqa: E402
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
-from repro_torch.kernels.ref import gossip_mix_ref, momentum_update_ref  # noqa: E402
+from repro_torch.kernels.qsgd_quant import qsgd_dequant, qsgd_quant  # noqa: E402
+from repro_torch.kernels.ref import (gossip_mix_ref,  # noqa: E402
+                                     momentum_update_ref, qsgd_rows_ref,
+                                     qsgd_rows_unpack_ref, sign_pack_rows_ref,
+                                     sign_unpack_ref)
+from repro_torch.kernels.sign_compress import sign_pack, sign_unpack  # noqa: E402
 
 
 def _mats(seed, n, rows):
@@ -94,3 +100,116 @@ def test_kernel_round_on_card_matches_tree_round():
     assert launches == {True: (P, 1), False: (0, 0)}
     for name, want in out[False].items():
         assert torch.allclose(out[True][name], want, rtol=1e-3, atol=1e-4), name
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _codec_rows(rows, seed):
+    """Random rows with the edge cases of the codecs: counts 0, partial and
+    full, zero rows, −0.0 entries and QSGD rounding ties."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, LANE), dtype=np.float32)
+    counts = np.full((rows, 1), float(LANE), np.float32)
+    for r, n in ((1, 0), (2, 17), (3, 1), (rows - 1, 0)):
+        x[r, n:] = 0.0
+        counts[r] = n
+    x[4] = 0.0
+    x[5] = -0.0
+    x[6, ::3] = -0.0
+    x[7] = np.resize(np.arange(-6.5, 7.0, 1.0, dtype=np.float32), LANE)
+    x[7, 0] = 7.0                      # norm 7 = s at levels 7: exact ties
+    return x, counts
+
+
+@pytest.mark.cuda
+def test_codec_kernels_bit_exact_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    for rows in (4096, 333):
+        x, counts = (torch.from_numpy(a).to(dev) for a in _codec_rows(rows,
+                                                                       rows))
+        before = (sign_pack.launches, sign_unpack.launches)
+        got = sign_pack(x, counts)
+        want = sign_pack_rows_ref(x, counts)
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+        y = sign_unpack(*got)
+        torch.cuda.synchronize()
+        assert _same_bits(y, sign_unpack_ref(*got))
+        assert (sign_pack.launches, sign_unpack.launches) == \
+            (before[0] + 1, before[1] + 1)
+        for levels in (1, 7, 127):
+            before = (qsgd_quant.launches, qsgd_dequant.launches)
+            got = qsgd_quant(x, levels=levels)
+            want = qsgd_rows_ref(x, levels)
+            assert all(_same_bits(a, b) for a, b in zip(got, want))
+            y = qsgd_dequant(*got, levels=levels)
+            torch.cuda.synchronize()
+            assert _same_bits(y, qsgd_rows_unpack_ref(*got, levels))
+            assert (qsgd_quant.launches, qsgd_dequant.launches) == \
+                (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError):
+        sign_pack(x, counts.cpu())                # counts on another device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sign", "qsgd"])
+def test_cpd_kernel_round_on_card_matches_tree_round(kind):
+    """One CPD-SGDM round of ResNet-20 (width 4, K = 8 ring, batch 2) on the
+    card.  The kernel round launches p momentum kernels, one codec pack and
+    one unpack and no gossip kernel; the tree round packs through the same
+    codec kernels.  Params within atol 1e-4 / rtol 1e-3; x̂ too, except
+    where the two consensus products put the drift on opposite sides of a
+    sign or a QSGD tie, which moves x̂ by one quantum there (at most
+    2·max|drift|) in a handful of elements."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import (DenseComm, QSGDCompressor, SignCompressor,
+                                  make_optimizer, ring)
+    from repro_torch.data.synthetic import ClassStreamCfg, class_batch
+    from repro_torch.models.resnet import resnet20_init, resnet20_loss
+    from repro_torch.train.trainer import SimTrainer
+    K, P = 8, 4
+    comp = SignCompressor() if kind == "sign" else QSGDCompressor(levels=7)
+    pack, unpack = ((sign_pack, sign_unpack) if kind == "sign"
+                    else (qsgd_quant, qsgd_dequant))
+    counters = (momentum_update, gossip_mix, pack, unpack)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        init = resnet20_init(torch.Generator().manual_seed(0), width=4)
+        params = {k: v.unsqueeze(0).repeat((K,) + (1,) * v.dim())
+                  for k, v in init.items()}
+        cfg = ClassStreamCfg(batch=2, n_workers=K)
+        out, launches = {}, {}
+        for use_kernel in (True, False):
+            opt = make_optimizer("cpd_sgdm", DenseComm(ring(K)), p=P, eta=0.1,
+                                 mu=0.9, weight_decay=1e-4, gamma=0.4,
+                                 compressor=comp, use_kernel=use_kernel)
+            before = [f.launches for f in counters]
+            got, state, _ = SimTrainer(resnet20_loss, opt).train(
+                params, lambda t: class_batch(cfg, t), P)
+            out[use_kernel] = (got, state["xhat"])
+            launches[use_kernel] = tuple(f.launches - b
+                                         for f, b in zip(counters, before))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    assert launches == {True: (P, 0, 1, 1), False: (0, 0, 1, 1)}
+    (pk, hk), (pt, ht) = out[True], out[False]
+    drift = max(float((pt[n] - params[n]).abs().max()) for n in pt)
+    for name, want in pt.items():
+        assert torch.allclose(pk[name], want, rtol=1e-3, atol=1e-4), name
+        near = torch.isclose(hk[name], ht[name], rtol=1e-3, atol=1e-4)
+        gap = (hk[name] - ht[name]).abs()
+        assert int((~near).sum()) <= 8, name
+        assert bool((gap[~near] <= 2 * drift).all()), name

@@ -78,6 +78,26 @@ def test_kernel_plan_equals_reference(kind, worker_dim):
     np.testing.assert_array_equal(wire.numpy(), np.asarray(theirs.wire(rmat)))
 
 
+def test_row_counts_on_the_device_tiled_over_workers():
+    """The optimizer's counts operand: the reference's ``row_counts()``
+    tiled over the K workers, exactly, on the matrix's device, built once
+    per plan geometry and reused by every later round."""
+    from repro_torch.core import DenseComm, make_optimizer, ring
+    tree = params_from_reference(_stack(_tree("resnet_w4")), "cpu")
+    plan = KernelPlan.for_tree(tree, worker_dim=True)
+    mat = plan.flatten(tree)
+    opt = make_optimizer("cpd_sgdm", DenseComm(ring(K), device="cpu"))
+    counts = opt.row_counts(plan, mat)
+    theirs = RPlan.for_tree(jax.tree_util.tree_map(jnp.asarray,
+                                                   _stack(_tree("resnet_w4"))),
+                            worker_dim=True).row_counts()
+    assert counts.dtype == torch.float32 and counts.device == mat.device
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.tile(np.asarray(theirs), (K, 1)))
+    assert opt.row_counts(plan, mat) is counts
+    assert plan.row_counts("cpu").shape == (plan.rows, 1)
+
+
 def test_resnet20_width16_geometry():
     """The paper's ResNet-20: 61 leaves, 272,282 params, 310 of 512 rows."""
     plan = KernelPlan.for_tree(params_from_reference(_tree("resnet_w16"),
@@ -118,6 +138,10 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_and_no_reference():
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for module in ("core/cpdsgdm.py", "core/wire.py", "core/compression.py",
+                   "kernels/sign_compress.py", "kernels/qsgd_quant.py"):
+        assert os.path.join("src", "repro_torch", module) in scanned
     forbidden = []
     for path in _port_sources():
         for mod in _imported_modules(path):

@@ -239,8 +239,8 @@ def test_schedules_match_reference(name, args):
 
 def test_optimizer_factory_refuses_what_this_slice_does_not_port():
     comm = DenseComm(ring(K), device="cpu")
-    for name, item in (("c_sgdm", "item 4"), ("cpd_sgdm", "item 5"),
-                       ("choco", "item 5"), ("mt_dsgdm", "item 8")):
+    for name, item in (("c_sgdm", "item 4"), ("mt_dsgdm", "item 8"),
+                       ("qg_dsgdm", "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             make_optimizer(name, comm)
     with pytest.raises(NotImplementedError, match="item 9"):
