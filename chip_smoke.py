@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # build, check, train, report
-    python3 chip_smoke.py --profile    # also profile one PD-SGDM and one
-                                       # CPD-SGDM (sign) round into the
-                                       # output directory (profile_round)
+    python3 chip_smoke.py --profile    # also profile one round of each
+                                       # path into the output directory
+                                       # (profile_round)
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all at once) and then, with TF32 off for convolutions and
@@ -15,16 +15,25 @@ matmuls:
    kernel, the plain version and (where one exists) the single PyTorch call
    that computes the same function; the codec kernels run at the
    ResNet-20 row counts and at ragged rows with their edge cases, QSGD at
-   levels 1, 7 and 127;
-2. trains three paths through the port's entry points (``make_optimizer``
-   → ``SimTrainer.train``), each once, with every launch counter set to 0
-   just before and read just after: PD-SGDM, CPD-SGDM with the default
-   sign compressor and CPD-SGDM with ``QSGDCompressor(levels=7)`` (γ =
-   0.4), all on the kernel layout, ResNet-20 at width 16, K = 8 workers on
-   a ring, batch 16 per worker, p = 4, η = 0.1, μ = 0.9, weight decay 1e-4,
-   14 steps (3 rounds and a 2-step tail);
-3. holds one kernel-path round against one tree-path round from the same
-   init on the same batches, for each of the three.
+   levels 1, 7 and 127, top-k at W = 2, 11, 103 and 128, the row gather
+   and scatter at the embedding plan and at ragged rows;
+2. drives five paths through the port's entry points, each once, with
+   every launch counter set to 0 just before and read just after:
+   PD-SGDM, CPD-SGDM with the default sign compressor, with
+   ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
+   ``TopKCompressor(fraction=0.1)`` (γ = 0.2), all through
+   ``make_optimizer`` → ``SimTrainer.train`` on the kernel layout,
+   ResNet-20 at width 16, K = 8 workers on a ring, batch 16 per worker,
+   p = 4, η = 0.1, μ = 0.9, weight decay 1e-4, 14 steps (3 rounds and a
+   2-step tail); and CPD-SGDM with ``SparseRowsCompressor(max_rows=64)``
+   through ``CPDSGDM.round`` on a (65,536 × 64) f32 embedding table per
+   worker, K = 4 on a ring, Zipf lookups of batch 64, p = 4, η = 0.05,
+   γ = 0.4 (the reference's ``benchmarks/embedding_wire.py``), 3 rounds
+   and a 2-step tail;
+3. holds one kernel-path round against one round of the plain path from
+   the same init on the same batches, for each of the five: for PD-SGDM
+   the tree round, for every CPD-SGDM wire the round through the per-leaf
+   codec, which launches no codec kernel.
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, one JSON line
@@ -59,10 +68,17 @@ K, WIDTH, BATCH, P, STEPS = 8, 16, 16, 4, 14
 HYPER = dict(eta=0.1, mu=0.9, p=P, weight_decay=1e-4)
 GAMMA = 0.4
 QSGD_LEVELS = 7             # the 4-bit QSGD wire of Fig. 3
-# per worker per round, on 310 used rows and 2 ring neighbours
+TOPK_FRACTION, TOPK_GAMMA = 0.1, 0.2    # Fig. 3's cpd_sgdm_p4_top10pct
+# the embedding table of benchmarks/embedding_wire.py, at its largest size
+EMB_K, EMB_ROWS, EMB_DIM, EMB_BATCH, EMB_MAX_ROWS = 4, 65536, 64, 64, 64
+EMB_HYPER = dict(eta=0.05, mu=0.9, p=P, gamma=0.4, weight_decay=0.0)
+# per worker per round, on 310 used rows (ResNet-20) or the table's 4,096
+# rows, and 2 ring neighbours
 WIRE_BYTES = {"pd_sgdm": 2_539_520,         # 2 × 310 × 1024 × 4 B
               "cpd_sgdm_sign": 81_840,      # 2 × 310 × (128 + 4) B
-              "cpd_sgdm_qsgd": 319_920}     # 2 × 310 × (512 + 4) B
+              "cpd_sgdm_qsgd": 319_920,     # 2 × 310 × (512 + 4) B
+              "cpd_sgdm_topk": 510_880,     # 2 × 310 × 103 × (4 + 4) B
+              "cpd_sgdm_sparse": 524_800}   # 2 × 64 × (4 + 4096) B
 SPIN_CYCLES = 2_000_000     # about 1 ms at the H100's 1.98 GHz boost clock
 # the TPU kernel each CUDA kernel replaces (pl.pallas_call line) and its source
 SOURCES = {"momentum_update": ("momentum.cu", "momentum.py:56"),
@@ -70,7 +86,11 @@ SOURCES = {"momentum_update": ("momentum.cu", "momentum.py:56"),
            "sign_pack": ("sign_compress.cu", "sign_compress.py:81"),
            "sign_unpack": ("sign_compress.cu", "sign_compress.py:102"),
            "qsgd_quant": ("qsgd_quant.cu", "qsgd_quant.py:86"),
-           "qsgd_dequant": ("qsgd_quant.cu", "qsgd_quant.py:109")}
+           "qsgd_dequant": ("qsgd_quant.cu", "qsgd_quant.py:109"),
+           "topk_select": ("topk_select.cu", "topk_select.py:95"),
+           "topk_scatter": ("topk_select.cu", "topk_select.py:117"),
+           "row_gather": ("row_gather.cu", "row_gather.py:88"),
+           "row_scatter": ("row_gather.cu", "row_gather.py:116")}
 
 
 def peaks(name: str):
@@ -310,6 +330,151 @@ def codec_kernel_phase(torch, ops, bw, f32_peak):
     return timings
 
 
+def ragged_topk_rows(torch, gen, lane):
+    """:func:`ragged_codec_rows` plus top-k's own edge cases: rows
+    quantized to a few values, so ties abound, −0.0 among a row's largest
+    and below its zeros."""
+    x, counts = ragged_codec_rows(torch, gen, lane)
+    x[8] = torch.round(x[8] * 2.0) / 2.0
+    x[9] = torch.sign(x[9])
+    x[10, :200] = -0.0
+    x[10, 200:] = 0.0
+    x[11, :700] = 0.0
+    x[11, 900:] = -0.0
+    return x, counts
+
+
+def topk_kernel_phase(torch, ops, bw, f32_peak):
+    """The top-k select and scatter against their plain versions, bit for
+    bit, at the main path's rows (ResNet-20 width 16 over K = 8, its real
+    row counts) and at ragged rows, at f = 0.001, 0.01, 0.1 and 0.125
+    (W = 2, 11, 103, 128); times at the main path's f = 0.1."""
+    from repro_torch.kernels.ref import topk_rows_ref, topk_rows_unpack_ref
+    from repro_torch.kernels.topk_select import topk_scatter, topk_select
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    params = stacked_init(torch, 2)
+    plan = ops.KernelPlan.for_tree(params, worker_dim=True)
+    counts_main = ops.tile_counts(plan.row_counts(dev), plan.rows, (K,))
+    x_main = plan.flatten({k: torch.randn(v.shape, generator=gen, device=dev)
+                           for k, v in params.items()}).reshape(-1, ops.LANE)
+    x_rag, counts_rag = ragged_topk_rows(torch, gen, ops.LANE)
+    results = {}
+    for label, x, counts in (("main", x_main, counts_main),
+                             ("ragged", x_rag, counts_rag)):
+        for fraction in (0.001, 0.01, TOPK_FRACTION, 0.125):
+            got = topk_select(x, counts, fraction=fraction)
+            same_bits(torch, "topk_select", got,
+                      topk_rows_ref(x, counts, fraction=fraction), results,
+                      f"{label}, f={fraction}")
+            same_bits(torch, "topk_scatter", (topk_scatter(*got),),
+                      (topk_rows_unpack_ref(*got, ops.LANE),), results,
+                      f"{label}, f={fraction}")
+        print(f"kernel topk_select/topk_scatter rows={x.shape[0]} "
+              f"(W = 2, 11, 103, 128): bit-exact")
+
+    rows, n = x_main.shape[0], x_main.numel()
+    f = TOPK_FRACTION
+    idx, vals = topk_select(x_main, counts_main, fraction=f)
+    w = idx.shape[1]
+    idx64 = idx.long()
+    slots = rows * w * 8                        # i32 idx + f32 val
+    timings = {
+        "topk_select": dict(
+            ms=time_ms(torch, lambda: topk_select(x_main, counts_main,
+                                                  fraction=f)),
+            plain_ms=time_ms(torch, lambda: topk_rows_ref(
+                x_main, counts_main, fraction=f)),
+            library_ms=time_ms(torch, lambda: torch.topk(x_main.abs(), w,
+                                                         dim=1)),
+            bytes=4 * n + 4 * rows + slots, flops=2 * n),    # |x|, compare
+        "topk_scatter": dict(
+            ms=time_ms(torch, lambda: topk_scatter(idx, vals)),
+            plain_ms=time_ms(torch, lambda: topk_rows_unpack_ref(
+                idx, vals, ops.LANE)),
+            # zeros + scatter_add_ (int64 indices, converted once)
+            library_ms=time_ms(torch, lambda: torch.zeros(
+                (rows, ops.LANE), device=dev).scatter_add_(1, idx64, vals)),
+            bytes=slots + 4 * n, flops=rows * w),            # one add a slot
+    }
+    finish_timings(timings, results, bw, f32_peak, tuple(x_main.shape))
+    return timings
+
+
+def row_kernel_phase(torch, ops, bw, f32_peak):
+    """The row gather and scatter against their plain versions, bit for
+    bit, at the embedding path's plan ((4, 4096, 1024), 64 sorted distinct
+    rows per worker) and at ragged rows (counts 0, 1, 17 and full, a −0.0
+    row, −0.0 in the payload); times at the embedding plan."""
+    from repro_torch.kernels.ref import row_gather_ref, row_scatter_ref
+    from repro_torch.kernels.row_gather import row_gather, row_scatter
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(8765)
+    table = {"table": torch.randn((EMB_K, EMB_ROWS, EMB_DIM), generator=gen,
+                                  device=dev)}
+    plan = ops.KernelPlan.for_tree(table, worker_dim=True)
+    x_main = plan.flatten(table)
+    counts_main = ops.tile_counts(plan.row_counts(dev), plan.rows, (EMB_K,))
+    idx_main = torch.sort(torch.stack([
+        torch.randperm(plan.rows, generator=gen, device=dev)[:EMB_MAX_ROWS]
+        for _ in range(EMB_K)]), dim=1)[0].to(torch.int32)
+    k_rag, rows_rag = 3, 333
+    x_rag = torch.randn((k_rag, rows_rag, ops.LANE), generator=gen,
+                        device=dev)
+    x_rag[:, 1] = -0.0
+    counts_rag = torch.full((k_rag * rows_rag, 1), float(ops.LANE),
+                            device=dev)
+    for r, c in ((1, 17), (2, 0), (3, 1), (rows_rag + 1, 0),
+                 (2 * rows_rag + 3, 17)):
+        counts_rag[r] = c
+    idx_rag = torch.tensor([[1, 2, 3, 100 + k, rows_rag - 1]
+                            for k in range(k_rag)], dtype=torch.int32,
+                           device=dev)
+    results = {}
+    for label, x, idx, counts in (("main", x_main, idx_main, counts_main),
+                                  ("ragged", x_rag, idx_rag, counts_rag)):
+        for c in (counts, None):
+            same_bits(torch, "row_gather", (row_gather(x, idx, c),),
+                      (row_gather_ref(x, idx, c),), results, label)
+        g = row_gather(x, idx, counts)
+        g[:, :, ::5] = -0.0
+        same_bits(torch, "row_scatter",
+                  (row_scatter(idx, g, rows=x.shape[1]),),
+                  (row_scatter_ref(idx, g, rows=x.shape[1]),), results, label)
+        print(f"kernel row_gather/row_scatter K={x.shape[0]} "
+              f"rows={x.shape[1]} S={idx.shape[1]}: bit-exact")
+
+    k, rows, s = EMB_K, plan.rows, EMB_MAX_ROWS
+    g = row_gather(x_main, idx_main, counts_main)
+    src = (idx_main.long() + rows * torch.arange(k, device=dev)[:, None]
+           ).reshape(-1)
+    x2d, g2d = x_main.reshape(-1, ops.LANE), g.reshape(-1, ops.LANE)
+    row = 4 * ops.LANE
+    timings = {
+        "row_gather": dict(
+            ms=time_ms(torch, lambda: row_gather(x_main, idx_main,
+                                                 counts_main)),
+            plain_ms=time_ms(torch, lambda: row_gather_ref(
+                x_main, idx_main, counts_main)),
+            library_ms=time_ms(torch, lambda: torch.index_select(x2d, 0,
+                                                                 src)),
+            bytes=k * s * (row + 4 + 4) + k * s * row,
+            flops=k * s * ops.LANE),                  # one compare a lane
+        "row_scatter": dict(
+            ms=time_ms(torch, lambda: row_scatter(idx_main, g, rows=rows)),
+            plain_ms=time_ms(torch, lambda: row_scatter_ref(idx_main, g,
+                                                            rows=rows)),
+            # zeros + index_copy_ (the rows are distinct)
+            library_ms=time_ms(torch, lambda: torch.zeros(
+                (k * rows, ops.LANE), device=dev).index_copy_(0, src, g2d)),
+            bytes=k * s * (4 + row) + k * rows * row,  # the output whole
+            flops=k * s * ops.LANE),                  # one add a lane
+    }
+    finish_timings(timings, results, bw, f32_peak,
+                   (k, rows, ops.LANE, "S", s))
+    return timings
+
+
 def stacked_init(torch, seed: int):
     from repro_torch.models.resnet import resnet20_init
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -324,19 +489,26 @@ def batch_fn(seed: int):
     return lambda t: class_batch(cfg, t, DEVICE)
 
 
-# the three paths, the kernels each must launch in a 14-step run, and the
+# the five paths, the kernels each must launch in a 14-step run, and the
 # path whose run each kernel's reported launches come from
-PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd")
+PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
+         "cpd_sgdm_sparse")
 EXPECTED = {
     "pd_sgdm": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
     "cpd_sgdm_sign": {"momentum_update": STEPS, "sign_pack": STEPS // P,
                       "sign_unpack": STEPS // P},
     "cpd_sgdm_qsgd": {"momentum_update": STEPS, "qsgd_quant": STEPS // P,
                       "qsgd_dequant": STEPS // P},
+    "cpd_sgdm_topk": {"momentum_update": STEPS, "topk_select": STEPS // P,
+                      "topk_scatter": STEPS // P},
+    "cpd_sgdm_sparse": {"momentum_update": STEPS, "row_gather": STEPS // P,
+                        "row_scatter": STEPS // P},
 }
 OWNER = {"momentum_update": "pd_sgdm", "gossip_mix": "pd_sgdm",
          "sign_pack": "cpd_sgdm_sign", "sign_unpack": "cpd_sgdm_sign",
-         "qsgd_quant": "cpd_sgdm_qsgd", "qsgd_dequant": "cpd_sgdm_qsgd"}
+         "qsgd_quant": "cpd_sgdm_qsgd", "qsgd_dequant": "cpd_sgdm_qsgd",
+         "topk_select": "cpd_sgdm_topk", "topk_scatter": "cpd_sgdm_topk",
+         "row_gather": "cpd_sgdm_sparse", "row_scatter": "cpd_sgdm_sparse"}
 
 
 def counters() -> dict:
@@ -344,113 +516,197 @@ def counters() -> dict:
     from repro_torch.kernels.gossip_mix import gossip_mix
     from repro_torch.kernels.momentum import momentum_update
     from repro_torch.kernels.qsgd_quant import qsgd_dequant, qsgd_quant
+    from repro_torch.kernels.row_gather import row_gather, row_scatter
     from repro_torch.kernels.sign_compress import sign_pack, sign_unpack
+    from repro_torch.kernels.topk_select import topk_scatter, topk_select
     return {"momentum_update": momentum_update, "gossip_mix": gossip_mix,
             "sign_pack": sign_pack, "sign_unpack": sign_unpack,
-            "qsgd_quant": qsgd_quant, "qsgd_dequant": qsgd_dequant}
+            "qsgd_quant": qsgd_quant, "qsgd_dequant": qsgd_dequant,
+            "topk_select": topk_select, "topk_scatter": topk_scatter,
+            "row_gather": row_gather, "row_scatter": row_scatter}
 
 
-def trainer_for(path: str, use_kernel: bool):
-    from repro_torch.core import (DenseComm, QSGDCompressor, make_optimizer,
-                                  ring)
-    from repro_torch.models.resnet import resnet20_loss
-    from repro_torch.train.trainer import SimTrainer
+def make_opt(path: str, use_kernel: bool):
+    """The optimizer of ``path``, built as a user builds it."""
+    from repro_torch.core import (CPDSGDM, CPDSGDMConfig, DenseComm,
+                                  QSGDCompressor, SparseRowsCompressor,
+                                  TopKCompressor, make_optimizer, ring)
+    if path == "cpd_sgdm_sparse":
+        return CPDSGDM(CPDSGDMConfig(use_kernel=use_kernel, **EMB_HYPER),
+                       DenseComm(ring(EMB_K), device=DEVICE),
+                       SparseRowsCompressor(max_rows=EMB_MAX_ROWS))
     comm = DenseComm(ring(K), device=DEVICE)
     if path == "pd_sgdm":
-        opt = make_optimizer("pd_sgdm", comm, use_kernel=use_kernel, **HYPER)
-    else:
-        comp = (QSGDCompressor(levels=QSGD_LEVELS)
-                if path == "cpd_sgdm_qsgd" else None)   # None: sign
-        opt = make_optimizer("cpd_sgdm", comm, gamma=GAMMA, compressor=comp,
-                             use_kernel=use_kernel, **HYPER)
-    return SimTrainer(resnet20_loss, opt, device=DEVICE)
+        return make_optimizer("pd_sgdm", comm, use_kernel=use_kernel, **HYPER)
+    comp, gamma = {
+        "cpd_sgdm_sign": (None, GAMMA),                   # None: sign
+        "cpd_sgdm_qsgd": (QSGDCompressor(levels=QSGD_LEVELS), GAMMA),
+        "cpd_sgdm_topk": (TopKCompressor(fraction=TOPK_FRACTION), TOPK_GAMMA),
+    }[path]
+    return make_optimizer("cpd_sgdm", comm, gamma=gamma, compressor=comp,
+                          use_kernel=use_kernel, **HYPER)
+
+
+def embedding_grads(torch):
+    """The reference benchmark's embedding-style gradient: 0.01 added to
+    each looked-up row of each worker's table (repeats add up), and no
+    loss: the gradient is non-zero exactly on the touched rows."""
+    def grads_fn(params, batch):
+        table, ids = params["table"], batch["ids"]
+        g = torch.zeros_like(table)
+        k = torch.arange(table.shape[0], device=table.device)[:, None]
+        g.index_put_((k.expand_as(ids), ids),
+                     torch.tensor(0.01, device=table.device), accumulate=True)
+        return torch.zeros((), device=table.device), {"table": g}
+    return grads_fn
+
+
+def embedding_run(torch, opt, params, seed: int, steps: int):
+    """``steps`` steps through ``opt.round``: whole rounds of p steps, then
+    a tail of local steps without gossip; Zipf lookups of ``seed``."""
+    from repro_torch.data.synthetic import EmbedStreamCfg, embed_batch
+    cfg = EmbedStreamCfg(n_rows=EMB_ROWS, dim=EMB_DIM, batch=EMB_BATCH,
+                         n_workers=EMB_K, seed=seed)
+    grads_fn = embedding_grads(torch)
+    state = opt.init(params)
+    done = 0
+    while done < steps:
+        n = min(P, steps - done)
+        batches = {"ids": torch.stack([embed_batch(cfg, t, DEVICE)["ids"]
+                                       for t in range(done, done + n)])}
+        params, state, _ = opt.round(state, params, grads_fn, batches,
+                                     gossip=n == P)
+        done += n
+    return params, state
+
+
+def drive(torch, opt, path: str, seed: int, steps: int):
+    """``steps`` steps of ``path`` with ``opt`` from the init of ``seed``;
+    returns ``(init, params, state, history)`` (history None on the
+    embedding path, which has no loss)."""
+    if path == "cpd_sgdm_sparse":
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        init = {"table": torch.randn((EMB_K, EMB_ROWS, EMB_DIM),
+                                     generator=gen, device=DEVICE) * 0.1}
+        return (init,) + embedding_run(torch, opt, init, seed, steps) + (None,)
+    from repro_torch.models.resnet import resnet20_loss
+    from repro_torch.train.trainer import SimTrainer
+    init = stacked_init(torch, seed)
+    out = SimTrainer(resnet20_loss, opt, device=DEVICE).train(
+        init, batch_fn(seed), steps, log_every=1)
+    return (init,) + out
 
 
 def training_phase(torch, path: str) -> dict:
     """One path, once, with every launch counter set to 0 just before."""
     kernels = counters()
-    trainer = trainer_for(path, use_kernel=True)
-    params = stacked_init(torch, 0)
-    trainer.train(params, batch_fn(0), P)          # warm-up round, not timed
+    opt = make_opt(path, use_kernel=True)
+    drive(torch, opt, path, 0, P)                  # warm-up round, not timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    out, state, hist = trainer.train(params, batch_fn(0), STEPS, log_every=1)
+    init, out, state, hist = drive(torch, opt, path, 0, STEPS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"train: {path} kernel path, ResNet-20 width {WIDTH}, K={K} ring, "
-          f"batch {BATCH}, p={P}, {STEPS} steps")
-    print(f"train: {path} losses " + " ".join(f"{v:.4f}" for v in hist.loss))
+    one = {k: v[0] for k, v in init.items()}
+    bytes_per_round = opt.bytes_per_comm_round(one)
+    if hist is None:
+        comm_mb = (STEPS // P) * bytes_per_round / 2 ** 20
+        print(f"train: {path} kernel path, {EMB_ROWS} x {EMB_DIM} f32 table "
+              f"per worker, K={EMB_K} ring, Zipf batch {EMB_BATCH}, p={P}, "
+              f"{STEPS} steps through CPDSGDM.round")
+    else:
+        comm_mb = hist.comm_mb[-1]
+        print(f"train: {path} kernel path, ResNet-20 width {WIDTH}, K={K} "
+              f"ring, batch {BATCH}, p={P}, {STEPS} steps")
+        print(f"train: {path} losses " + " ".join(f"{v:.4f}"
+                                                   for v in hist.loss))
+        if (not all(math.isfinite(v) for v in hist.loss)
+                or len(hist.loss) != STEPS):
+            raise AssertionError(f"{path}: bad losses {hist.loss}")
     print(f"train: {path} {seconds:.3f} s for {STEPS} steps, "
           f"{seconds * P / STEPS:.4f} s per round, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    print(f"train: {path} launches {launches}, comm_mb {hist.comm_mb[-1]}")
-    if not all(math.isfinite(v) for v in hist.loss) or len(hist.loss) != STEPS:
-        raise AssertionError(f"{path}: bad losses {hist.loss}")
+    print(f"train: {path} launches {launches}, bytes per round "
+          f"{bytes_per_round}, comm_mb {comm_mb}")
     want = {name: EXPECTED[path].get(name, 0) for name in kernels}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
-    if hist.comm_mb[-1] != (STEPS // P) * WIRE_BYTES[path] / 2 ** 20:
-        raise AssertionError(f"{path}: comm_mb {hist.comm_mb[-1]}")
+    if (bytes_per_round != WIRE_BYTES[path]
+            or comm_mb != (STEPS // P) * WIRE_BYTES[path] / 2 ** 20):
+        raise AssertionError(f"{path}: {bytes_per_round} B per round, "
+                             f"comm_mb {comm_mb}")
     if int(state["step"]) != STEPS:
         raise AssertionError(f"{path}: step counter {int(state['step'])}")
     for name, v in out.items():
-        if v.shape != params[name].shape or not bool(torch.isfinite(v).all()):
+        if v.shape != init[name].shape or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{path}: bad final param {name}")
     return launches
 
 
 def parity_phase(torch, path: str):
-    """One kernel-path round against one tree-path round of ``path``, with
-    cuDNN held to deterministic algorithms so both rounds see the same
-    gradients and differ only in how the gossip or the consensus sums.
-    Params within atol 1e-4 / rtol 1e-3.  CPD's x̂ too, except where the
-    two consensus products put the drift x_new − x̂ on opposite sides of a
-    sign or a QSGD tie: x̂ moves by one quantum (at most 2·max|drift|)
-    there, in a handful of elements."""
+    """One kernel-path round of ``path`` against one round of its plain
+    path from the same init on the same batches, with cuDNN held to
+    deterministic algorithms so both see the same gradients.  The plain
+    path is the tree round for PD-SGDM and, for every CPD-SGDM wire, the
+    round through the per-leaf codec (``_kernel_wire`` off), which
+    launches no kernel: the round holds the codec kernels against the
+    plain codec.  Params within atol 1e-4 / rtol 1e-3.  CPD's x̂ too,
+    except where the two consensus products (one over the matrix, one per
+    leaf) put the drift x_new − x̂ on opposite sides of a sign, a QSGD tie
+    or a top-k or row-norm near-tie: x̂ moves there by at most
+    2·max|drift|, in a handful of elements."""
+    kernels = counters()
     torch.backends.cudnn.deterministic = True
-    params = stacked_init(torch, 1)
-    got, sk, hk = trainer_for(path, True).train(params, batch_fn(1), P,
-                                                log_every=1)
-    want, st, ht = trainer_for(path, False).train(params, batch_fn(1), P,
-                                                  log_every=1)
+    init, got, sk, hk = drive(torch, make_opt(path, True), path, 1, P)
+    plain = make_opt(path, False)
+    if path != "pd_sgdm":
+        plain._kernel_wire = lambda: False          # the per-leaf codec
+    before = {name: fn.launches for name, fn in kernels.items()}
+    _, want, st, ht = drive(torch, plain, path, 1, P)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
+    stray = {name: fn.launches - before[name] for name, fn in kernels.items()
+             if fn.launches != before[name]}
+    if stray:
+        raise AssertionError(f"{path}: the plain round launched {stray}")
     worst = max(float((got[k] - want[k]).abs().max()) for k in want)
-    print(f"parity: {path} one round, kernel vs tree path: "
-          f"max |Δparam| = {worst}, losses {hk.loss} vs {ht.loss}")
+    losses = (f", losses {hk.loss} vs {ht.loss}" if hk is not None else "")
+    print(f"parity: {path} one round, kernel path vs "
+          f"{'tree' if path == 'pd_sgdm' else 'per-leaf codec'} path: "
+          f"max |Δparam| = {worst}{losses}")
     for k in want:
         if not torch.allclose(got[k], want[k], rtol=1e-3, atol=1e-4):
-            raise AssertionError(f"{path}: kernel round differs from tree "
-                                 f"round: {k}")
+            raise AssertionError(f"{path}: kernel round differs from the "
+                                 f"plain round: {k}")
     if "xhat" not in st:
         return
-    drift = max(float((want[k] - params[k]).abs().max()) for k in want)
+    drift = max(float((want[k] - init[k]).abs().max()) for k in want)
     worst, moved = 0.0, 0
     for k, ref in st["xhat"].items():
         gap = (sk["xhat"][k] - ref).abs()
         far = ~torch.isclose(sk["xhat"][k], ref, rtol=1e-3, atol=1e-4)
         worst, moved = max(worst, float(gap.max())), moved + int(far.sum())
         if int(far.sum()) > 8 or not bool((gap[far] <= 2 * drift).all()):
-            raise AssertionError(f"{path}: kernel x̂ differs from tree x̂: {k}")
+            raise AssertionError(f"{path}: kernel x̂ differs from the "
+                                 f"per-leaf x̂: {k}")
     print(f"parity: {path} max |Δx̂| = {worst}, {moved} elements moved by a "
-          f"sign or level (max |drift| {drift})")
+          f"sign, level or selection (max |drift| {drift})")
 
 
 def profile_round(torch, path: str):
     """Profile one steady-state round of ``path``; the table goes to
     ``round_profile_<path>.txt`` in the output directory."""
     from torch.profiler import ProfilerActivity, profile
-    trainer = trainer_for(path, use_kernel=True)
-    params = stacked_init(torch, 0)
-    trainer.train(params, batch_fn(0), P)
+    opt = make_opt(path, use_kernel=True)
+    drive(torch, opt, path, 0, P)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train(params, batch_fn(0), P)
+        drive(torch, opt, path, 0, P)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -475,7 +731,10 @@ def profile_round(torch, path: str):
         print(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
     for name in ("momentum_kernel", "gossip_mix_kernel", "sign_pack_kernel",
-                 "sign_unpack_kernel"):
+                 "sign_unpack_kernel", "qsgd_quant_kernel",
+                 "qsgd_dequant_kernel", "topk_select_kernel",
+                 "topk_scatter_kernel", "row_gather_kernel",
+                 "row_scatter_kernel"):
         hits = [e for e in kernels if name in e.key]
         if hits:
             print(f"profile:   {name}: " + ", ".join(
@@ -485,8 +744,8 @@ def profile_round(torch, path: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one PD-SGDM and one CPD-SGDM (sign) "
-                         "round into the output directory")
+                    help="also profile one round of each path into the "
+                         "output directory")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -517,11 +776,13 @@ def main(argv=None) -> int:
 
     timings = kernel_phase(torch, ops, bw, f32_peak)
     timings.update(codec_kernel_phase(torch, ops, bw, f32_peak))
+    timings.update(topk_kernel_phase(torch, ops, bw, f32_peak))
+    timings.update(row_kernel_phase(torch, ops, bw, f32_peak))
     runs = {path: training_phase(torch, path) for path in PATHS}
     for path in PATHS:
         parity_phase(torch, path)
     if args.profile:
-        for path in ("pd_sgdm", "cpd_sgdm_sign"):
+        for path in PATHS:
             profile_round(torch, path)
 
     kernels = []

@@ -1,7 +1,8 @@
 """δ-contraction compression operators (paper Definition 1).
 
-Port of ``src/repro/core/compression.py:43-272`` for the identity, the
-blockwise scaled-sign and the blockwise QSGD operators.  An
+Port of ``src/repro/core/compression.py:43-345``: the identity, the
+blockwise scaled-sign, top-k and QSGD operators, rand-k and the sparse
+rows of embedding-style workloads.  An
 operator ``Q`` is a δ-contraction if ``‖x − Q(x)‖² ≤ (1 − δ)‖x‖²``;
 CPD-SGDM (Alg. 2) sends ``q = Q(x_{t+1} − x̂_t)`` over the wire.
 
@@ -10,9 +11,6 @@ and ``apply`` is the codec round trip ``unpack ∘ pack``, so the simulated
 math and the bytes on the wire agree by construction.  Operators are
 blockwise, in blocks of :data:`SIGN_BLOCK` = ``LANE`` elements by default,
 so the flatten-once kernel rows coincide with the per-leaf blocks.
-
-Top-k, rand-k and the sparse-rows operators are ROADMAP queue A item 6:
-:func:`make_compressor` refuses their names.
 """
 from __future__ import annotations
 
@@ -25,16 +23,14 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import LANE as SIGN_BLOCK
 from repro_torch.kernels.ref import (qsgd_bits, sign_pack_rows_ref,
-                                     sign_unpack_ref)
+                                     sign_unpack_ref, topk_width)
 
 __all__ = [
-    "Compressor", "IdentityCompressor", "SignCompressor", "QSGDCompressor",
+    "Compressor", "IdentityCompressor", "SignCompressor", "TopKCompressor",
+    "RandKCompressor", "QSGDCompressor", "SparseRowsCompressor",
     "make_compressor", "sign_pack", "sign_unpack", "sign_wire_bytes",
     "contraction_ratio", "SIGN_BLOCK",
 ]
-
-_NOT_YET = "top-k, rand-k and sparse-rows operators are ROADMAP queue A item 6"
-
 
 def _pad_to(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, int]:
     """Zero-pad a flat tensor to a multiple of ``multiple``; returns it and
@@ -163,6 +159,49 @@ class SignCompressor(Compressor):
 
 
 @dataclasses.dataclass(frozen=True)
+class TopKCompressor(Compressor):
+    """Keep the top ``fraction`` of entries by magnitude, blockwise: each
+    block of ``block`` elements (the kernel rows) keeps its own
+    ``ceil(fraction·d_b)`` largest entries; for a leaf of at most one block
+    this is global top-k.  δ ≥ fraction.  Wire: (i32 idx, f32 val) per
+    slot, ``TopKCodec``."""
+
+    name: str = "topk"
+    fraction: float = 0.01
+    block: int = SIGN_BLOCK
+
+    def _k(self, d: int) -> int:
+        return max(1, int(np.ceil(self.fraction * d)))
+
+    def wire_bits_per_element(self, dtype=torch.float32):
+        # W slots of (idx, val) per block of `block` elements
+        return topk_width(self.fraction, self.block) * 64.0 / self.block
+
+    def delta_lower_bound(self, d):
+        if d <= self.block:
+            return self._k(d) / d
+        return self.fraction       # min over blocks of ceil(f·d_b)/d_b ≥ f
+
+
+@dataclasses.dataclass(frozen=True)
+class RandKCompressor(Compressor):
+    """Keep a random fraction of the coordinates (unscaled); E‖x − Q‖² =
+    (1 − k/d)‖x‖².  The kept coordinates come from the round key alone,
+    which sender and receiver share (it names the leaf and the round, never
+    the worker), so only the k values ship (``RandKCodec``)."""
+
+    name: str = "randk"
+    fraction: float = 0.01
+
+    def wire_bits_per_element(self, dtype=torch.float32):
+        # indices reproducible from the shared key: only k f32 values ship
+        return self.fraction * 32.0
+
+    def delta_lower_bound(self, d):
+        return max(1.0 / d, self.fraction)  # in expectation
+
+
+@dataclasses.dataclass(frozen=True)
 class QSGDCompressor(Compressor):
     """QSGD-style s-level quantization, max-norm scaled per block, with
     deterministic nearest rounding (so it is a contraction).  The
@@ -183,15 +222,64 @@ class QSGDCompressor(Compressor):
         return max(1.0 / d, 1.0 - d_eff / (4.0 * self.levels ** 2))
 
 
+@dataclasses.dataclass(frozen=True)
+class SparseRowsCompressor(Compressor):
+    """Ship only the ``max_rows`` largest rows (by L2 norm) of each leaf's
+    blockwise layout: the push-by-key wire of embedding tables, where a
+    round touches a few rows of a large table.
+
+    A leaf is ``nb = ceil(d / block)`` rows of ``block`` elements (the
+    kernel rows); the wire carries ``R = min(max_rows, nb)`` (i32 row
+    index, row payload) pairs, the payload being the ``inner`` codec of the
+    gathered rows: ``"f32"`` raw rows (lossless on the touched rows),
+    ``"sign"`` or ``"qsgd"`` row-wise.  Untouched rows decode to exact 0.
+    δ: the top-R rows keep at least R/nb of ‖x‖², times the inner
+    operator's δ."""
+
+    name: str = "sparse_rows"
+    max_rows: int = 64
+    inner: str = "f32"     # "f32" | "sign" | "qsgd"
+    levels: int = 7        # inner="qsgd" quantization levels
+    block: int = SIGN_BLOCK
+
+    def _inner_row_bytes(self) -> int:
+        """Exact wire bytes per shipped row (excluding the row index)."""
+        if self.inner == "f32":
+            return 4 * self.block
+        if self.inner == "sign":
+            return self.block // 8 + 4          # bits + f32 scale
+        if self.inner == "qsgd":
+            return self.block * qsgd_bits(self.levels) // 8 + 4
+        raise ValueError(f"unknown sparse inner codec {self.inner!r}")
+
+    def wire_bits_per_element(self, dtype=torch.float32):
+        # per touched element: bytes scale with rows touched, not leaf size
+        return 8.0 * (4 + self._inner_row_bytes()) / self.block
+
+    def delta_lower_bound(self, d):
+        nb = -(-int(d) // self.block)
+        keep = min(self.max_rows, nb) / nb      # top-R rows keep ≥ R/nb energy
+        if self.inner == "f32":
+            return keep
+        inner = (SignCompressor(block=self.block) if self.inner == "sign"
+                 else QSGDCompressor(levels=self.levels, block=self.block))
+        return keep * inner.delta_lower_bound(min(d, self.block))
+
+
 def make_compressor(name: str, **kw) -> Compressor:
     name = name.lower()
     if name in ("identity", "none", "full"):
         return IdentityCompressor()
     if name == "sign":
         return SignCompressor(**kw)
+    if name == "topk":
+        return TopKCompressor(**kw)
+    if name == "randk":
+        return RandKCompressor(**kw)
     if name == "qsgd":
         return QSGDCompressor(**kw)
-    if name in ("topk", "randk", "sparse", "sparse_rows") \
-            or name.startswith("sparse+"):
-        raise NotImplementedError(f"{name}: not ported yet — {_NOT_YET}")
+    if name in ("sparse", "sparse_rows"):
+        return SparseRowsCompressor(**kw)
+    if name.startswith("sparse+"):          # composed: sparse+sign, sparse+qsgd
+        return SparseRowsCompressor(inner=name.split("+", 1)[1], **kw)
     raise ValueError(f"unknown compressor {name!r}")

@@ -9,15 +9,18 @@ backend.  The local loop is PD-SGDM's; at a communication round::
     x̂⁽ʲ⁾ₜ₊₁ = x̂⁽ʲ⁾ₜ + q⁽ʲ⁾                              (line 9, error comp.)
 
 What crosses the wire is the compressor's codec payload
-(:mod:`repro_torch.core.wire`): bit-packed signs and scales, or packed QSGD
-levels and norms.  Three wire paths, one dispatch, as in the reference:
+(:mod:`repro_torch.core.wire`): bit-packed signs and scales, packed QSGD
+levels and norms, top-k (index, value) slots, rand-k values or sparse
+(row index, row) pairs.  Three wire paths, one dispatch, as in the
+reference:
 
 * **kernel wire**: the codec has a ``(rows, LANE)`` format and its block
   is the lane, so one pack and one unpack on the flatten-once layout run
   through the CUDA codec kernels (:meth:`CPDSGDM.comm_round_mat` inside
   the kernel round; :meth:`CPDSGDM._comm_kernel_wire` on the tree path);
 * **per-leaf codec wire**: any codec, any block, packed and unpacked per
-  leaf and per worker (``torch.func.vmap``);
+  leaf and per worker (``torch.func.vmap``), with the shared (leaf, round)
+  key of rand-k resolved once per leaf, outside ``vmap``;
 * **legacy apply** (``packed_wire=False``): Q applied leaf-wise and the f32
   result charged at full precision.
 
@@ -42,10 +45,10 @@ import torch
 from repro_torch.core.compression import Compressor, SignCompressor
 from repro_torch.core.gossip import CommBackend, gossip_bytes_per_round
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
-from repro_torch.core.wire import make_codec
+from repro_torch.core.wire import make_codec, wire_key
 from repro_torch.kernels import LANE
 from repro_torch.kernels import ops as kops
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import leaf_order, tree_leaves, tree_map
 
 __all__ = ["CPDSGDMConfig", "CPDSGDM"]
 
@@ -91,10 +94,31 @@ class CPDSGDM(PDSGDM):
         """Per-leaf codec wire: codecs without a (matching) kernel format."""
         return self.config.packed_wire and self.codec is not None
 
+    _wire_key = staticmethod(wire_key)
+
+    def _leaf_keys(self, tree, r) -> dict:
+        """Per leaf, what a keyed codec's pack/unpack take: the indices of
+        the shared (leaf, round) key, derived once, outside ``vmap``, for
+        every worker alike.  None for the other codecs, which read no key (building one
+        would read the round off the device)."""
+        codec = self.codec
+        if codec is None or not codec.keyed:
+            return {name: None for name in tree}
+        keys = {}
+        for i, name in enumerate(leaf_order(tree)):
+            leaf = tree[name]
+            n = int(np.prod(tuple(leaf.shape[1:]), dtype=np.int64))
+            keys[name] = codec.derive_idx(self._wire_key(r, i), n,
+                                          leaf.device)
+        return keys
+
     def _apply_Q(self, tree, r):
         """Q leaf-wise and per worker (the ``packed_wire=False`` path)."""
         comp = self.compressor
-        return tree_map(lambda leaf: torch.func.vmap(comp.apply)(leaf), tree)
+        keys = self._leaf_keys(tree, r)
+        return {name: torch.func.vmap(
+                    lambda x, key=keys[name]: comp.apply(x, key))(leaf)
+                for name, leaf in tree.items()}
 
     # -- communication round (Alg. 2 lines 6-9) --------------------------------
     def comm_round(self, state, params):
@@ -137,16 +161,18 @@ class CPDSGDM(PDSGDM):
         """Lines 7-9 with per-leaf codec payloads, packed and unpacked per
         stacked worker (the dense backend simulates the exchange)."""
         codec = self.codec
+        keys = self._leaf_keys(diff, r)
 
-        def round_trip(leaf):
+        def round_trip(leaf, key):
             shape = tuple(leaf.shape[1:])
             n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-            payload = torch.func.vmap(codec.pack)(leaf)
+            payload = torch.func.vmap(lambda x: codec.pack(x, key))(leaf)
             return torch.func.vmap(
-                lambda p: codec.unpack(p, n, shape, torch.float32))(payload)
+                lambda p: codec.unpack(p, n, shape, torch.float32,
+                                       key=key))(payload)
 
-        new_state["xhat"] = tree_map(lambda h, d: h + round_trip(d), xhat,
-                                     diff)
+        new_state["xhat"] = {name: h + round_trip(diff[name], keys[name])
+                             for name, h in xhat.items()}
 
     # -- kernel round (flatten-once matrix domain) ------------------------------
     @property
@@ -173,7 +199,8 @@ class CPDSGDM(PDSGDM):
         """Alg. 2 lines 6-9 on the kernel layout: the consensus ``W @ x̂``
         (a matmul, not the gossip kernel), the drift, one codec pack and one
         unpack; ``counts`` are the device row counts tiled over the
-        workers."""
+        workers (the sparse codec reads each gathered row's count at its
+        own worker's row)."""
         if plan is None:
             raise ValueError("CPD-SGDM matrix comm needs the KernelPlan")
         gamma = self.config.gamma

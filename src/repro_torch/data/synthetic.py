@@ -1,11 +1,14 @@
-"""Synthetic class stream: CIFAR-shaped mixture-of-Gaussians images.
+"""Synthetic streams: CIFAR-shaped mixture-of-Gaussians images, and Zipf
+embedding lookups.
 
-Port of ``ClassStreamCfg``/``class_batch`` in
-``src/repro/data/synthetic.py:72-120``.  Every batch is a pure function of
+Port of ``ClassStreamCfg``/``class_batch`` and ``EmbedStreamCfg``/
+``embed_batch``/``touched_row_mask`` in
+``src/repro/data/synthetic.py:72-177``.  Every batch is a pure function of
 ``(cfg, step)``: its ``torch.Generator`` is seeded from ``(seed, step)``
-and the class means from ``seed`` alone, so every run and every worker is
-reproducible.  The numbers differ from the reference's threefry stream;
-the parity tests feed both packages the reference's batches.
+and the fixed parts (class means, the planted table) from ``seed`` alone,
+so every run and every worker is reproducible; the draws run on the
+device.  The numbers differ from the reference's threefry stream; the
+parity tests feed both packages the reference's batches.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["ClassStreamCfg", "class_batch", "worker_class_probs"]
+__all__ = ["ClassStreamCfg", "class_batch", "worker_class_probs",
+           "EmbedStreamCfg", "embed_batch", "touched_row_mask"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,3 +72,46 @@ def class_batch(cfg: ClassStreamCfg, step: int, device="cuda") -> dict:
     noise = torch.randn((cfg.n_workers, cfg.batch) + tuple(cfg.image),
                         generator=g, device=device)
     return {"images": means[labels] + cfg.noise * noise, "labels": labels}
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbedStreamCfg:
+    """Zipf embedding lookups: ``batch`` row ids per worker per step, row
+    popularity ∝ rank^(−zipf_a), so a few hot rows take most of the
+    traffic and a step touches far fewer rows than the table holds."""
+    n_rows: int = 16384      # embedding-table rows
+    dim: int = 64            # embedding dimension
+    batch: int = 64          # lookups per worker per step
+    n_workers: int = 8
+    seed: int = 0
+    zipf_a: float = 1.1      # power-law exponent over row ranks
+    noise: float = 0.1       # target observation noise
+
+
+def embed_batch(cfg: EmbedStreamCfg, step: int, device="cuda") -> dict:
+    """``{"ids": (n_workers, batch) int64, "targets": (n_workers, batch)
+    f32}`` on ``device``: ids drawn from the Zipf law over row ranks,
+    ``target = Σ_dim planted[id] + noise``, a linear readout of a planted
+    table fixed by ``cfg.seed``, so the gradient of an embedding table is
+    non-zero exactly on the looked-up rows."""
+    device = resolve_device(device)
+    planted = torch.randn((cfg.n_rows, cfg.dim),
+                          generator=_generator(device, cfg.seed, 0, 3000),
+                          device=device) * 0.5
+    ranks = torch.arange(1, cfg.n_rows + 1, dtype=torch.float32,
+                         device=device)
+    probs = ranks.pow(-cfg.zipf_a).expand(cfg.n_workers, -1).contiguous()
+    g = _generator(device, cfg.seed, 1, int(step))
+    ids = torch.multinomial(probs, cfg.batch, replacement=True, generator=g)
+    noise = torch.randn((cfg.n_workers, cfg.batch), generator=g,
+                        device=device)
+    return {"ids": ids, "targets": planted[ids].sum(-1) + cfg.noise * noise}
+
+
+def touched_row_mask(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """(n_rows,) bool: the table rows a batch of lookups touches, exactly
+    the rows an embedding gradient (and so the sparse wire) is non-zero
+    on."""
+    mask = torch.zeros((n_rows,), dtype=torch.bool, device=ids.device)
+    mask[ids.reshape(-1)] = True
+    return mask

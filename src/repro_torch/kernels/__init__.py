@@ -4,6 +4,8 @@ momentum       — fused SGDM update (PD-SGDM and CPD-SGDM inner loop)
 gossip_mix     — fused W-row neighbour AXPY (PD-SGDM gossip)
 sign_compress  — blockwise scaled-sign pack / unpack (CPD-SGDM sign wire)
 qsgd_quant     — blockwise QSGD quantize / dequantize (CPD-SGDM QSGD wire)
+topk_select    — blockwise top-k select / scatter (CPD-SGDM top-k wire)
+row_gather     — row gather / scatter (CPD-SGDM sparse-rows wire)
 
 Each kernel module holds a wrapper that checks its operands, launches the
 CUDA kernel on a CUDA tensor (or raises) and runs the plain PyTorch version

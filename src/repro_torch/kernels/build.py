@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # <checkout>/build/repro_torch_kernels (this file is
 # <checkout>/src/repro_torch/kernels/build.py); listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("momentum", "gossip_mix", "sign_compress", "qsgd_quant")
+SOURCES = ("momentum", "gossip_mix", "sign_compress", "qsgd_quant",
+           "topk_select", "row_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,6 @@
 """The flatten-once kernel layout (``KernelPlan``) and the matrix wrappers.
 
-Port of ``src/repro/kernels/ops.py:54-295``.  Every kernel works on one
+Port of ``src/repro/kernels/ops.py:54-338``.  Every kernel works on one
 layout: an f32 matrix of shape ``(rows, 1024)``, or ``(K, rows, 1024)``
 with a leading worker dim.  ``KernelPlan`` maps a flat param dict onto it:
 
@@ -27,14 +27,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import LANE
 from repro_torch.kernels import qsgd_quant as qq
+from repro_torch.kernels import row_gather as rg
 from repro_torch.kernels import sign_compress as sc
+from repro_torch.kernels import topk_select as tk
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.momentum import momentum_update
 from repro_torch.tree import leaf_order
 
 __all__ = ["KernelPlan", "PLAN_BLOCK_ROWS", "LANE", "momentum_update_mat",
            "gossip_mix_mat", "delayed_mix_mat", "tile_counts", "sign_pack",
-           "sign_unpack", "qsgd_pack", "qsgd_unpack"]
+           "sign_unpack", "qsgd_pack", "qsgd_unpack", "topk_pack",
+           "topk_unpack", "row_gather", "row_scatter"]
 
 # The reference pads rows to the lcm of its Pallas kernels' BLOCK_ROWS
 # (128 and 256); the port keeps that value so both layouts have equal rows.
@@ -231,4 +234,50 @@ def qsgd_unpack(packed, norms, *, levels: int):
     lead, rows = packed.shape[:-2], packed.shape[-2]
     out = qq.qsgd_dequant(packed.reshape(-1, packed.shape[-1]),
                           norms.reshape(-1, 1), levels=levels)
+    return out.reshape(lead + (rows, LANE))
+
+
+def topk_pack(x_mat, counts=None, *, fraction: float):
+    """(..., rows, 1024) → (idx (..., rows, W) i32, vals (..., rows, W)
+    f32), W = ``max(1, ceil(fraction·1024))``: the blockwise top-k wire
+    payload.  ``counts``: per-row valid lengths, per worker or tiled
+    (:func:`tile_counts`); None for full rows."""
+    lead, rows = x_mat.shape[:-2], x_mat.shape[-2]
+    if counts is not None:
+        counts = tile_counts(counts, rows, lead)
+    idx, vals = tk.topk_select(_rows2d(x_mat), counts, fraction=fraction)
+    w = idx.shape[-1]
+    return idx.reshape(lead + (rows, w)), vals.reshape(lead + (rows, w))
+
+
+def topk_unpack(idx, vals):
+    """Inverse scatter of :func:`topk_pack` → (..., rows, 1024) f32."""
+    lead, rows, w = idx.shape[:-2], idx.shape[-2], idx.shape[-1]
+    out = tk.topk_scatter(idx.reshape(-1, w), vals.reshape(-1, w))
+    return out.reshape(lead + (rows, LANE))
+
+
+def row_gather(x_mat, idx, counts=None):
+    """(..., rows, 1024) + idx (..., S) i32 → (..., S, 1024) f32: the
+    sparse wire's payload rows, each cut to its valid prefix.  ``counts``:
+    per-row valid lengths, per worker or tiled (:func:`tile_counts`); None
+    for full rows.  All leading worker dims go to one launch (the
+    reference launches once per worker)."""
+    lead, rows = x_mat.shape[:-2], x_mat.shape[-2]
+    k = int(np.prod(tuple(lead), dtype=np.int64))
+    if counts is not None:
+        counts = tile_counts(counts, rows, lead)
+    out = rg.row_gather(x_mat.reshape(k, rows, LANE),
+                        idx.reshape(k, idx.shape[-1]), counts)
+    return out.reshape(lead + out.shape[-2:])
+
+
+def row_scatter(idx, vals, *, rows: int):
+    """Inverse of :func:`row_gather`: idx (..., S) + vals (..., S, 1024) →
+    (..., rows, 1024) f32, zeros with ``out[idx[j]] += vals[j]`` per
+    worker, in one launch."""
+    lead, s = vals.shape[:-2], vals.shape[-2]
+    k = int(np.prod(tuple(lead), dtype=np.int64))
+    out = rg.row_scatter(idx.reshape(k, s), vals.reshape(k, s, LANE),
+                         rows=rows)
     return out.reshape(lead + (rows, LANE))

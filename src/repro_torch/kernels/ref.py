@@ -11,7 +11,9 @@ by PyTorch, as the kernels' launch arguments are.
 The codec rows math lives here once, for the kernels' plain versions and
 for the per-leaf codecs of :mod:`repro_torch.core.compression` and
 :mod:`repro_torch.core.wire` alike: :func:`tree_sum` (the one summation
-order of the sign scale), :func:`qsgd_bits` and the QSGD level arithmetic.
+order of the sign scale), :func:`qsgd_bits` and the QSGD level arithmetic,
+:func:`topk_width` and the top-k select and scatter, and the row gather and
+scatter of the sparse-rows wire.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import torch.nn.functional as F
 
 __all__ = ["momentum_update_ref", "gossip_mix_ref", "tree_sum", "qsgd_bits",
            "qsgd_inv_levels", "sign_pack_rows_ref", "sign_unpack_ref",
-           "qsgd_rows_ref", "qsgd_rows_unpack_ref"]
+           "qsgd_rows_ref", "qsgd_rows_unpack_ref", "topk_width",
+           "topk_rows_ref", "topk_rows_unpack_ref", "row_gather_ref",
+           "row_scatter_ref"]
 
 
 def momentum_update_ref(x, m, g, lr, *, mu, wd=0.0, nesterov=False):
@@ -134,3 +138,83 @@ def qsgd_rows_unpack_ref(packed, norms, levels: int):
     scale = qsgd_inv_levels(levels) * norms
     vals = (u.to(torch.float32) - float(levels)) * scale
     return torch.where(norms > 0, vals, 0.0)
+
+
+def topk_width(fraction: float, block: int) -> int:
+    """Top-k payload slots per row, ``max(1, ceil(fraction·block))`` in
+    float64 as the reference computes it: uniform across rows and leaves,
+    so payload matrices are rectangular."""
+    return max(1, int(np.ceil(fraction * block)))
+
+
+def topk_rows_ref(x, counts=None, *, fraction: float, width=None):
+    """x (R, B) f32, counts (R, 1) f32 valid elements per row (None: full
+    rows) → ``(idx (R, W) i32, vals (R, W) f32)``.  Slot j holds the j-th
+    largest |x| of the row, ties to the lowest index, while ``j <
+    ceil(f32(fraction)·count)`` (the product rounded in f32, as the
+    reference's ``jnp.float32(fraction) * counts``), and ``(0, 0.0)``
+    after.  ``vals`` are x as read, so a selected −0.0 stays −0.0 (the
+    reference's ``take_along_axis`` oracle; its Pallas kernel sums the row
+    and returns +0.0).  ``torch.topk`` promises no tie order, so the order
+    is a stable descending sort."""
+    rows, block = x.shape
+    w = width if width is not None else topk_width(fraction, block)
+    order = torch.sort(x.abs(), dim=1, descending=True, stable=True)[1]
+    idx = order[:, :w]
+    vals = torch.gather(x, 1, idx)
+    if counts is None:
+        counts = torch.full((rows, 1), float(block), dtype=torch.float32,
+                            device=x.device)
+    frac = torch.tensor(np.float32(fraction), device=x.device)
+    k_active = torch.ceil(counts.reshape(rows, 1) * frac).to(torch.int32)
+    active = torch.arange(w, dtype=torch.int32, device=x.device) < k_active
+    return (torch.where(active, idx, 0).to(torch.int32),
+            torch.where(active, vals, 0.0))
+
+
+def topk_rows_unpack_ref(idx, vals, block: int):
+    """Inverse of :func:`topk_rows_ref` → (R, block) f32: ``+0.0`` rows
+    with ``out[idx_j] += val_j``.  Placeholder slots ``(0, 0.0)`` add
+    nothing, and the add turns a −0.0 value into +0.0."""
+    out = torch.zeros((idx.shape[0], block), dtype=torch.float32,
+                      device=vals.device)
+    return out.scatter_add(1, idx.long(), vals)
+
+
+def _source_rows(idx, rows: int):
+    """(K, S) row indices into K stacked blocks of ``rows`` rows → flat
+    (K·S,) int64 indices into the (K·rows) folded rows."""
+    k = idx.shape[0]
+    base = rows * torch.arange(k, device=idx.device).reshape(k, 1)
+    return (idx.long() + base).reshape(-1)
+
+
+def row_gather_ref(x, idx, counts=None):
+    """x (K, rows, B) f32, idx (K, S) int, counts (K·rows, 1) f32 (None:
+    full rows) → (K, S, B) f32 with ``out[k, j] = x[k, idx[k, j]]`` and
+    lanes ≥ that row's count set to +0.0; the kept lanes are moved as they
+    are (−0.0 included)."""
+    k, rows, block = x.shape
+    src = _source_rows(idx, rows)
+    g = x.reshape(-1, block).index_select(0, src)
+    if counts is not None:
+        cnt = counts.reshape(-1).index_select(0, src).reshape(-1, 1)
+        lanes = torch.arange(block, dtype=torch.float32, device=x.device)
+        g = torch.where(lanes < cnt, g, 0.0)
+    return g.reshape(k, idx.shape[1], block)
+
+
+def row_scatter_ref(idx, vals, *, rows: int):
+    """idx (K, S) int, vals (K, S, B) f32 → (K, rows, B) f32: zeros with
+    ``out[k, idx[k, j]] += vals[k, j]``, so a −0.0 lands as +0.0.  The
+    indices of a worker must be distinct (and are sorted, as the sparse
+    codec selects them); on the CPU that is checked."""
+    k, s, block = vals.shape
+    if idx.device.type == "cpu" and s > 1 and not bool(
+            (idx[:, 1:] > idx[:, :-1]).all()):
+        raise ValueError("row_scatter: each worker's indices must be "
+                         "distinct and sorted ascending")
+    out = torch.zeros((k * rows, block), dtype=torch.float32,
+                      device=vals.device)
+    out.index_add_(0, _source_rows(idx, rows), vals.reshape(-1, block))
+    return out.reshape(k, rows, block)

@@ -314,9 +314,25 @@ def test_wire_bytes_bits_and_refusals():
             assert pc.delta_lower_bound(d) == rc.delta_lower_bound(d)
     assert comp.IdentityCompressor().wire_bits_per_element(
         torch.bfloat16) == 16.0
-    for name in ("topk", "randk", "sparse", "sparse_rows", "sparse+sign"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            comp.make_compressor(name)
+    # every name the reference's factory takes now builds, to the same
+    # operator and codec (the refusals of the earlier slices are gone)
+    for name, kw in (("identity", {}), ("none", {}), ("full", {}),
+                     ("sign", {"block": 64}), ("topk", {"fraction": 0.1}),
+                     ("randk", {"fraction": 0.05}), ("qsgd", {"levels": 3}),
+                     ("sparse", {"max_rows": 8}), ("sparse_rows", {}),
+                     ("sparse+sign", {"max_rows": 2}),
+                     ("sparse+qsgd", {"levels": 1})):
+        ours, theirs = comp.make_compressor(name, **kw), \
+            r_comp.make_compressor(name, **kw)
+        assert type(ours).__name__ == type(theirs).__name__
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        codec, rcodec = wire.make_codec(ours), r_wire.make_codec(theirs)
+        assert type(codec).__name__ == type(rcodec).__name__
+        assert codec.rows_supported == rcodec.rows_supported
+        assert ours.wire_bits_per_element() == theirs.wire_bits_per_element()
+        for d in (3, 10, 5000, 272_282):
+            assert ours.delta_lower_bound(d) == theirs.delta_lower_bound(d)
+            assert codec.wire_bytes(d) == rcodec.wire_bytes(d)
     with pytest.raises(ValueError):
         comp.make_compressor("gzip")
     assert comp.make_compressor("qsgd", levels=3) == \
@@ -328,14 +344,91 @@ def test_wire_bytes_bits_and_refusals():
     class TopK(comp.Compressor):
         name: str = "topk"
 
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError):               # a custom operator: no codec
         wire.make_codec(TopK())
+
+
+def test_randk_value_path_with_the_reference_indices():
+    """Rand-k's coordinates come from each package's own generator, so the
+    value path is held with the reference's indices injected as the key:
+    the payload values and both decodes (full payload, and the wire
+    payload whose indices the receiver re-derives) equal the reference's,
+    bit for bit.  k(n) and the bytes equal the reference's."""
+    from repro.core.wire import wire_key as r_wire_key
+    pc, rc = comp.RandKCompressor(fraction=0.05), \
+        r_comp.RandKCompressor(fraction=0.05)
+    codec, rcodec = wire.make_codec(pc), r_wire.make_codec(rc)
+    assert codec.keyed and not wire.make_codec(comp.SignCompressor()).keyed
+    for i, shape in enumerate(LEAF_SHAPES):
+        x = _leaf(shape, i)
+        n = x.size
+        assert codec.k(n) == rcodec.k(n)
+        assert codec.wire_bytes(n) == rcodec.wire_bytes(n) == 4 * codec.k(n)
+        rkey = r_wire_key(3, i)
+        rpayload = rcodec.pack(jnp.asarray(x), rkey)
+        key = torch.from_numpy(np.array(rpayload["idx"])).long()
+        payload = codec.pack(torch.from_numpy(x), key)
+        assert torch.equal(payload["idx"], key)
+        assert_bits_equal(payload["vals"].numpy(), rpayload["vals"])
+        want = rcodec.unpack(rpayload, n, shape, jnp.float32)
+        assert_bits_equal(codec.unpack(payload, n, shape,
+                                       torch.float32).numpy(), want)
+        shipped = codec.wire(payload)
+        assert list(shipped) == ["vals"]
+        assert wire.payload_nbytes(shipped) == codec.wire_bytes(n)
+        assert_bits_equal(codec.unpack(shipped, n, shape, torch.float32,
+                                       key=key).numpy(), want)
+
+
+def test_randk_key_is_shared_by_every_worker():
+    """The key names the leaf and the round, never the worker: on the
+    per-leaf wire every worker keeps the same k coordinates, derived once
+    per leaf per round (the same for the round's key on every call, other
+    for another leaf or round), and none ships."""
+    from repro_torch.core import CPDSGDM, CPDSGDMConfig, DenseComm, ring
+    codec = wire.make_codec(comp.RandKCompressor(fraction=0.1))
+    n = 3 * LANE + 5
+    a = codec.derive_idx(wire.wire_key(2, 1), n)
+    assert torch.equal(a, codec.derive_idx(wire.wire_key(2, 1), n))
+    assert torch.equal(a, codec.derive_idx(wire.WireKey(1, 2), n))
+    assert a.shape == (codec.k(n),) and len(set(a.tolist())) == codec.k(n)
+    assert not torch.equal(a, codec.derive_idx(wire.wire_key(3, 1), n))
+    assert not torch.equal(a, codec.derive_idx(wire.wire_key(2, 0), n))
+    K = 4
+    opt = CPDSGDM(CPDSGDMConfig(), DenseComm(ring(K), device="cpu"),
+                  comp.RandKCompressor(fraction=0.1))
+    rng = np.random.default_rng(0)
+    diff = {"b": torch.from_numpy(rng.standard_normal((K, 7)).astype(
+                np.float32) + 3.0),
+            "w": torch.from_numpy(rng.standard_normal((K, 3, n)).astype(
+                np.float32) + 3.0)}
+    xhat = {k: torch.zeros_like(v) for k, v in diff.items()}
+    out = {}
+    opt._comm_payload_wire(out, xhat, diff, torch.tensor(5))
+    for i, name in enumerate(("b", "w")):          # the reference leaf order
+        kept = out["xhat"][name].reshape(K, -1) != 0
+        assert bool((kept == kept[0]).all())
+        m = diff[name][0].numel()
+        assert int(kept[0].sum()) == codec.k(m)
+        idx = codec.derive_idx(wire.wire_key(5, i), m)
+        assert bool(kept[0][idx].all())
+    params = {k: v[0] for k, v in diff.items()}
+    assert opt.bytes_per_comm_round(params) == 2 * 4 * sum(
+        codec.k(v.numel()) for v in params.values())
+    q = opt._apply_Q(diff, torch.tensor(5))       # packed_wire=False path
+    for name in diff:
+        assert torch.equal(q[name], out["xhat"][name])
 
 
 def test_contraction_holds():
     """Q is a δ-contraction with the stated δ (Definition 1)."""
     x = torch.from_numpy(_leaf((3, LANE + 5), 3))
     for c in (comp.SignCompressor(), comp.QSGDCompressor(levels=7),
-              comp.QSGDCompressor(levels=1), comp.IdentityCompressor()):
+              comp.QSGDCompressor(levels=1), comp.IdentityCompressor(),
+              comp.TopKCompressor(fraction=0.1),
+              comp.TopKCompressor(fraction=0.01, block=64),
+              comp.SparseRowsCompressor(max_rows=2),
+              comp.SparseRowsCompressor(max_rows=1, inner="sign"),
+              comp.SparseRowsCompressor(max_rows=2, inner="qsgd")):
         ratio = float(comp.contraction_ratio(x, c.apply(x)))
         assert ratio <= 1.0 - c.delta_lower_bound(x.numel()) + 1e-6

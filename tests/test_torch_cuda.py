@@ -10,6 +10,8 @@ The kernels pin their rounding (``__fmul_rn``/``__fadd_rn``, the sign
 scale's sum order, ``rintf``), so each must equal its plain version bit for
 bit, signs of zero included.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -21,9 +23,13 @@ from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 from repro_torch.kernels.qsgd_quant import qsgd_dequant, qsgd_quant  # noqa: E402
 from repro_torch.kernels.ref import (gossip_mix_ref,  # noqa: E402
                                      momentum_update_ref, qsgd_rows_ref,
-                                     qsgd_rows_unpack_ref, sign_pack_rows_ref,
-                                     sign_unpack_ref)
+                                     qsgd_rows_unpack_ref, row_gather_ref,
+                                     row_scatter_ref, sign_pack_rows_ref,
+                                     sign_unpack_ref, topk_rows_ref,
+                                     topk_rows_unpack_ref)
+from repro_torch.kernels.row_gather import row_gather, row_scatter  # noqa: E402
 from repro_torch.kernels.sign_compress import sign_pack, sign_unpack  # noqa: E402
+from repro_torch.kernels.topk_select import topk_scatter, topk_select  # noqa: E402
 
 
 def _mats(seed, n, rows):
@@ -205,6 +211,156 @@ def test_cpd_kernel_round_on_card_matches_tree_round(kind):
          torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic) = flags
     assert launches == {True: (P, 0, 1, 1), False: (0, 0, 1, 1)}
+    (pk, hk), (pt, ht) = out[True], out[False]
+    drift = max(float((pt[n] - params[n]).abs().max()) for n in pt)
+    for name, want in pt.items():
+        assert torch.allclose(pk[name], want, rtol=1e-3, atol=1e-4), name
+        near = torch.isclose(hk[name], ht[name], rtol=1e-3, atol=1e-4)
+        gap = (hk[name] - ht[name]).abs()
+        assert int((~near).sum()) <= 8, name
+        assert bool((gap[~near] <= 2 * drift).all()), name
+
+
+def _topk_rows(rows, seed):
+    """The codec edge cases plus top-k's own: rows quantized to a few
+    values (ties everywhere), an all −0.0 row and −0.0 among the largest."""
+    x, counts = _codec_rows(rows, seed)
+    x[8] = np.round(x[8] * 2.0) / 2.0
+    x[9] = np.sign(x[9])
+    x[10, :200] = -0.0
+    x[10, 200:] = 0.0
+    x[11, :700] = 0.0
+    x[11, 900:] = -0.0
+    return x, counts
+
+
+@pytest.mark.cuda
+def test_topk_and_row_kernels_bit_exact_on_card():
+    """topk_select/topk_scatter at W = 2, 11, 103, 128 and row_gather/
+    row_scatter with a (K, S) lead and ragged counts, each against its
+    plain version bit for bit (indices exact, f32 by bit pattern)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    for rows in (4096, 333):
+        x, counts = (torch.from_numpy(a).to(dev)
+                     for a in _topk_rows(rows, rows))
+        for fraction in (0.001, 0.01, 0.1, 0.125):
+            before = (topk_select.launches, topk_scatter.launches)
+            idx, vals = topk_select(x, counts, fraction=fraction)
+            want = topk_rows_ref(x, counts, fraction=fraction)
+            assert _same_bits(idx, want[0]) and _same_bits(vals, want[1])
+            y = topk_scatter(idx, vals)
+            torch.cuda.synchronize()
+            assert _same_bits(y, topk_rows_unpack_ref(idx, vals, LANE))
+            assert (topk_select.launches, topk_scatter.launches) == \
+                (before[0] + 1, before[1] + 1)
+        idx, vals = topk_select(x, None, fraction=0.1)
+        assert _same_bits(vals, topk_rows_ref(x, None, fraction=0.1)[1])
+    rng = np.random.default_rng(7)
+    for k, rows, s in ((4, 4096, 64), (3, 333, 5)):
+        x = torch.from_numpy(rng.standard_normal((k, rows, LANE),
+                                                 dtype=np.float32)).to(dev)
+        x[:, 1] = -0.0
+        counts = torch.full((k * rows, 1), float(LANE), device=dev)
+        counts[1::7] = 17.0
+        counts[2::11] = 0.0
+        # distinct sorted rows per worker, the −0.0 row 1 among them
+        idx = torch.from_numpy(np.stack([
+            np.sort(np.append(rng.choice(np.arange(2, rows), s - 1,
+                                         replace=False), 1))
+            for _ in range(k)]).astype(np.int32)).to(dev)
+        before = (row_gather.launches, row_scatter.launches)
+        for c in (counts, None):
+            g = row_gather(x, idx, c)
+            assert _same_bits(g, row_gather_ref(x, idx, c))
+        g[:, :, ::5] = -0.0
+        y = row_scatter(idx, g, rows=rows)
+        torch.cuda.synchronize()
+        assert _same_bits(y, row_scatter_ref(idx, g, rows=rows))
+        assert (row_gather.launches, row_scatter.launches) == \
+            (before[0] + 2, before[1] + 1)
+    with pytest.raises(ValueError):
+        topk_select(x[0], None, fraction=0.2)        # W = 205 > MAX_WIDTH
+    with pytest.raises(ValueError):
+        row_gather(x, idx, counts.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["topk", "sparse"])
+def test_cpd_kernel_round_on_card_matches_per_leaf_round(kind):
+    """One CPD-SGDM round on the card with the top-k wire (ResNet-20 width
+    4, K = 8 ring, f = 0.1, γ = 0.2) or the sparse-rows wire (a 4096 × 64
+    embedding table, K = 4 ring, 64 rows), the kernel round against the
+    per-leaf codec round, which launches no codec kernel.  Params within
+    atol 1e-4 / rtol 1e-3; x̂ too, except where the two consensus products
+    move a near-tie of the selection, in a handful of elements (each by at
+    most 2·max|drift|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import (CPDSGDM, CPDSGDMConfig, DenseComm,
+                                  SparseRowsCompressor, TopKCompressor, ring)
+    from repro_torch.data.synthetic import (ClassStreamCfg, EmbedStreamCfg,
+                                            class_batch, embed_batch)
+    from repro_torch.models.resnet import resnet20_init, resnet20_loss
+    from repro_torch.train.trainer import SimTrainer
+    P = 4
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    if kind == "topk":
+        K = 8
+        cfg = CPDSGDMConfig(eta=0.1, mu=0.9, p=P, weight_decay=1e-4,
+                            gamma=0.2)
+        comp = TopKCompressor(fraction=0.1)
+        pack, unpack = topk_select, topk_scatter
+        init = resnet20_init(torch.Generator().manual_seed(0), width=4)
+        params = {k: v.unsqueeze(0).repeat((K,) + (1,) * v.dim())
+                  for k, v in init.items()}
+        data = ClassStreamCfg(batch=2, n_workers=K)
+    else:
+        K = 4
+        cfg = CPDSGDMConfig(eta=0.05, mu=0.9, p=P, gamma=0.4)
+        comp = SparseRowsCompressor(max_rows=64)
+        pack, unpack = row_gather, row_scatter
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = {"table": torch.randn((K, 4096, 64), generator=gen,
+                                       device="cuda") * 0.1}
+        data = EmbedStreamCfg(n_rows=4096, dim=64, batch=64, n_workers=K)
+        ids = torch.stack([embed_batch(data, t)["ids"] for t in range(P)])
+
+        def grads_fn(p, batch):
+            g = torch.zeros_like(p["table"])
+            k = torch.arange(K, device="cuda")[:, None].expand_as(batch["ids"])
+            g.index_put_((k, batch["ids"]), torch.tensor(0.01, device="cuda"),
+                         accumulate=True)
+            return torch.zeros((), device="cuda"), {"table": g}
+    counters = (momentum_update, gossip_mix, pack, unpack)
+    try:
+        out, launches = {}, {}
+        for use_kernel in (True, False):
+            opt = CPDSGDM(dataclasses.replace(cfg, use_kernel=use_kernel),
+                          DenseComm(ring(K)), comp)
+            if not use_kernel:
+                opt._kernel_wire = lambda: False    # the per-leaf codec
+            before = [f.launches for f in counters]
+            if kind == "topk":
+                got, state, _ = SimTrainer(resnet20_loss, opt).train(
+                    params, lambda t: class_batch(data, t), P)
+            else:
+                got, state, _ = opt.round(opt.init(params), params, grads_fn,
+                                          {"ids": ids})
+            out[use_kernel] = (got, state["xhat"])
+            launches[use_kernel] = tuple(f.launches - b
+                                         for f, b in zip(counters, before))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    assert launches == {True: (P, 0, 1, 1), False: (0, 0, 0, 0)}
     (pk, hk), (pt, ht) = out[True], out[False]
     drift = max(float((pt[n] - params[n]).abs().max()) for n in pt)
     for name, want in pt.items():

@@ -140,7 +140,9 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_reference():
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     for module in ("core/cpdsgdm.py", "core/wire.py", "core/compression.py",
-                   "kernels/sign_compress.py", "kernels/qsgd_quant.py"):
+                   "kernels/sign_compress.py", "kernels/qsgd_quant.py",
+                   "kernels/topk_select.py", "kernels/row_gather.py",
+                   "data/synthetic.py"):
         assert os.path.join("src", "repro_torch", module) in scanned
     forbidden = []
     for path in _port_sources():
