@@ -15,8 +15,12 @@ matmuls:
    kernel, the plain version and (where one exists) the single PyTorch call
    that computes the same function; the codec kernels run at the
    ResNet-20 row counts and at ragged rows with their edge cases, QSGD at
-   levels 1, 7 and 127, top-k at W = 2, 11, 103 and 128, the row gather
-   and scatter at the embedding plan and at ragged rows;
+   levels 1, 7 and 127, top-k at W = 2, 11, 103 and 128 (with a tie run
+   straddling the W-th place, subnormals, ±inf, NaN, equal |x| and a
+   scatter payload that repeats columns; plus the select's time on rows
+   of equal |x|, and at W = 128 on random full rows and on rows built to
+   be its worst case), the row gather and scatter at
+   the embedding plan and at ragged rows;
 2. drives five paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
@@ -225,22 +229,25 @@ def finish_timings(timings, results, bw, f32_peak, shape):
 
 def same_bits(torch, name, got, want, results, label):
     """Kernel outputs against the plain version's, bit for bit (f32 by bit
-    pattern, so signs of zero count); records the largest error."""
+    pattern, so signs of zero count); records the largest error, taken
+    where the bits differ (an equal ±inf or NaN is no error)."""
     torch.cuda.synchronize()
-    err, ulp = 0.0, 0
+    err, ulp, same = 0.0, 0, True
     for a, b in zip(got, want):
         if a.dtype == torch.float32:
-            err = max(err, float((a - b).abs().max()))
+            differ = a.view(torch.int32) != b.view(torch.int32)
             ulp = max(ulp, max_ulp(torch, a, b))
-            same = torch.equal(a.view(torch.int32), b.view(torch.int32))
         else:
-            err = max(err, float((a.float() - b.float()).abs().max()))
-            same = torch.equal(a, b)
-        if not same:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"({label}): max_abs_err={err}")
+            differ = a != b
+        if bool(differ.any()):
+            same = False
+            d = (a[differ].double() - b[differ].double()).abs()
+            err = max(err, float(d.nan_to_num(nan=math.inf).max()))
     r = results.setdefault(name, [0.0, 0])
     r[0], r[1] = max(r[0], err), max(r[1], ulp)
+    if not same:
+        raise AssertionError(f"{name} differs from its plain version "
+                             f"({label}): max_abs_err={err}, max_ulp={ulp}")
 
 
 def ragged_codec_rows(torch, gen, lane, rows=333):
@@ -332,23 +339,60 @@ def codec_kernel_phase(torch, ops, bw, f32_peak):
 
 def ragged_topk_rows(torch, gen, lane):
     """:func:`ragged_codec_rows` plus top-k's own edge cases: rows
-    quantized to a few values, so ties abound, −0.0 among a row's largest
-    and below its zeros."""
+    quantized to a few values, so ties abound, a row of equal |x| (the
+    contended case of the radix select), −0.0 among a row's largest and
+    below its zeros; a run of 12 equal |x| straddling the 103rd place (W at
+    f = 0.1), a row of subnormals (they differ only in the low digits), a
+    row with ±inf, and counts 1 and 1023 on full rows."""
     x, counts = ragged_codec_rows(torch, gen, lane)
+    dev = x.device
     x[8] = torch.round(x[8] * 2.0) / 2.0
     x[9] = torch.sign(x[9])
     x[10, :200] = -0.0
     x[10, 200:] = 0.0
     x[11, :700] = 0.0
     x[11, 900:] = -0.0
+    cols = torch.randperm(lane, generator=gen, device=dev)
+    x[12] = torch.rand(lane, generator=gen, device=dev) * 0.5
+    x[12, cols[:98]] = torch.arange(10.0, 108.0, device=dev)
+    x[12, cols[98:110]] = 5.0 * torch.sign(
+        torch.randn(12, generator=gen, device=dev))
+    bits = torch.randint(1, 1 << 12, (lane,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    x[13] = torch.where(torch.rand(lane, generator=gen, device=dev) < 0.5,
+                        bits, bits | -2 ** 31).view(torch.float32)
+    x[14, 5], x[14, 9], x[14, 700] = math.inf, -math.inf, math.inf
+    counts[15] = 1
+    counts[16] = lane - 1
     return x, counts
+
+
+def duplicate_slots(torch, gen, lane, rows=333, w=103):
+    """A scatter payload whose nonzero slots name columns more than once:
+    small integers, so the sums are exact in any order and the plain
+    version's atomic scatter_add has one answer; ±0.0 slots and the (0,
+    0.0) placeholders among them."""
+    dev = torch.device(DEVICE)
+    idx = torch.randint(0, lane, (rows, w), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:, 5] = idx[:, 0]
+    idx[:, 9] = idx[:, 0]
+    idx[::2, 1:4] = idx[::2, 7:10]
+    vals = torch.randint(-8, 9, (rows, w), generator=gen,
+                         device=dev).to(torch.float32)
+    vals[:, 11] = -0.0
+    idx[:, 90:], vals[:, 90:] = 0, 0.0
+    return idx, vals
 
 
 def topk_kernel_phase(torch, ops, bw, f32_peak):
     """The top-k select and scatter against their plain versions, bit for
     bit, at the main path's rows (ResNet-20 width 16 over K = 8, its real
-    row counts) and at ragged rows, at f = 0.001, 0.01, 0.1 and 0.125
-    (W = 2, 11, 103, 128); times at the main path's f = 0.1."""
+    row counts) and at ragged rows (:func:`ragged_topk_rows`), at f =
+    0.001, 0.01, 0.1 and 0.125 (W = 2, 11, 103, 128); the select on rows
+    with NaN, the scatter on a payload that repeats columns; times at the
+    main path's f = 0.1, and the select's on rows of equal |x| and, at
+    W = 128, on random full rows and on its worst case."""
     from repro_torch.kernels.ref import topk_rows_ref, topk_rows_unpack_ref
     from repro_torch.kernels.topk_select import topk_scatter, topk_select
     dev = torch.device(DEVICE)
@@ -372,6 +416,19 @@ def topk_kernel_phase(torch, ops, bw, f32_peak):
                       f"{label}, f={fraction}")
         print(f"kernel topk_select/topk_scatter rows={x.shape[0]} "
               f"(W = 2, 11, 103, 128): bit-exact")
+    x_nan = x_rag.clone()
+    x_nan[3, 100], x_nan[3, 50], x_nan[20, 7] = math.nan, -math.nan, math.nan
+    for fraction in (0.001, TOPK_FRACTION):
+        same_bits(torch, "topk_select", topk_select(x_nan, counts_rag,
+                                                    fraction=fraction),
+                  topk_rows_ref(x_nan, counts_rag, fraction=fraction),
+                  results, f"NaN rows, f={fraction}")
+    idx, vals = duplicate_slots(torch, gen, ops.LANE)
+    same_bits(torch, "topk_scatter", (topk_scatter(idx, vals),),
+              (topk_rows_unpack_ref(idx, vals, ops.LANE),), results,
+              "repeated columns")
+    print("kernel topk_select rows with NaN, topk_scatter with repeated "
+          "columns: bit-exact")
 
     rows, n = x_main.shape[0], x_main.numel()
     f = TOPK_FRACTION
@@ -379,15 +436,19 @@ def topk_kernel_phase(torch, ops, bw, f32_peak):
     w = idx.shape[1]
     idx64 = idx.long()
     slots = rows * w * 8                        # i32 idx + f32 val
+    # a row of count 0 is all placeholders: the select reads none of its x
+    live = int((counts_main > 0).sum())
     timings = {
         "topk_select": dict(
             ms=time_ms(torch, lambda: topk_select(x_main, counts_main,
                                                   fraction=f)),
             plain_ms=time_ms(torch, lambda: topk_rows_ref(
                 x_main, counts_main, fraction=f)),
+            # over every row: torch.topk cannot skip the dead ones
             library_ms=time_ms(torch, lambda: torch.topk(x_main.abs(), w,
                                                          dim=1)),
-            bytes=4 * n + 4 * rows + slots, flops=2 * n),    # |x|, compare
+            bytes=4 * ops.LANE * live + 4 * rows + slots,
+            flops=2 * ops.LANE * live),                  # |x|, compare
         "topk_scatter": dict(
             ms=time_ms(torch, lambda: topk_scatter(idx, vals)),
             plain_ms=time_ms(torch, lambda: topk_rows_unpack_ref(
@@ -395,9 +456,49 @@ def topk_kernel_phase(torch, ops, bw, f32_peak):
             # zeros + scatter_add_ (int64 indices, converted once)
             library_ms=time_ms(torch, lambda: torch.zeros(
                 (rows, ops.LANE), device=dev).scatter_add_(1, idx64, vals)),
-            bytes=slots + 4 * n, flops=rows * w),            # one add a slot
+            # every slot is read (only its value says it is a placeholder)
+            bytes=slots + 4 * n,
+            flops=int((vals != 0).sum())),               # one add a slot
     }
     finish_timings(timings, results, bw, f32_peak, tuple(x_main.shape))
+    # rows of equal |x|: one histogram bin on every pass (the most
+    # contended histograms), all four passes, and ties that need no rank
+    x_eq = 0.5 * torch.sign(torch.randn(x_main.shape, generator=gen,
+                                        device=dev))
+    x_eq[x_eq == 0] = 0.5
+    same_bits(torch, "topk_select", topk_select(x_eq, counts_main, fraction=f),
+              topk_rows_ref(x_eq, counts_main, fraction=f), results,
+              "equal |x|")
+    t_eq = time_ms(torch, lambda: topk_select(x_eq, counts_main, fraction=f))
+    print(f"kernel topk_select {tuple(x_main.shape)} f32, every |x| equal: "
+          f"kernel_ms={t_eq:.5f} (random rows "
+          f"{timings['topk_select']['ms']:.5f}, torch.topk "
+          f"{timings['topk_select']['library_ms']:.5f})")
+    # the worst case by construction: every row full at W = 128, all keys
+    # in one first-pass bin (|x| in [1, 2)), distinct 23-bit mantissas
+    # c·8191 in a random order, save that the 129th largest equals the
+    # 128th; so all four passes run and 127 strict winners are ranked
+    wide = 0.125
+    m = torch.arange(ops.LANE, device=dev) * 8191
+    m[ops.LANE - 129] = m[ops.LANE - 128]
+    perm = torch.argsort(torch.rand(x_main.shape, generator=gen, device=dev),
+                         dim=1)
+    sign = torch.where(torch.rand(x_main.shape, generator=gen, device=dev)
+                       < 0.5, -1.0, 1.0)
+    x_worst = sign * (1.0 + m[perm].float() * 2.0 ** -23)
+    x_rand = torch.randn(x_main.shape, generator=gen, device=dev)
+    for label, xw in (("random rows", x_rand), ("worst case", x_worst)):
+        same_bits(torch, "topk_select", topk_select(xw, fraction=wide),
+                  topk_rows_ref(xw, fraction=wide), results,
+                  f"full rows, {label}, f={wide}")
+    t_worst, t_rand, t_lib = (
+        time_ms(torch, lambda: topk_select(x_worst, fraction=wide)),
+        time_ms(torch, lambda: topk_select(x_rand, fraction=wide)),
+        time_ms(torch, lambda: torch.topk(x_rand.abs(), 128, dim=1)))
+    print(f"kernel topk_select {tuple(x_main.shape)} f32, full rows, W=128, "
+          f"worst case (one first-pass bin, four passes, 127 ranked): "
+          f"kernel_ms={t_worst:.5f} (random rows {t_rand:.5f}, torch.topk "
+          f"{t_lib:.5f})")
     return timings
 
 

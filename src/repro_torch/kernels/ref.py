@@ -175,7 +175,9 @@ def topk_rows_ref(x, counts=None, *, fraction: float, width=None):
 def topk_rows_unpack_ref(idx, vals, block: int):
     """Inverse of :func:`topk_rows_ref` → (R, block) f32: ``+0.0`` rows
     with ``out[idx_j] += val_j``.  Placeholder slots ``(0, 0.0)`` add
-    nothing, and the add turns a −0.0 value into +0.0."""
+    nothing, and the add turns a −0.0 value into +0.0.  On CUDA the add
+    flushes subnormal inputs and sums to zero, as the kernel and XLA do;
+    on the CPU it keeps them."""
     out = torch.zeros((idx.shape[0], block), dtype=torch.float32,
                       device=vals.device)
     return out.scatter_add(1, idx.long(), vals)

@@ -14,7 +14,9 @@ One row of the flatten-once layout is one top-k block:
     ``out[idx_j] += val_j``.
 
 On CUDA tensors each wrapper launches its hand-written kernel in
-``csrc/topk_select.cu``; on CPU tensors it runs the plain version in
+``csrc/topk_select.cu`` (a radix select on the |x| bits; a scatter of the
+nonzero slots in parallel, whose adds flush subnormals as the card's
+``scatter_add`` does); on CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.ref`.  ``MAX_WIDTH`` caps W, as the reference's
 select kernel caps its unrolled rounds: ``TopKCodec.rows_supported`` reads
 it to choose between the kernel wire and the per-leaf codec, as the

@@ -286,6 +286,73 @@ def test_topk_and_row_kernels_bit_exact_on_card():
         row_gather(x, idx, counts.cpu())
 
 
+def _topk_edge_rows(kind, width, seed, rows=256):
+    """The radix select's hard rows (as tests/test_torch_topk.py builds
+    them for the CPU): a run of 12 equal |x| across the W-th place,
+    subnormals, ±inf and NaN, equal |x|; counts 1, 1023 and 0 on rows
+    0-2."""
+    rng = np.random.default_rng(seed)
+    x = np.empty((rows, LANE), np.float32)
+    for r in range(rows):
+        if kind == "straddle":
+            x[r] = rng.uniform(0.0, 0.5, LANE)
+            cols = rng.permutation(LANE)
+            big = max(width - 5, 0)
+            x[r, cols[:big]] = 10.0 + np.arange(big)
+            x[r, cols[big:big + 12]] = 5.0 * rng.choice([-1.0, 1.0], 12)
+        elif kind == "subnormal":
+            bits = (rng.integers(1, 1 << 12, LANE).astype(np.uint32)
+                    | (rng.integers(0, 2, LANE).astype(np.uint32) << 31))
+            x[r] = bits.view(np.float32)
+        elif kind in ("inf", "nan"):
+            x[r] = rng.standard_normal(LANE)
+            n = r % 7
+            x[r, rng.choice(LANE, n, replace=False)] = rng.choice(
+                [-np.inf, np.inf] if kind == "inf" else [-np.nan, np.nan], n)
+        else:
+            x[r] = 0.75 * rng.choice([-1.0, 1.0], LANE)
+    counts = np.full((rows, 1), float(LANE), np.float32)
+    for r, n in ((0, 1), (1, LANE - 1), (2, 0)):
+        x[r, n:] = 0.0
+        counts[r] = n
+    return x, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["straddle", "subnormal", "inf", "nan",
+                                  "equal"])
+def test_topk_kernels_bit_exact_on_edge_rows(kind):
+    """The radix select and the slot scatter on their hard rows at W = 2,
+    11, 103 and 128, and the scatter on payloads that repeat a column
+    (small integers: every order of the adds gives one sum), each against
+    its plain version on the card bit for bit.  The plain scatter's
+    atomicAdd flushes subnormals, and so does the kernel.  NaN rows go
+    through the select only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    for fraction in (0.001, 0.01, 0.1, 0.125):
+        width = max(1, int(np.ceil(fraction * LANE)))
+        x, counts = (torch.from_numpy(a).to(dev)
+                     for a in _topk_edge_rows(kind, width, width))
+        idx, vals = topk_select(x, counts, fraction=fraction)
+        want = topk_rows_ref(x, counts, fraction=fraction)
+        assert _same_bits(idx, want[0]) and _same_bits(vals, want[1])
+        if kind != "nan":
+            y = topk_scatter(idx, vals)
+            assert _same_bits(y, topk_rows_unpack_ref(idx, vals, LANE))
+        rng = np.random.default_rng(width)
+        ri = rng.integers(0, LANE, (256, width)).astype(np.int32)
+        ri[:, -1] = ri[:, 0]
+        ri[::2, : width // 2] = ri[::2, width - width // 2:]
+        rv = rng.integers(-8, 9, (256, width)).astype(np.float32)
+        rv[1::3, 0] = -0.0
+        ri, rv = torch.from_numpy(ri).to(dev), torch.from_numpy(rv).to(dev)
+        y = topk_scatter(ri, rv)
+        assert _same_bits(y, topk_rows_unpack_ref(ri, rv, LANE))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["topk", "sparse"])
 def test_cpd_kernel_round_on_card_matches_per_leaf_round(kind):

@@ -12,7 +12,11 @@ exact:
   −0.0 as read); equal to the Pallas kernel as numbers, because the kernel
   forms each value as a sum over the row and turns a selected −0.0 into
   +0.0 (``np.array_equal`` treats ±0 as equal);
-* scatters and decodes: bit for bit (each adds the slots to +0.0);
+* scatters and decodes: bit for bit (each adds the slots to +0.0), on
+  the select's payloads and on payloads that repeat a column;
+* the radix select's hard rows (a tie run across the W-th place,
+  subnormals, ±inf, equal |x|): as above, but where XLA on the CPU
+  flushes subnormals (see :func:`test_topk_edge_rows_match_reference`);
 * bytes and the kernel-wire dispatch: equal.
 
 The CUDA kernels are held bit for bit against the same plain versions on
@@ -95,6 +99,121 @@ def test_topk_select_and_scatter_match_reference(fraction):
         _bits(out), _bits(r_tk.topk_scatter_pallas(ki, kv, interpret=True)))
     assert not np.signbit(out.numpy()[out.numpy() == 0]).any()
     assert (tk.topk_select.launches, tk.topk_scatter.launches) == before
+
+
+def _edge_rows(kind, fraction, seed=0, rows=r_tk.BLOCK_ROWS):
+    """Rows of one hard case for a radix select, counts 1, 1023 and 0 on
+    rows 0-2 (zero tails, as the plan pads them) and full counts after:
+
+    * ``straddle``: W − 5 distinct large |x|, then a run of 12 equal |x|
+      of random signs across the W-th place, over small noise;
+    * ``subnormal``: every entry subnormal, of random sign (the keys differ
+      only in the low digits);
+    * ``inf``: normal rows with 0-6 entries of ±inf (ties among them at W);
+    * ``equal``: every |x| equal (the contended case)."""
+    rng = np.random.default_rng(seed)
+    w = topk_width(fraction, LANE)
+    x = np.empty((rows, LANE), np.float32)
+    for r in range(rows):
+        if kind == "straddle":
+            x[r] = rng.uniform(0.0, 0.5, LANE)
+            cols = rng.permutation(LANE)
+            big = max(w - 5, 0)
+            x[r, cols[:big]] = 10.0 + np.arange(big)
+            x[r, cols[big:big + 12]] = 5.0 * rng.choice([-1.0, 1.0], 12)
+        elif kind == "subnormal":
+            bits = (rng.integers(1, 1 << 12, LANE).astype(np.uint32)
+                    | (rng.integers(0, 2, LANE).astype(np.uint32) << 31))
+            x[r] = bits.view(np.float32)
+        elif kind == "inf":
+            x[r] = rng.standard_normal(LANE)
+            n = r % 7
+            x[r, rng.choice(LANE, n, replace=False)] = rng.choice(
+                [-np.inf, np.inf], n)
+        else:
+            x[r] = 0.75 * rng.choice([-1.0, 1.0], LANE)
+    counts = np.full((rows, 1), float(LANE), np.float32)
+    for r, n in ((0, 1), (1, LANE - 1), (2, 0)):
+        x[r, n:] = 0.0
+        counts[r] = n
+    return x, counts
+
+
+def _flush(a):
+    """Subnormals to zero of the same sign, as XLA on the CPU reads them."""
+    a = np.array(a, np.float32)
+    sub = (np.abs(a) < np.finfo(np.float32).tiny) & (a != 0)
+    a[sub] = np.copysign(0.0, a[sub])
+    return a
+
+
+@pytest.mark.parametrize("fraction", FRACTIONS)
+@pytest.mark.parametrize("kind", ["straddle", "subnormal", "inf", "equal"])
+def test_topk_edge_rows_match_reference(kind, fraction):
+    """The plain select and scatter against the oracle and the Pallas
+    kernels on the radix select's hard rows: indices exact, tie order
+    included, values bit for bit against the oracle.  XLA on the CPU
+    flushes subnormals to zero of the same sign (the TPU has none, and the
+    card's scatter_add flushes them too), so on subnormal rows the Pallas
+    select is held against the plain select of the flushed rows, the
+    plain scatter against numpy's exact sum, and the JAX scatters against
+    the plain scatter of the flushed payload."""
+    x, counts = _edge_rows(kind, fraction, seed=int(fraction * 1000))
+    idx, vals = tk.topk_select(torch.from_numpy(x), torch.from_numpy(counts),
+                               fraction=fraction)
+    oi, ov = r_wire.topk_rows(jnp.asarray(x), jnp.asarray(counts),
+                              fraction=fraction)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(oi))
+    np.testing.assert_array_equal(_bits(vals), _bits(ov))
+    assert not idx[2].any() and not vals[2].any()     # count 0
+    assert int((vals[0] != 0).sum()) <= 1             # count 1: one slot
+    flushed = kind == "subnormal"
+    xk = _flush(x) if flushed else x
+    ki, kv = r_tk.topk_select_pallas(jnp.asarray(x), jnp.asarray(counts),
+                                     fraction=fraction, interpret=True)
+    pi, pv = tk.topk_select(torch.from_numpy(xk), torch.from_numpy(counts),
+                            fraction=fraction)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ki))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(kv))
+    out = tk.topk_scatter(idx, vals)
+    exact = np.zeros(x.shape, np.float32)
+    np.add.at(exact, (np.arange(x.shape[0])[:, None], idx.numpy()),
+              vals.numpy())
+    np.testing.assert_array_equal(_bits(out), _bits(exact))
+    payload = torch.from_numpy(_flush(vals.numpy())) if flushed else vals
+    np.testing.assert_array_equal(
+        _bits(tk.topk_scatter(idx, payload)),
+        _bits(r_wire.topk_rows_unpack(oi, ov, LANE)))
+    np.testing.assert_array_equal(
+        _bits(tk.topk_scatter(pi, pv)),
+        _bits(r_tk.topk_scatter_pallas(ki, kv, interpret=True)))
+
+
+@pytest.mark.parametrize("fraction", FRACTIONS)
+def test_topk_scatter_repeated_columns_matches_reference(fraction):
+    """A payload whose nonzero slots name a column more than once (the
+    select never emits one; the scatter's contract holds for any): small
+    integers, so every order of the adds gives the same sum; ±0.0 slots
+    and (0, 0.0) placeholders among them.  Bit for bit against the
+    oracle's scatter-add and the Pallas kernel."""
+    rng = np.random.default_rng(11)
+    w = topk_width(fraction, LANE)
+    rows = r_tk.BLOCK_ROWS
+    idx = rng.integers(0, LANE, (rows, w)).astype(np.int32)
+    idx[:, -1] = idx[:, 0]
+    idx[::2, : w // 2] = idx[::2, w - w // 2:]
+    vals = rng.integers(-8, 9, (rows, w)).astype(np.float32)
+    vals[1::3, 0] = -0.0
+    idx[3], vals[3] = 0, 0.0                          # a dead row
+    out = tk.topk_scatter(torch.from_numpy(idx), torch.from_numpy(vals))
+    np.testing.assert_array_equal(
+        _bits(out), _bits(r_wire.topk_rows_unpack(jnp.asarray(idx),
+                                                  jnp.asarray(vals), LANE)))
+    np.testing.assert_array_equal(
+        _bits(out), _bits(r_tk.topk_scatter_pallas(
+            jnp.asarray(idx), jnp.asarray(vals), interpret=True)))
+    assert not np.signbit(out.numpy()[out.numpy() == 0]).any()
+    assert not out[3].any()
 
 
 def test_k_active_rounds_the_product_in_f32():
