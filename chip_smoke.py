@@ -4,7 +4,11 @@
     python3 chip_smoke.py              # build, check, train, report
     python3 chip_smoke.py --profile    # also profile one round of each
                                        # path into the output directory
-                                       # (profile_round)
+                                       # (profile_round), and the gather
+                                       # over 8 rounds (gather_in_round)
+    python3 chip_smoke.py --gather-variant parent=PATH   # also build the
+                                       # row_gather.cu at PATH and check
+                                       # and time it beside this one
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all at once) and then, with TF32 off for convolutions and
@@ -20,7 +24,13 @@ matmuls:
    scatter payload that repeats columns; plus the select's time on rows
    of equal |x|, and at W = 128 on random full rows and on rows built to
    be its worst case), the row gather and scatter at
-   the embedding plan and at ragged rows;
+   the embedding plan and at ragged rows, the gather also at its edge
+   shapes (K = 1, 3, 8; S = 1, 5, 65; NaN, ±inf, −0.0, subnormals;
+   repeated and out-of-range indices) and at S = 1,024; it prints the
+   timing window's floor, and the gather's times by three methods
+   (per-launch windows, back to back on cold rows, and with ``--profile``
+   in the round) beside ``index_select`` and a contiguous copy of the same
+   bytes;
 2. drives five paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
@@ -83,6 +93,9 @@ WIRE_BYTES = {"pd_sgdm": 2_539_520,         # 2 × 310 × 1024 × 4 B
               "cpd_sgdm_qsgd": 319_920,     # 2 × 310 × (512 + 4) B
               "cpd_sgdm_topk": 510_880,     # 2 × 310 × 103 × (4 + 4) B
               "cpd_sgdm_sparse": 524_800}   # 2 × 64 × (4 + 4096) B
+# the lines of nvcc's -Xptxas -v output that are printed: each kernel's
+# name, then its registers, shared memory and spills
+PTXAS_WORDS = ("Function properties", "registers", "spill")
 SPIN_CYCLES = 2_000_000     # about 1 ms at the H100's 1.98 GHz boost clock
 # the TPU kernel each CUDA kernel replaces (pl.pallas_call line) and its source
 SOURCES = {"momentum_update": ("momentum.cu", "momentum.py:56"),
@@ -502,11 +515,237 @@ def topk_kernel_phase(torch, ops, bw, f32_peak):
     return timings
 
 
-def row_kernel_phase(torch, ops, bw, f32_peak):
+def gather_edge_cases(torch, gen, lane):
+    """Inputs for the gather's edge shapes: K = 1, 3, 8 workers, S = 1, 5,
+    65 rows each (no multiple of a per-block row count) out of 333; counts
+    0, 1, 17, 1023 and 1024 among the rows; NaN (with a payload), ±inf,
+    −0.0 and a subnormal in lanes that every count ≥ 17 keeps and in the
+    last lanes, which only 1024 keeps; repeated indices.  Yields
+    ``(label, x, idx, counts)``."""
+    dev = torch.device(DEVICE)
+    special = torch.tensor([0x7FC00123, 0x7F800000, -0x800000, -2 ** 31, 5],
+                           dtype=torch.int32, device=dev).view(torch.float32)
+    rows = 333
+    for k, s in ((1, 1), (3, 5), (8, 65)):
+        x = torch.randn((k, rows, lane), generator=gen, device=dev)
+        x[:, :, 3:8] = special                # NaN, +inf, -inf, -0.0, 5·2⁻¹⁴⁹
+        x[:, :, lane - 5:] = special
+        pick = torch.tensor([0.0, 1.0, 17.0, lane - 1.0, float(lane)],
+                            device=dev)
+        counts = pick[torch.randint(0, 5, (k * rows, 1), generator=gen,
+                                    device=dev)]
+        idx = torch.randint(0, rows, (k, s), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if s > 1:
+            idx[:, -1] = idx[:, 0]                # a repeated index
+        yield f"edge K={k} S={s}", x, idx, counts
+
+
+def gather_with_oob(torch, ops, x, idx, counts):
+    """The plain gather where ``idx`` may leave ``[0, rows)``: a zero row
+    there (the kernel's rule; the plain version itself would raise)."""
+    from repro_torch.kernels.ref import row_gather_ref
+    rows = x.shape[1]
+    bad = (idx < 0) | (idx >= rows)
+    out = row_gather_ref(x, torch.where(bad, 0, idx), counts)
+    out[bad] = 0.0
+    return out
+
+
+def cold_ms(torch, launches, passes: int = 1):
+    """Per-launch device time of ``launches`` (callables, each on inputs of
+    its own), run ``passes`` times over, back to back between one pair of
+    CUDA events.  A spin kernel ahead of the start event keeps the device
+    busy until the host has enqueued every launch (checked: the start event
+    must still be pending when the end event is enqueued, else the spin is
+    doubled and the window taken again), so the window holds device time
+    only.  The caller makes the launches' inputs cold: the bytes touched
+    between two uses of one input exceed the 50 MB L2."""
+    for fn in launches:                       # warm-up: build, allocator
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fn in launches:
+        fn()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) * passes
+    cycles = int(4 * host_s * 2e9) + SPIN_CYCLES
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(passes):
+            for fn in launches:
+                fn()
+        end.record()
+        if not start.query():
+            end.synchronize()
+            return start.elapsed_time(end) / (passes * len(launches))
+        torch.cuda.synchronize()
+        cycles *= 2
+    raise RuntimeError("cold_ms: the host could not stay ahead of the card")
+
+
+class bound_gather:
+    """Within the block, ``row_gather`` launches the C function ``fn`` (a
+    build of another ``row_gather.cu``) in place of the checkout's."""
+    KEY = ("row_gather", "row_gather_f32")
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.row_gather import _GATHER_ARGTYPES
+        self.saved = build.load_function(*self.KEY, _GATHER_ARGTYPES)
+        if self.fn is not None:
+            build._FUNCS[self.KEY] = self.fn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import build
+        build._FUNCS[self.KEY] = self.saved
+
+
+def build_variant(path: str):
+    """Compile another ``row_gather.cu`` (for a comparison in the same
+    call) with the port's nvcc flags into a fresh temporary directory
+    outside the checkout, and bind its ``row_gather_f32``."""
+    import ctypes
+    import tempfile
+    from repro_torch.kernels import build
+    from repro_torch.kernels.row_gather import _GATHER_ARGTYPES
+    out = os.path.join(tempfile.mkdtemp(prefix="row_gather_variant_"),
+                       "librow_gather.so")
+    log = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", out, path],
+                         capture_output=True, text=True, timeout=600)
+    if log.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {path}:\n{log.stdout}"
+                           f"{log.stderr}")
+    for line in (log.stdout + log.stderr).splitlines():
+        if any(w in line for w in PTXAS_WORDS):
+            print(f"build: variant {path}: {line.strip()}")
+    fn = ctypes.CDLL(out).row_gather_f32
+    fn.argtypes, fn.restype = list(_GATHER_ARGTYPES), ctypes.c_int
+    return fn
+
+
+def gather_checks(torch, ops, results, label_prefix=""):
+    """``row_gather`` (as bound now) against its plain version, bit for
+    bit, at the edge shapes, with an index out of range, and at S = 1,024
+    of the embedding plan, each with counts and without."""
+    from repro_torch.kernels.ref import row_gather_ref
+    from repro_torch.kernels.row_gather import row_gather
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    cases = list(gather_edge_cases(torch, gen, ops.LANE))
+    x = torch.randn((EMB_K, 4096, ops.LANE), generator=gen, device=dev)
+    idx = torch.sort(torch.stack([
+        torch.randperm(4096, generator=gen, device=dev)[:GATHER_WIDE_S]
+        for _ in range(EMB_K)]), dim=1)[0].to(torch.int32)
+    counts = torch.full((EMB_K * 4096, 1), float(ops.LANE), device=dev)
+    counts[5::97] = 17.0
+    cases.append((f"K={EMB_K} rows=4096 S={GATHER_WIDE_S}", x, idx, counts))
+    for label, x, idx, counts in cases:
+        for c in (counts, None):
+            same_bits(torch, "row_gather", (row_gather(x, idx, c),),
+                      (row_gather_ref(x, idx, c),), results,
+                      label_prefix + label)
+    _, x, idx, counts = cases[1]                  # K = 3, S = 5
+    idx = idx.clone()
+    idx[0, 1], idx[1, 2], idx[2, 0] = -1, x.shape[1], 2 ** 31 - 1
+    for c in (counts, None):
+        same_bits(torch, "row_gather", (row_gather(x, idx, c),),
+                  (gather_with_oob(torch, ops, x, idx, c),), results,
+                  label_prefix + "indices out of range")
+    print(f"kernel row_gather {label_prefix}edge shapes (K = 1, 3, 8; S = 1, "
+          f"5, 65; counts 0, 1, 17, 1023, 1024; NaN, ±inf, −0.0, subnormal; "
+          f"repeated and out-of-range indices) and S={GATHER_WIDE_S}: "
+          f"bit-exact")
+
+
+GATHER_WIDE_S = 1024    # the bandwidth check: 4 x 1,024 rows of 4 KiB
+
+
+def gather_cold_inputs(torch, lane, s, copies: int = 4):
+    """``copies`` fresh (K, 4096, 1024) matrices (64 MiB each) and, for
+    each launch, an (x, idx, flat src) set whose S rows per worker no other
+    launch of the pass gathers: so between two uses of one row the pass
+    touches ``copies`` × 64 MiB, more than the 50 MB L2 holds."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    xs = [torch.randn((EMB_K, 4096, lane), generator=gen, device=dev)
+          for _ in range(copies)]
+    perms = [torch.stack([torch.randperm(4096, generator=gen, device=dev)
+                          for _ in range(EMB_K)]) for _ in range(copies)]
+    base = 4096 * torch.arange(EMB_K, device=dev)[:, None]
+    sets = []
+    for sl in range(4096 // s):
+        for b in range(copies):
+            idx = torch.sort(perms[b][:, sl * s:(sl + 1) * s], dim=1)[0]
+            sets.append((xs[b], idx.to(torch.int32).contiguous(),
+                         (idx + base).reshape(-1), sl))
+    return sets
+
+
+def gather_times(torch, ops, bw, variants, counts):
+    """The gather's times by three methods, at S = 64 (the main path) and
+    S = 1,024: per-launch windows (``time_ms``, inputs warm), back to back
+    on cold inputs (``cold_ms``), for the checkout's kernel, each variant,
+    ``index_select`` and a contiguous copy of the same bytes in one launch;
+    in turns (forward, then backward), and the mean of the two turns;
+    printed with the bound."""
+    from repro_torch.kernels.row_gather import row_gather
+    lane = ops.LANE
+    dev = torch.device(DEVICE)
+    for s in (EMB_MAX_ROWS, GATHER_WIDE_S):
+        n = EMB_K * s                             # rows gathered a launch
+        sets = gather_cold_inputs(torch, lane, s)
+        dst = torch.empty((n, lane), device=dev)
+        x0, idx0, src0, _ = sets[0]
+        x2d0 = x0.reshape(-1, lane)
+        kernels = [("kernel", None)] + list(variants)
+        methods = []
+        for label, fn in kernels:
+            methods.append((label, fn,
+                            lambda: row_gather(x0, idx0, counts),
+                            [lambda x=x, i=i: row_gather(x, i, counts)
+                             for x, i, _, _ in sets]))
+        methods.append(("index_select", None,
+                        lambda: torch.index_select(x2d0, 0, src0),
+                        [lambda x=x, q=q: torch.index_select(
+                            x.reshape(-1, lane), 0, q)
+                         for x, _, q, _ in sets]))
+        methods.append(("copy", None, lambda: dst.copy_(x2d0[:n]),
+                        [lambda x=x, o=sl: dst.copy_(
+                            x.reshape(-1, lane)[o * n:(o + 1) * n])
+                         for x, _, _, sl in sets]))
+        passes = max(1, 256 // len(sets))
+        got = {label: [] for label, *_ in methods}
+        for order in (methods, methods[::-1]):
+            for label, fn, warm, cold in order:
+                with bound_gather(fn):
+                    got[label].append((time_ms(torch, warm),
+                                       cold_ms(torch, cold, passes)))
+        means = {label: [statistics.mean(v) for v in zip(*pairs)]
+                 for label, pairs in got.items()}
+        bound = (n * (8 + 2 * 4 * lane)) / bw * 1e3
+        print(f"gather S={s} ({n} rows of 4 KiB, {len(sets)} cold input "
+              f"sets x {passes} passes, 4 x 64 MiB; bound {bound:.5f} ms): "
+              + "; ".join(f"{label} window {w:.5f} cold {c:.5f} ms"
+                          for label, (w, c) in means.items()))
+
+
+def row_kernel_phase(torch, ops, bw, f32_peak, variants=()):
     """The row gather and scatter against their plain versions, bit for
     bit, at the embedding path's plan ((4, 4096, 1024), 64 sorted distinct
     rows per worker) and at ragged rows (counts 0, 1, 17 and full, a −0.0
-    row, −0.0 in the payload); times at the embedding plan."""
+    row, −0.0 in the payload); the gather also at its edge shapes and at
+    S = 1,024 (:func:`gather_checks`), for the checkout's kernel and each
+    of ``variants`` (``(label, C function)``).  Times at the embedding
+    plan, and the gather's by three methods at two shapes
+    (:func:`gather_times`), with the window floor."""
     from repro_torch.kernels.ref import row_gather_ref, row_scatter_ref
     from repro_torch.kernels.row_gather import row_gather, row_scatter
     dev = torch.device(DEVICE)
@@ -534,9 +773,12 @@ def row_kernel_phase(torch, ops, bw, f32_peak):
     results = {}
     for label, x, idx, counts in (("main", x_main, idx_main, counts_main),
                                   ("ragged", x_rag, idx_rag, counts_rag)):
-        for c in (counts, None):
-            same_bits(torch, "row_gather", (row_gather(x, idx, c),),
-                      (row_gather_ref(x, idx, c),), results, label)
+        for vlabel, fn in [("", None)] + list(variants):
+            with bound_gather(fn):
+                for c in (counts, None):
+                    same_bits(torch, "row_gather", (row_gather(x, idx, c),),
+                              (row_gather_ref(x, idx, c),), results,
+                              f"{vlabel} {label}")
         g = row_gather(x, idx, counts)
         g[:, :, ::5] = -0.0
         same_bits(torch, "row_scatter",
@@ -544,6 +786,17 @@ def row_kernel_phase(torch, ops, bw, f32_peak):
                   (row_scatter_ref(idx, g, rows=x.shape[1]),), results, label)
         print(f"kernel row_gather/row_scatter K={x.shape[0]} "
               f"rows={x.shape[1]} S={idx.shape[1]}: bit-exact")
+    for vlabel, fn in [("", None)] + list(variants):
+        with bound_gather(fn):
+            gather_checks(torch, ops, results,
+                          f"[{vlabel}] " if vlabel else "")
+
+    floor_empty = time_ms(torch, lambda: None)
+    floor_sleep = time_ms(torch, lambda: torch.cuda._sleep(0))
+    print(f"window floor (time_ms: the median of 30 windows, each behind a "
+          f"1 ms spin): empty window {floor_empty:.5f} ms, one empty kernel "
+          f"(torch.cuda._sleep(0)) {floor_sleep:.5f} ms")
+    gather_times(torch, ops, bw, variants, counts_main)
 
     k, rows, s = EMB_K, plan.rows, EMB_MAX_ROWS
     g = row_gather(x_main, idx_main, counts_main)
@@ -627,15 +880,16 @@ def counters() -> dict:
             "row_gather": row_gather, "row_scatter": row_scatter}
 
 
-def make_opt(path: str, use_kernel: bool):
-    """The optimizer of ``path``, built as a user builds it."""
+def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
+    """The optimizer of ``path``, built as a user builds it (``max_rows``:
+    the sparse wire's row budget, as ``--compressor-rows`` sets it)."""
     from repro_torch.core import (CPDSGDM, CPDSGDMConfig, DenseComm,
                                   QSGDCompressor, SparseRowsCompressor,
                                   TopKCompressor, make_optimizer, ring)
     if path == "cpd_sgdm_sparse":
         return CPDSGDM(CPDSGDMConfig(use_kernel=use_kernel, **EMB_HYPER),
                        DenseComm(ring(EMB_K), device=DEVICE),
-                       SparseRowsCompressor(max_rows=EMB_MAX_ROWS))
+                       SparseRowsCompressor(max_rows=max_rows))
     comm = DenseComm(ring(K), device=DEVICE)
     if path == "pd_sgdm":
         return make_optimizer("pd_sgdm", comm, use_kernel=use_kernel, **HYPER)
@@ -798,6 +1052,59 @@ def parity_phase(torch, path: str):
           f"sign, level or selection (max |drift| {drift})")
 
 
+def dev_us(e) -> float:
+    """Device time (µs) of a profiler ``key_averages()`` entry."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def gather_in_round(torch, variants, rounds: int = 8):
+    """The gather's per-launch device time in the sparse path's rounds:
+    ``rounds`` steady-state rounds under the profiler (one gather each),
+    for the checkout's kernel and each of ``variants``, in four turns
+    (forward, backward, forward, backward); the mean of the turns.  At the
+    path's budget of S = 64 rows a worker, and at S = 1,024 (a budget a
+    user may set with ``--compressor-rows``; more bytes on the wire, so a
+    design check and not the path).  Beside it, the round's shortest
+    kernel per launch: what the profiler reads for a kernel that does
+    next to nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    path = "cpd_sgdm_sparse"
+    names = ("row_gather_kernel", "row_gather_rows_kernel")
+    binds = [("kernel", None)] + list(variants)
+    for s in (EMB_MAX_ROWS, GATHER_WIDE_S):
+        opt = make_opt(path, use_kernel=True, max_rows=s)
+        got = {label: [] for label, _ in binds}
+        floor = []
+        for order in (binds, binds[::-1]) * 2:
+            for label, fn in order:
+                with bound_gather(fn):
+                    drive(torch, opt, path, 0, P)        # warm-up round
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        drive(torch, opt, path, 0, P * rounds)
+                        torch.cuda.synchronize()
+                events = [e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA and e.count]
+                floor.append(min(
+                    (dev_us(e) / e.count, e.key[:60]) for e in events
+                    if not e.key.startswith(("Memcpy", "Memset"))))
+                hits = [e for e in events if any(n in e.key for n in names)]
+                if sum(e.count for e in hits) != rounds:
+                    raise AssertionError(f"gather_in_round: {label}: "
+                                         f"{[(e.key, e.count) for e in hits]}")
+                got[label].append(sum(dev_us(e) for e in hits) / rounds)
+        print(f"profile: row_gather in the {path} round at S={s}, per "
+              f"launch over {rounds} rounds, four turns: " + "; ".join(
+                  f"{label} {statistics.mean(v):.3f} us "
+                  f"({', '.join(f'{t:.3f}' for t in v)})"
+                  for label, v in got.items()))
+        print(f"profile: the shortest kernel of those rounds, per launch: "
+              f"{statistics.mean(f for f, _ in floor):.3f} us "
+              f"({min(floor)[1]})")
+
+
 def profile_round(torch, path: str):
     """Profile one steady-state round of ``path``; the table goes to
     ``round_profile_<path>.txt`` in the output directory."""
@@ -813,11 +1120,6 @@ def profile_round(torch, path: str):
     from torch.autograd import DeviceType
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-
     busy = sum(dev_us(e) for e in kernels) / 1e6
     sort_key = ("self_device_time_total"
                 if hasattr(events[0], "self_device_time_total")
@@ -835,7 +1137,7 @@ def profile_round(torch, path: str):
                  "sign_unpack_kernel", "qsgd_quant_kernel",
                  "qsgd_dequant_kernel", "topk_select_kernel",
                  "topk_scatter_kernel", "row_gather_kernel",
-                 "row_scatter_kernel"):
+                 "row_gather_rows_kernel", "row_scatter_kernel"):
         hits = [e for e in kernels if name in e.key]
         if hits:
             print(f"profile:   {name}: " + ", ".join(
@@ -847,6 +1149,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one round of each path into the "
                          "output directory")
+    ap.add_argument("--gather-variant", action="append", default=[],
+                    metavar="LABEL=PATH",
+                    help="also build the row_gather.cu at PATH (outside "
+                         "the checkout's build), check it and time it "
+                         "beside the checkout's gather in this call; with "
+                         "--profile, also profile a sparse round with it")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -869,7 +1177,7 @@ def main(argv=None) -> int:
           f"{', '.join(sorted(logs)) or 'nothing (cached)'}")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in PTXAS_WORDS):
                 print(f"build: {name}: {line.strip()}")
 
     torch.backends.cudnn.allow_tf32 = False
@@ -878,13 +1186,16 @@ def main(argv=None) -> int:
     timings = kernel_phase(torch, ops, bw, f32_peak)
     timings.update(codec_kernel_phase(torch, ops, bw, f32_peak))
     timings.update(topk_kernel_phase(torch, ops, bw, f32_peak))
-    timings.update(row_kernel_phase(torch, ops, bw, f32_peak))
+    variants = [(label, build_variant(path)) for label, path in
+                (v.split("=", 1) for v in args.gather_variant)]
+    timings.update(row_kernel_phase(torch, ops, bw, f32_peak, variants))
     runs = {path: training_phase(torch, path) for path in PATHS}
     for path in PATHS:
         parity_phase(torch, path)
     if args.profile:
         for path in PATHS:
             profile_round(torch, path)
+        gather_in_round(torch, variants)
 
     kernels = []
     for name, (src, tpu) in SOURCES.items():

@@ -286,6 +286,49 @@ def test_topk_and_row_kernels_bit_exact_on_card():
         row_gather(x, idx, counts.cpu())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows,s", [(1, 333, 1), (3, 333, 5), (8, 333, 65),
+                                      (4, 4096, 1024)])
+def test_row_gather_bit_exact_on_edge_shapes(k, rows, s):
+    """The gather at its edge shapes (one row a block, as the main path's
+    256 rows go) and at S = 1,024 (several rows a block), with counts 0,
+    1, 17, 1023 and 1024 and without counts, NaN (with a payload), ±inf,
+    −0.0 and a subnormal in kept lanes and repeated indices, against its
+    plain version bit for bit; one launch a call; an index out of range
+    gives a zero row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10 * k + s)
+    special = np.array([0x7FC00123, 0x7F800000, -0x800000, -2 ** 31, 5],
+                       np.int32).view(np.float32)
+    x = rng.standard_normal((k, rows, LANE), dtype=np.float32)
+    x[:, :, 3:8] = special
+    x[:, :, LANE - 5:] = special
+    counts = rng.choice(np.array([0, 1, 17, LANE - 1, LANE], np.float32),
+                        (k * rows, 1))
+    idx = rng.integers(0, rows, (k, s)).astype(np.int32)
+    if s > 1:
+        idx[:, -1] = idx[:, 0]
+    x, counts, idx = (torch.from_numpy(a).to(dev) for a in (x, counts, idx))
+    for c in (counts, None):
+        before = row_gather.launches
+        g = row_gather(x, idx, c)
+        torch.cuda.synchronize()
+        assert row_gather.launches == before + 1
+        assert _same_bits(g, row_gather_ref(x, idx, c))
+    bad = idx.clone()
+    bad[0, 0] = -1
+    bad[-1, -1] = rows
+    for c in (counts, None):
+        g = row_gather(x, bad, c)
+        want = row_gather_ref(x, bad.clamp(0, rows - 1), c)
+        want[0, 0] = 0.0
+        want[-1, -1] = 0.0
+        torch.cuda.synchronize()
+        assert _same_bits(g, want)
+
+
 def _topk_edge_rows(kind, width, seed, rows=256):
     """The radix select's hard rows (as tests/test_torch_topk.py builds
     them for the CPU): a run of 12 equal |x| across the W-th place,

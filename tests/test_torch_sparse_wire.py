@@ -147,6 +147,52 @@ def test_row_wrappers_reject_what_the_kernels_do_not_take():
         rg.row_scatter(idx, g, rows=0)
 
 
+# NaN with a payload, +inf, −inf, −0.0 and the subnormal 5·2⁻¹⁴⁹, as bits
+_SPECIAL = np.array([0x7FC00123, 0x7F800000, -0x800000, -2 ** 31, 5],
+                    np.int32).view(np.float32)
+
+
+@pytest.mark.parametrize("with_counts", [True, False])
+@pytest.mark.parametrize("s", [1, 5, 65])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_row_gather_edge_shapes_match_reference(k, s, with_counts):
+    """The gather's edge shapes, bit for bit against the JAX oracle and the
+    Pallas kernel in interpret mode (one worker at a time, as the reference
+    launches it): K workers of 333 rows, S rows each (no multiple of a
+    per-block row count), counts 0, 1, 17, 1023 and 1024 tiled over the
+    workers, NaN, ±inf, −0.0 and a subnormal in lanes that a count ≥ 17
+    keeps and in the last lanes, which only 1024 keeps; repeated
+    indices."""
+    rows = 333
+    rng = np.random.default_rng(100 * k + s)
+    x = rng.standard_normal((k, rows, LANE)).astype(np.float32)
+    x[:, :, 3:8] = _SPECIAL
+    x[:, :, LANE - 5:] = _SPECIAL
+    counts = rng.choice(np.array([0, 1, 17, LANE - 1, LANE], np.float32),
+                        k * rows)
+    idx = rng.integers(0, rows, (k, s)).astype(np.int32)
+    if s > 1:
+        idx[:, -1] = idx[:, 0]
+        counts[idx[:, 0] + rows * np.arange(k)] = LANE   # specials kept
+    c = counts if with_counts else None
+    got = ops.row_gather(torch.from_numpy(x), torch.from_numpy(idx),
+                         None if c is None else torch.from_numpy(c))
+    assert got.shape == (k, s, LANE)
+    for i in range(k):
+        ci = None if c is None else jnp.asarray(c[i * rows:(i + 1) * rows])
+        want = r_ref.row_gather_ref(jnp.asarray(x[i]), jnp.asarray(idx[i]),
+                                    ci)
+        kern = row_gather_pallas(jnp.asarray(x[i]), jnp.asarray(idx[i]), ci,
+                                 interpret=True)
+        np.testing.assert_array_equal(_bits(got[i]), _bits(want))
+        np.testing.assert_array_equal(_bits(got[i]), _bits(kern))
+    if s > 1:
+        np.testing.assert_array_equal(_bits(got[:, -1]), _bits(got[:, 0]))
+        np.testing.assert_array_equal(_bits(got[:, 0, 3:8]),
+                                      np.broadcast_to(_bits(_SPECIAL),
+                                                      (k, 5)))
+
+
 def _sparse_tree():
     """Leaves whose rows are touched, untouched and partly touched, so the
     budgets take zero-norm rows and ties decide which."""
