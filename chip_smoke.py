@@ -30,30 +30,39 @@ matmuls:
    timing window's floor, and the gather's times by three methods
    (per-launch windows, back to back on cold rows, and with ``--profile``
    in the round) beside ``index_select`` and a contiguous copy of the same
-   bytes;
-2. drives five paths through the port's entry points, each once, with
+   bytes; the gossip mix also at 9 and 17 inputs (chained launches), with
+   its time at 9 over the exponential path's 16 × 512 rows;
+2. drives eight paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
    ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
-   ``TopKCompressor(fraction=0.1)`` (γ = 0.2), all through
+   ``TopKCompressor(fraction=0.1)`` (γ = 0.2), C-SGDM (p = 1), PD-SGDM on
+   ``exponential(16)`` (K = 16, 9 shifted views a round) and on the
+   one-peer exponential schedule (period 3), all through
    ``make_optimizer`` → ``SimTrainer.train`` on the kernel layout,
-   ResNet-20 at width 16, K = 8 workers on a ring, batch 16 per worker,
-   p = 4, η = 0.1, μ = 0.9, weight decay 1e-4, 14 steps (3 rounds and a
-   2-step tail); and CPD-SGDM with ``SparseRowsCompressor(max_rows=64)``
-   through ``CPDSGDM.round`` on a (65,536 × 64) f32 embedding table per
-   worker, K = 4 on a ring, Zipf lookups of batch 64, p = 4, η = 0.05,
-   γ = 0.4 (the reference's ``benchmarks/embedding_wire.py``), 3 rounds
-   and a 2-step tail;
+   ResNet-20 at width 16, K = 8 workers on a ring where not said
+   otherwise, batch 16 per worker, p = 4, η = 0.1, μ = 0.9, weight decay
+   1e-4, 14 steps (3 rounds and a 2-step tail; C-SGDM 14 rounds); and
+   CPD-SGDM with ``SparseRowsCompressor(max_rows=64)`` through
+   ``CPDSGDM.round`` on a (65,536 × 64) f32 embedding table per worker,
+   K = 4 on a ring, Zipf lookups of batch 64, p = 4, η = 0.05, γ = 0.4
+   (the reference's ``benchmarks/embedding_wire.py``), 3 rounds and a
+   2-step tail;
 3. holds one kernel-path round against one round of the plain path from
-   the same init on the same batches, for each of the five: for PD-SGDM
-   the tree round, for every CPD-SGDM wire the round through the per-leaf
-   codec, which launches no codec kernel.
+   the same init on the same batches, for each of the eight: for PD-SGDM
+   and C-SGDM the tree round, for every CPD-SGDM wire the round through
+   the per-leaf codec, which launches no codec kernel;
+4. runs Fig. 1 at the reference's settings (ResNet-20 width 4, K = 8,
+   batch 16, 90 steps): C-SGDM and PD-SGDM at p = 4, 8 and 16 on the
+   kernel layout, held to the bars of ``tests/test_system.py``.
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
-time, the kernel phase, the training phase, the round parity, one JSON line
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.  Any
-failure raises and exits non-zero; so does a machine without a CUDA device.
-Imports nothing of JAX or of the JAX package.
+time, the kernel phase, the training phase, the round parity, Fig. 1's
+losses, one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
+"device": {...}}``.  Any failure raises and exits non-zero; so does a
+machine without a CUDA device, and a copy of the script outside a checkout
+(it imports the port from ``src/`` beside itself).  Imports nothing of JAX
+or of the JAX package.
 """
 from __future__ import annotations
 
@@ -86,13 +95,21 @@ TOPK_FRACTION, TOPK_GAMMA = 0.1, 0.2    # Fig. 3's cpd_sgdm_p4_top10pct
 # the embedding table of benchmarks/embedding_wire.py, at its largest size
 EMB_K, EMB_ROWS, EMB_DIM, EMB_BATCH, EMB_MAX_ROWS = 4, 65536, 64, 64, 64
 EMB_HYPER = dict(eta=0.05, mu=0.9, p=P, gamma=0.4, weight_decay=0.0)
-# per worker per round, on 310 used rows (ResNet-20) or the table's 4,096
-# rows, and 2 ring neighbours
-WIRE_BYTES = {"pd_sgdm": 2_539_520,         # 2 × 310 × 1024 × 4 B
-              "cpd_sgdm_sign": 81_840,      # 2 × 310 × (128 + 4) B
-              "cpd_sgdm_qsgd": 319_920,     # 2 × 310 × (512 + 4) B
-              "cpd_sgdm_topk": 510_880,     # 2 × 310 × 103 × (4 + 4) B
-              "cpd_sgdm_sparse": 524_800}   # 2 × 64 × (4 + 4096) B
+EXP_K = 16                  # exponential(16): 9 shifts on one axis
+ONE_PEER = "one_peer_exp"   # period 3 at K = 8
+# Fig. 1 at the reference's settings (benchmarks/common.py, fig1_pdsgdm.py)
+FIG1_K, FIG1_WIDTH, FIG1_BATCH, FIG1_STEPS = 8, 4, 16, 90
+FIG1_RUNS = (("c_sgdm", 1), ("pd_sgdm", 4), ("pd_sgdm", 8), ("pd_sgdm", 16))
+# bytes per worker per round over one schedule cycle, on 310 used rows
+# (ResNet-20), its 272,282 f32 on the tree wire, or the table's 4,096 rows
+WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
+              "cpd_sgdm_sign": (81_840,),      # 2 × 310 × (128 + 4) B
+              "cpd_sgdm_qsgd": (319_920,),     # 2 × 310 × (512 + 4) B
+              "cpd_sgdm_topk": (510_880,),     # 2 × 310 × 103 × (4 + 4) B
+              "cpd_sgdm_sparse": (524_800,),   # 2 × 64 × (4 + 4096) B
+              "c_sgdm": (7_623_896,),          # 7 × 272,282 × 4 B
+              "pd_sgdm_exp16": (10_158_080,),  # 8 × 310 × 1024 × 4 B
+              "pd_sgdm_onepeer": (1_089_128,) * 3}   # 1 × 272,282 × 4 B
 # the lines of nvcc's -Xptxas -v output that are printed: each kernel's
 # name, then its registers, shared memory and spills
 PTXAS_WORDS = ("Function properties", "registers", "spill")
@@ -149,8 +166,8 @@ def max_ulp(torch, a, b) -> int:
 
 def kernel_phase(torch, ops, bw, f32_peak):
     """Each kernel against its plain version, bit for bit, and its times."""
-    from repro_torch.core import ring
-    from repro_torch.kernels.gossip_mix import gossip_mix
+    from repro_torch.core import exponential, ring
+    from repro_torch.kernels.gossip_mix import gossip_mix, launch_count
     from repro_torch.kernels.momentum import momentum_update
     from repro_torch.kernels.ref import gossip_mix_ref, momentum_update_ref
     LANE = ops.LANE
@@ -199,6 +216,40 @@ def kernel_phase(torch, ops, bw, f32_peak):
                            gossip_mix_ref(xs[:n], ws)):
             raise AssertionError(f"gossip_mix differs at n={n}")
     print("kernel gossip_mix rows=333 n=1,2,4..8: bit-exact")
+    # past 8 inputs the wrapper chains launches: exponential(16) mixes 9
+    # views a round over K = 16 workers' 512 rows
+    exp_w = tuple(w for (_ax, _sh, w) in exponential(EXP_K).shifts)
+    xs = [torch.randn((EXP_K * 512, LANE), generator=gen, device=dev)
+          for _ in range(17)]
+    for n, ws in ((9, exp_w), (17, tuple(0.01 + 0.005 * j
+                                         for j in range(17)))):
+        for rows in (EXP_K * 512, 333):
+            before = gossip_mix.launches
+            y = gossip_mix([x[:rows] for x in xs[:n]], weights=ws)
+            want = gossip_mix_ref([x[:rows] for x in xs[:n]], ws)
+            torch.cuda.synchronize()
+            if gossip_mix.launches - before != launch_count(n):
+                raise AssertionError(f"gossip_mix n={n}: "
+                                     f"{gossip_mix.launches - before} "
+                                     f"launches")
+            err, ulp = float((y - want).abs().max()), max_ulp(torch, y, want)
+            print(f"kernel gossip_mix rows={rows} n={n} ({launch_count(n)} "
+                  f"chained launches): max_abs_err={err} max_ulp={ulp}")
+            if not torch.equal(y, want):
+                raise AssertionError(f"gossip_mix differs from its plain "
+                                     f"version at n={n}, rows={rows}")
+            r = results["gossip_mix"]
+            r[0], r[1] = max(r[0], err), max(r[1], ulp)
+    n9 = xs[:9]
+    e9 = n9[0].numel()
+    # the two chained launches; bound: 9 reads and 1 write an element,
+    # 9 products and 8 sums
+    finish_timings({"gossip_mix": dict(
+        ms=time_ms(torch, lambda: gossip_mix(n9, weights=exp_w)),
+        plain_ms=time_ms(torch, lambda: gossip_mix_ref(n9, exp_w)),
+        library_ms=None, bytes=10 * 4 * e9, flops=17 * e9)},
+        results, bw, f32_peak, tuple(n9[0].shape) + ("n", 9))
+    del xs, n9
 
     # times at the main path's shape and configuration
     x, m, g = (torch.randn((main_rows, LANE), generator=gen, device=dev)
@@ -235,9 +286,9 @@ def finish_timings(timings, results, bw, f32_peak, shape):
         t["bound_ms"] = max(by_bytes, by_ops)
         t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
         t["max_abs_err"], t["max_ulp"] = results[name]
-        print(f"kernel {name} {shape} f32: kernel_ms={t['ms']:.4f} "
-              f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
-              f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']}")
+        print(f"kernel {name} {shape} f32: kernel_ms={t['ms']:.5f} "
+              f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) "
+              f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']}")
 
 
 def same_bits(torch, name, got, want, results, label):
@@ -829,26 +880,34 @@ def row_kernel_phase(torch, ops, bw, f32_peak, variants=()):
     return timings
 
 
-def stacked_init(torch, seed: int):
+def stacked_init(torch, seed: int, k: int = K, width: int = WIDTH):
     from repro_torch.models.resnet import resnet20_init
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    params = resnet20_init(gen, width=WIDTH, device=DEVICE)
-    return {k: v.unsqueeze(0).repeat((K,) + (1,) * v.dim())
-            for k, v in params.items()}
+    params = resnet20_init(gen, width=width, device=DEVICE)
+    return {n: v.unsqueeze(0).repeat((k,) + (1,) * v.dim())
+            for n, v in params.items()}
 
 
-def batch_fn(seed: int):
+def batch_fn(seed: int, k: int = K, batch: int = BATCH):
     from repro_torch.data.synthetic import ClassStreamCfg, class_batch
-    cfg = ClassStreamCfg(batch=BATCH, n_workers=K, seed=seed)
+    cfg = ClassStreamCfg(batch=batch, n_workers=k, seed=seed)
     return lambda t: class_batch(cfg, t, DEVICE)
 
 
-# the five paths, the kernels each must launch in a 14-step run, and the
+# the eight paths, the kernels each must launch in a 14-step run, and the
 # path whose run each kernel's reported launches come from
 PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
-         "cpd_sgdm_sparse")
+         "cpd_sgdm_sparse", "c_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer")
+WORKERS = {"cpd_sgdm_sparse": EMB_K, "pd_sgdm_exp16": EXP_K}
 EXPECTED = {
     "pd_sgdm": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
+    # C-SGDM: p = 1, the gradient mean is a matmul, no gossip
+    "c_sgdm": {"momentum_update": STEPS},
+    # 9 views a round: 8 in one launch, the partial sum and the 9th in a
+    # second
+    "pd_sgdm_exp16": {"momentum_update": STEPS, "gossip_mix": STEPS // P * 2},
+    # a time-varying graph mixes through W_r @ x on the matrix
+    "pd_sgdm_onepeer": {"momentum_update": STEPS},
     "cpd_sgdm_sign": {"momentum_update": STEPS, "sign_pack": STEPS // P,
                       "sign_unpack": STEPS // P},
     "cpd_sgdm_qsgd": {"momentum_update": STEPS, "qsgd_quant": STEPS // P,
@@ -885,14 +944,20 @@ def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
     the sparse wire's row budget, as ``--compressor-rows`` sets it)."""
     from repro_torch.core import (CPDSGDM, CPDSGDMConfig, DenseComm,
                                   QSGDCompressor, SparseRowsCompressor,
-                                  TopKCompressor, make_optimizer, ring)
+                                  TopKCompressor, make_optimizer,
+                                  make_schedule, make_topology, ring)
     if path == "cpd_sgdm_sparse":
         return CPDSGDM(CPDSGDMConfig(use_kernel=use_kernel, **EMB_HYPER),
                        DenseComm(ring(EMB_K), device=DEVICE),
                        SparseRowsCompressor(max_rows=max_rows))
-    comm = DenseComm(ring(K), device=DEVICE)
-    if path == "pd_sgdm":
+    graph = {"pd_sgdm_exp16": make_topology("exponential", (EXP_K,)),
+             "pd_sgdm_onepeer": make_schedule(ONE_PEER, (K,))}.get(path,
+                                                                 ring(K))
+    comm = DenseComm(graph, device=DEVICE)
+    if path in ("pd_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer"):
         return make_optimizer("pd_sgdm", comm, use_kernel=use_kernel, **HYPER)
+    if path == "c_sgdm":        # make_optimizer swaps in complete(K)
+        return make_optimizer("c_sgdm", comm, use_kernel=use_kernel, **HYPER)
     comp, gamma = {
         "cpd_sgdm_sign": (None, GAMMA),                   # None: sign
         "cpd_sgdm_qsgd": (QSGDCompressor(levels=QSGD_LEVELS), GAMMA),
@@ -946,9 +1011,10 @@ def drive(torch, opt, path: str, seed: int, steps: int):
         return (init,) + embedding_run(torch, opt, init, seed, steps) + (None,)
     from repro_torch.models.resnet import resnet20_loss
     from repro_torch.train.trainer import SimTrainer
-    init = stacked_init(torch, seed)
+    k = WORKERS.get(path, K)
+    init = stacked_init(torch, seed, k)
     out = SimTrainer(resnet20_loss, opt, device=DEVICE).train(
-        init, batch_fn(seed), steps, log_every=1)
+        init, batch_fn(seed, k), steps, log_every=1)
     return (init,) + out
 
 
@@ -967,33 +1033,39 @@ def training_phase(torch, path: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     one = {k: v[0] for k, v in init.items()}
-    bytes_per_round = opt.bytes_per_comm_round(one)
+    cycle = opt.bytes_per_round_cycle(one)
+    # bytes through the run's rounds, round r at cycle[r % T]
+    rounds = STEPS // opt.config.p
+    want_mb = sum(cycle[r % len(cycle)] for r in range(rounds)) / 2 ** 20
+    comm = opt.comm
+    graph = (comm.schedule.name if comm.schedule is not None
+             else comm.topology.name)
     if hist is None:
-        comm_mb = (STEPS // P) * bytes_per_round / 2 ** 20
+        comm_mb = want_mb
         print(f"train: {path} kernel path, {EMB_ROWS} x {EMB_DIM} f32 table "
               f"per worker, K={EMB_K} ring, Zipf batch {EMB_BATCH}, p={P}, "
               f"{STEPS} steps through CPDSGDM.round")
     else:
         comm_mb = hist.comm_mb[-1]
-        print(f"train: {path} kernel path, ResNet-20 width {WIDTH}, K={K} "
-              f"ring, batch {BATCH}, p={P}, {STEPS} steps")
+        print(f"train: {path} kernel path, ResNet-20 width {WIDTH}, "
+              f"K={comm.topology.n_workers} {graph}, batch {BATCH}, "
+              f"p={opt.config.p}, {STEPS} steps")
         print(f"train: {path} losses " + " ".join(f"{v:.4f}"
                                                    for v in hist.loss))
         if (not all(math.isfinite(v) for v in hist.loss)
                 or len(hist.loss) != STEPS):
             raise AssertionError(f"{path}: bad losses {hist.loss}")
     print(f"train: {path} {seconds:.3f} s for {STEPS} steps, "
-          f"{seconds * P / STEPS:.4f} s per round, "
+          f"{seconds * opt.config.p / STEPS:.4f} s per round, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"train: {path} launches {launches}, bytes per round "
-          f"{bytes_per_round}, comm_mb {comm_mb}")
+          f"{cycle[0] if len(cycle) == 1 else cycle}, comm_mb {comm_mb}")
     want = {name: EXPECTED[path].get(name, 0) for name in kernels}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
-    if (bytes_per_round != WIRE_BYTES[path]
-            or comm_mb != (STEPS // P) * WIRE_BYTES[path] / 2 ** 20):
-        raise AssertionError(f"{path}: {bytes_per_round} B per round, "
-                             f"comm_mb {comm_mb}")
+    if cycle != WIRE_BYTES[path] or comm_mb != want_mb:
+        raise AssertionError(f"{path}: {cycle} B per round, comm_mb "
+                             f"{comm_mb}, expected {WIRE_BYTES[path]}")
     if int(state["step"]) != STEPS:
         raise AssertionError(f"{path}: step counter {int(state['step'])}")
     for name, v in out.items():
@@ -1005,23 +1077,27 @@ def training_phase(torch, path: str) -> dict:
 def parity_phase(torch, path: str):
     """One kernel-path round of ``path`` against one round of its plain
     path from the same init on the same batches, with cuDNN held to
-    deterministic algorithms so both see the same gradients.  The plain
-    path is the tree round for PD-SGDM and, for every CPD-SGDM wire, the
-    round through the per-leaf codec (``_kernel_wire`` off), which
-    launches no kernel: the round holds the codec kernels against the
-    plain codec.  Params within atol 1e-4 / rtol 1e-3.  CPD's x̂ too,
-    except where the two consensus products (one over the matrix, one per
-    leaf) put the drift x_new − x̂ on opposite sides of a sign, a QSGD tie
-    or a top-k or row-norm near-tie: x̂ moves there by at most
-    2·max|drift|, in a handful of elements."""
+    deterministic algorithms so both see the same gradients; on the
+    one-peer schedule the whole cycle of three rounds, so that every W_r
+    is held.  The plain path is the tree round for PD-SGDM and C-SGDM and,
+    for every CPD-SGDM wire, the round through the per-leaf codec
+    (``_kernel_wire`` off), which launches no kernel: the round holds the
+    codec kernels against the plain codec.  Params within atol 1e-4 / rtol
+    1e-3.  CPD's x̂ too, except where the two consensus products (one over
+    the matrix, one per leaf) put the drift x_new − x̂ on opposite sides of
+    a sign, a QSGD tie or a top-k or row-norm near-tie: x̂ moves there by
+    at most 2·max|drift|, in a handful of elements."""
     kernels = counters()
     torch.backends.cudnn.deterministic = True
-    init, got, sk, hk = drive(torch, make_opt(path, True), path, 1, P)
+    opt = make_opt(path, True)
+    steps = opt.config.p * opt.comm.round_cycle
+    init, got, sk, hk = drive(torch, opt, path, 1, steps)
     plain = make_opt(path, False)
-    if path != "pd_sgdm":
+    cpd = path.startswith("cpd")
+    if cpd:
         plain._kernel_wire = lambda: False          # the per-leaf codec
     before = {name: fn.launches for name, fn in kernels.items()}
-    _, want, st, ht = drive(torch, plain, path, 1, P)
+    _, want, st, ht = drive(torch, plain, path, 1, steps)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
     stray = {name: fn.launches - before[name] for name, fn in kernels.items()
@@ -1030,8 +1106,8 @@ def parity_phase(torch, path: str):
         raise AssertionError(f"{path}: the plain round launched {stray}")
     worst = max(float((got[k] - want[k]).abs().max()) for k in want)
     losses = (f", losses {hk.loss} vs {ht.loss}" if hk is not None else "")
-    print(f"parity: {path} one round, kernel path vs "
-          f"{'tree' if path == 'pd_sgdm' else 'per-leaf codec'} path: "
+    print(f"parity: {path} {steps} steps, kernel path vs "
+          f"{'per-leaf codec' if cpd else 'tree'} path: "
           f"max |Δparam| = {worst}{losses}")
     for k in want:
         if not torch.allclose(got[k], want[k], rtol=1e-3, atol=1e-4):
@@ -1050,6 +1126,56 @@ def parity_phase(torch, path: str):
                                  f"per-leaf x̂: {k}")
     print(f"parity: {path} max |Δx̂| = {worst}, {moved} elements moved by a "
           f"sign, level or selection (max |drift| {drift})")
+
+
+def fig1_phase(torch):
+    """Fig. 1 on the card at the reference's settings
+    (``benchmarks/common.py``, ``benchmarks/fig1_pdsgdm.py``): ResNet-20
+    width 4, K = 8, batch 16 per worker, η = 0.1, μ = 0.9, weight decay
+    1e-4, 90 steps logged every max(5, p), on the kernel layout; C-SGDM on
+    complete(8) and PD-SGDM at p = 4, 8 and 16 on ring(8).  The bars of
+    ``tests/test_system.py:test_pdsgdm_matches_csgdm_loss`` (which runs
+    p = 4 and 8), here for every run, p = 16 included: the final loss
+    below the first loss − 1.0 and below C-SGDM's final loss + 0.5.
+    cuDNN is held to deterministic algorithms, so that the losses are the
+    same on every call: the final loss is one step's batch loss, and with
+    the other algorithms' atomics two calls of the same code ended PD at
+    p = 16 at 0.20 and at 0.75."""
+    from repro_torch.core import DenseComm, complete, make_optimizer, ring
+    from repro_torch.models.resnet import resnet20_loss
+    from repro_torch.train.trainer import SimTrainer
+    first, final = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, p in FIG1_RUNS:
+            comm = DenseComm(complete(FIG1_K) if name == "c_sgdm"
+                             else ring(FIG1_K), device=DEVICE)
+            opt = make_optimizer(name, comm, eta=0.1, mu=0.9, p=p,
+                                 weight_decay=1e-4, use_kernel=True)
+            params = stacked_init(torch, 0, FIG1_K, FIG1_WIDTH)
+            t0 = time.perf_counter()
+            _, _, hist = SimTrainer(resnet20_loss, opt, device=DEVICE).train(
+                params, batch_fn(0, FIG1_K, FIG1_BATCH), FIG1_STEPS,
+                log_every=max(5, p))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            label = f"fig1/{name}_p{p}"
+            first[label], final[label] = hist.loss[0], hist.loss[-1]
+            print(f"fig1: {label} loss {hist.loss[0]:.4f} -> "
+                  f"{hist.loss[-1]:.4f} (logged: "
+                  f"{' '.join(f'{v:.3f}' for v in hist.loss)}), comm_mb "
+                  f"{hist.comm_mb[-1]:.1f}, {seconds:.2f} s")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    base = final["fig1/c_sgdm_p1"]
+    gap = max(abs(v - base) for v in final.values())
+    print(f"fig1: final losses {json.dumps(final)}; max_gap_to_csgdm {gap}")
+    missed = [label for label in final
+              if not (final[label] < first[label] - 1.0
+                      and final[label] < base + 0.5)]
+    if missed or not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"fig1: {missed} miss the bars (final < first "
+                             f"- 1.0 and < C-SGDM's {base} + 0.5)")
 
 
 def dev_us(e) -> float:
@@ -1162,7 +1288,15 @@ def main(argv=None) -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import build, ops
+    try:
+        from repro_torch.kernels import build, ops
+    except ModuleNotFoundError as err:
+        if err.name != "repro_torch":
+            raise
+        print("chip_smoke: cannot import the port (repro_torch): the script "
+              "runs from the root of a checkout of the repository, which "
+              "holds the port in src/repro_torch", file=sys.stderr)
+        return 1
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1192,6 +1326,7 @@ def main(argv=None) -> int:
     runs = {path: training_phase(torch, path) for path in PATHS}
     for path in PATHS:
         parity_phase(torch, path)
+    fig1_phase(torch)
     if args.profile:
         for path in PATHS:
             profile_round(torch, path)

@@ -1,29 +1,61 @@
 """Baselines and the optimizer factory.  Port of
-``src/repro/core/baselines.py:60-147``:
+``src/repro/core/baselines.py:30-147``:
 
+* **C-SGDM**: centralized momentum SGD (the paper's Fig. 1 reference):
+  gradients are averaged over all workers every step, so the replicas
+  stay identical.  It mixes the gradients with the complete topology, so
+  it shares the dense backend and the momentum kernel with the
+  decentralized methods;
 * **D-SGD** [Lian et al. '17]: gossip every step, no momentum;
 * **PD-SGD** [Li et al. '19]: periodic gossip, no momentum;
 * **CHOCO-SGD** [Koloskova et al. '19]: compressed gossip every step, no
   momentum, built on CPD-SGDM's comm round, so it ships the real codec
   payload.
 
-C-SGDM (ROADMAP queue A item 4) and MT-/QG-DSGDm (item 8) are not ported
-yet; :func:`make_optimizer` raises for their names, naming the item.
+MT-/QG-DSGDm (ROADMAP queue A item 8) are not ported yet;
+:func:`make_optimizer` raises for their names, naming the item.
 """
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.core.compression import Compressor
 from repro_torch.core.cpdsgdm import CPDSGDM, CPDSGDMConfig
-from repro_torch.core.gossip import CommBackend
+from repro_torch.core.gossip import CommBackend, DenseComm
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
+from repro_torch.core.topology import complete
 
-__all__ = ["d_sgd", "pd_sgd", "choco_sgd", "make_optimizer"]
+__all__ = ["CSGDM", "d_sgd", "pd_sgd", "choco_sgd", "make_optimizer"]
 
 _NOT_YET = {
-    ("c_sgdm", "csgdm"): "C-SGDM is ROADMAP queue A item 4",
     ("mt_dsgdm", "mtdsgdm", "mt", "qg_dsgdm", "qgdsgdm", "qg"):
         "MT-DSGDm and QG-DSGDm are ROADMAP queue A item 8",
 }
+
+
+class CSGDM(PDSGDM):
+    """Centralized momentum SGD: the mean of the gradients every step,
+    through ``comm.mix`` with the complete topology (W = 11ᵀ/K)."""
+
+    def __init__(self, config: PDSGDMConfig, comm: CommBackend):
+        super().__init__(dataclasses.replace(config, p=1), comm)
+        if comm.topology.name != "complete":
+            raise ValueError("C-SGDM requires the complete topology (mean)")
+
+    def local_step(self, state, params, grads):
+        return super().local_step(state, params, self.comm.mix(grads))
+
+    def comm_round(self, state, params):
+        return params, state               # params never drift
+
+    # the kernel round: the mean of the gradient matrix, then one momentum
+    # launch; no gossip
+    def local_step_mat(self, x_mat, mats, g_mat, step):
+        return super().local_step_mat(x_mat, mats, self.comm.mix(g_mat),
+                                      step)
+
+    def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
+        return x_mat, mats
 
 
 def d_sgd(eta: float, comm: CommBackend, weight_decay: float = 0.0) -> PDSGDM:
@@ -73,6 +105,17 @@ def make_optimizer(name: str, comm: CommBackend, *, eta: float = 0.1,
                                      use_kernel=use_kernel,
                                      overlap=overlap),
                        comm, compressor)
+    if name in ("c_sgdm", "csgdm"):
+        if comm.topology.name == "hierarchical":
+            raise ValueError(
+                "c_sgdm is the centralized baseline (complete-graph mean "
+                "every step); hierarchical gossip does not apply")
+        return CSGDM(PDSGDMConfig(eta=eta, mu=mu, p=1,
+                                  weight_decay=weight_decay,
+                                  lr_schedule=lr_schedule,
+                                  use_kernel=use_kernel),
+                     DenseComm(complete(comm.topology.n_workers),
+                               device=comm.device))
     if name in ("d_sgd", "dsgd"):
         return d_sgd(eta, comm, weight_decay)
     if name in ("pd_sgd", "pdsgd"):

@@ -26,8 +26,9 @@ reference:
 
 The dense backend keeps one stacked x̂: every worker's copies of its
 neighbours' x̂ equal their owners', so the consensus is ``W @ x̂`` — a plain
-matrix product, as the reference leaves it to XLA — and the round ships
-nothing but the payload accounted by :meth:`CPDSGDM.bytes_per_comm_round`.
+matrix product, as the reference leaves it to XLA, with round r's W under
+a schedule — and the round ships nothing but the payload accounted by
+:meth:`CPDSGDM.bytes_per_comm_round` (round r's degree).
 
 Not ported: overlapped rounds (ROADMAP queue A item 9, refused by
 :class:`~repro_torch.core.pdsgdm.PDSGDM`), the sharded backend with its
@@ -177,10 +178,10 @@ class CPDSGDM(PDSGDM):
     # -- kernel round (flatten-once matrix domain) ------------------------------
     @property
     def kernel_comm_supported(self) -> bool:
-        """Matrix-domain comm needs the kernel wire format; other codecs
-        (a sign block other than the lane, say) fall back to the tree comm
-        at the round boundary."""
-        return self._kernel_wire()
+        """Matrix-domain comm needs the kernel wire format and full
+        membership; other codecs (a sign block other than the lane, say)
+        fall back to the tree comm at the round boundary."""
+        return self._kernel_wire() and self.comm.membership is None
 
     def mat_state(self, plan, state) -> dict:
         mats = super().mat_state(plan, state)

@@ -1,15 +1,18 @@
 """Gossip communication: the dense K-worker simulation backend.
 
-Port of ``src/repro/core/gossip.py:84-373`` and ``:840-875`` for static
-graphs.  :class:`DenseComm` keeps every leaf worker-stacked (leading dim K)
-and mixes ``x⁽ᵏ⁾ ← Σⱼ w_kj x⁽ʲ⁾`` either as ``W @ flat`` over the worker dim
+Port of ``src/repro/core/gossip.py:84-373`` and ``:840-875``.
+:class:`DenseComm` keeps every leaf worker-stacked (leading dim K) and
+mixes ``x⁽ᵏ⁾ ← Σⱼ w_kj x⁽ʲ⁾`` either as ``W @ flat`` over the worker dim
 (:meth:`DenseComm.mix`, the tree path) or, on the kernel path, as shifted
 views of the worker grid (:meth:`DenseComm._roll`) fed to the fused AXPY
-kernel by the optimizer.
+kernel by the optimizer.  Built from a :class:`TopologySchedule`, it stacks
+the schedule's ``(T, K, K)`` weights on its device and ``mix(tree, r)``
+selects round ``r``'s by ``r mod T``, where ``r`` may be a 0-d device
+tensor: no host sync.
 
-Not in this slice, and refused at construction: time-varying schedules and
-membership (ROADMAP queue A item 7), the bf16 wire (queue A item 10) and
-the sharded backend (queue A item 12).
+Not in this slice, and refused at construction: membership schedules
+(ROADMAP queue A item 7), the bf16 wire (queue A item 10) and the sharded
+backend (queue A item 12).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.topology import Topology
+from repro_torch.core.topology import Topology, TopologySchedule
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["CommBackend", "DenseComm", "gossip_bytes_per_round"]
@@ -29,8 +32,11 @@ ShiftKey = Tuple[int, int]  # (topology axis, shift)
 
 
 class CommBackend:
-    """What an optimizer needs of a gossip backend, for a static graph."""
+    """What an optimizer needs of a gossip backend.  ``topology`` is round
+    0's (shapes, worker count); ``topology_at(r)`` is round ``r``'s."""
     topology: Topology
+    schedule: Optional[TopologySchedule] = None
+    membership: Optional[object] = None
     wire_dtype: str = "float32"
 
     @property
@@ -39,11 +45,22 @@ class CommBackend:
         return 2 if self.wire_dtype == "bfloat16" else 4
 
     @property
+    def period(self) -> int:
+        """Schedule period T (1 for a static topology)."""
+        return self.schedule.period if self.schedule is not None else 1
+
+    @property
     def round_cycle(self) -> int:
-        """Rounds after which the graph repeats: 1 for a static graph."""
-        return 1
+        """Rounds after which the graph repeats: byte accounting cycles
+        over this.  (The reference's joint period with a membership
+        schedule waits for ROADMAP queue A item 7.)"""
+        return self.period
 
     def topology_at(self, r: int) -> Topology:
+        """Topology of round ``r`` (a Python int; wraps modulo the
+        period)."""
+        if self.schedule is not None:
+            return self.schedule.at(r)
         return self.topology
 
     def mix(self, tree, r=None):
@@ -61,21 +78,27 @@ class CommBackend:
     def self_weight(self) -> float:
         return float(sum(w for (_, sh, w) in self.topology.shifts if sh == 0))
 
+    def _resolve(self, first):
+        """A schedule sets both the schedule and the round-0 topology."""
+        if isinstance(first, TopologySchedule):
+            self.schedule = first
+            self.topology = first.at(0)
+        else:
+            self.schedule = None
+            self.topology = first
+
 
 @dataclasses.dataclass
 class DenseComm(CommBackend):
     """Simulation backend: leaves are worker-stacked, leading dim K, on
-    ``device``."""
+    ``device``.  Takes a ``Topology`` or a ``TopologySchedule``."""
 
-    topology: Topology
+    topology: Topology  # or a TopologySchedule at construction
     membership: Optional[object] = None
     wire_dtype: str = "float32"
     device: object = "cuda"
 
     def __post_init__(self):
-        if not isinstance(self.topology, Topology):
-            raise NotImplementedError(
-                "time-varying topology schedules are ROADMAP queue A item 7")
         if self.membership is not None:
             raise NotImplementedError(
                 "membership schedules are ROADMAP queue A item 7")
@@ -85,14 +108,30 @@ class DenseComm(CommBackend):
         if self.wire_dtype != "float32":
             raise ValueError(f"wire_dtype {self.wire_dtype!r} not in "
                              "('float32', 'bfloat16')")
+        self._resolve(self.topology)
         self.device = resolve_device(self.device)
         self._W = torch.tensor(self.topology.W, dtype=torch.float32,
                                device=self.device)
+        self._Ws = (torch.tensor(self.schedule.stacked_W(),
+                                 dtype=torch.float32, device=self.device)
+                    if self.schedule is not None else None)
+
+    def _W_at(self, r):
+        if self.period == 1:
+            return self._W
+        if r is None:
+            raise ValueError(
+                "DenseComm with a TopologySchedule needs the round index: "
+                "mix(tree, r=...)")
+        if isinstance(r, torch.Tensor):     # selected on the device
+            idx = torch.remainder(r.to(self.device, torch.long), self.period)
+            return torch.index_select(self._Ws, 0, idx.reshape(1))[0]
+        return self._Ws[int(r) % self.period]
 
     def mix(self, tree, r=None):
-        """Σⱼ w_kj x⁽ʲ⁾ over the worker dim of every leaf (``r`` is the
-        round index, which a static graph ignores)."""
-        return self._apply_W(self._W, tree)
+        """Σⱼ w_kj x⁽ʲ⁾ over the worker dim of every leaf, with round
+        ``r``'s W (an int or a 0-d tensor; a static graph ignores it)."""
+        return self._apply_W(self._W_at(r), tree)
 
     def _apply_W(self, W, tree):
         K = self.topology.n_workers

@@ -1,6 +1,7 @@
 """PD-SGDM — Periodic Decentralized Momentum SGD (paper Algorithm 1).
 
-Port of ``src/repro/core/pdsgdm.py:36-620`` on the dense simulation backend.
+Port of ``src/repro/core/pdsgdm.py:36-620`` on the dense simulation
+backend, over a static graph or a time-varying schedule.
 Per worker k, per iteration t::
 
     m⁽ᵏ⁾ₜ   = μ m⁽ᵏ⁾ₜ₋₁ + ∇F(x⁽ᵏ⁾ₜ; ξ⁽ᵏ⁾ₜ)
@@ -194,13 +195,22 @@ class PDSGDM:
 
     def _mat_wire_static(self) -> bool:
         """Whether :meth:`_gossip_mat` runs the shift-structured AXPY wire,
-        whose neighbour exchanges ship the ``plan.used_rows`` extent.  The
-        complete graph mixes through ``comm.mix`` on the matrix instead."""
-        return self.comm.topology.name != "complete"
+        whose neighbour exchanges ship the ``plan.used_rows`` extent: a
+        static graph (period 1), full membership, no perms, and neither
+        complete nor disconnected.  Every other graph mixes through
+        ``comm.mix`` on the matrix."""
+        top = self.comm.topology
+        return (self.comm.period == 1
+                and self.comm.membership is None
+                and not top.perms
+                and top.name not in ("complete", "disconnected",
+                                     "hierarchical"))
 
     def _gossip_mat(self, x_mat, r, *, plan=None):
-        """Gossip mix on the kernel layout: one fused AXPY launch per
-        topology axis over the self view and the shifted neighbour views.
+        """Gossip mix on the kernel layout: one fused AXPY per topology
+        axis over the self view and the shifted neighbour views (chained
+        launches past 8 views: the exponential graph's 9 at K = 16); other
+        graphs take ``comm.mix`` on the matrix with round ``r``'s W.
         With a ``plan`` each neighbour view is cut to the ``used_rows`` wire
         extent and re-padded, so what is exchanged is what is accounted."""
         if not self._mat_wire_static():

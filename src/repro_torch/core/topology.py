@@ -1,20 +1,86 @@
-"""Static gossip topologies and their mixing matrices (numpy only).
+"""Gossip topologies, mixing matrices and time-varying schedules (numpy
+only).
 
-Port of ``src/repro/core/topology.py:114-259``.  A topology holds a
+Port of ``src/repro/core/topology.py:61-575``.  A topology holds a
 doubly-stochastic mixing matrix ``W`` over K workers (paper §3.2,
 Assumption 1) and its neighbour structure: weighted circulant shifts per
 worker-grid axis, which the kernel path turns into shifted views mixed by
-the fused AXPY.  Time-varying schedules, membership and hierarchical
-graphs are ROADMAP queue A items 7 and 10.
+the fused AXPY, and, for non-circulant graphs such as random matchings,
+explicit per-axis permutations (``perms``).  A :class:`TopologySchedule` is
+a periodic sequence ``W_1, …, W_T``: round ``r`` gossips with
+``W_{(r mod T)+1}``; what governs convergence is the mixing of the cycle
+product ``W_T ⋯ W_1`` (:attr:`TopologySchedule.cycle_rho`).
+
+Not in this module yet: hierarchical graphs and their schedule (ROADMAP
+queue A item 10), and membership schedules with their masked matrices
+(item 7).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
 
-__all__ = ["Topology", "ring", "torus", "complete"]
+__all__ = [
+    "Topology", "TopologySchedule",
+    "ring", "torus", "complete", "exponential", "disconnected",
+    "spectral_gap", "mixing_gap", "cycle_spectral_gap",
+    "is_doubly_stochastic", "make_topology", "make_schedule",
+    "static_schedule", "one_peer_exponential_schedule",
+    "alternating_axes_schedule", "random_matching_schedule",
+    "hierarchical_schedule",
+]
+
+_HIER = "hierarchical gossip is ROADMAP queue A item 10"
+
+
+def is_doubly_stochastic(W: np.ndarray, atol: float = 1e-8,
+                         require_symmetric: bool = True) -> bool:
+    """Assumption 1: rows and columns sum to one, entries in [0, 1];
+    symmetry is waived for the per-round matrices of time-varying
+    schedules (one-peer exponential rounds are directed)."""
+    W = np.asarray(W, dtype=np.float64)
+    if W.ndim != 2 or W.shape[0] != W.shape[1]:
+        return False
+    ones = np.ones(W.shape[0])
+    return (
+        (not require_symmetric or np.allclose(W, W.T, atol=atol))
+        and np.allclose(W @ ones, ones, atol=atol)
+        and np.allclose(ones @ W, ones, atol=atol)
+        and bool(np.all(W >= -atol))
+        and bool(np.all(W <= 1 + atol))
+    )
+
+
+def spectral_gap(W: np.ndarray) -> float:
+    """ρ = 1 − |λ₂| (Lemma 1); ρ ∈ (0, 1] for connected non-bipartite W."""
+    W = np.asarray(W, dtype=np.float64)
+    eig = np.sort(np.abs(np.linalg.eigvalsh(W)))[::-1]
+    if len(eig) == 1:
+        return 1.0
+    return float(1.0 - eig[1])
+
+
+def mixing_gap(W: np.ndarray) -> float:
+    """``1 − ‖W − (1/K)11ᵀ‖₂``: ``1 − |λ₂|`` for a symmetric W, and
+    meaningful for asymmetric doubly-stochastic W and cycle products."""
+    W = np.asarray(W, dtype=np.float64)
+    K = W.shape[0]
+    if K == 1:
+        return 1.0
+    J = np.ones((K, K)) / K
+    return float(1.0 - np.linalg.norm(W - J, 2))
+
+
+def cycle_spectral_gap(Ws: Sequence[np.ndarray]) -> float:
+    """``1 − ‖W_T ⋯ W_1 − J‖₂``, round 1 applied first."""
+    Ws = [np.asarray(W, dtype=np.float64) for W in Ws]
+    P = np.eye(Ws[0].shape[0])
+    for W in Ws:
+        P = W @ P
+    return mixing_gap(P)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,19 +88,23 @@ class Topology:
     """A gossip graph over ``n_workers`` with doubly-stochastic weights.
 
     Attributes:
-      name: identifier ("ring", "torus", "complete").
+      name: identifier ("ring", "torus", "complete", "exponential", ...).
       W: dense (K, K) mixing matrix, numpy float64.
-      shifts: ((axis, shift, weight), ...) — the neighbour exchange
-        pattern; ``axis`` indexes ``axis_sizes`` and shift 0 is the self
-        weight.
+      shifts: ((axis, shift, weight), ...) — the circulant exchanges;
+        ``axis`` indexes ``axis_sizes`` and shift 0 is the self weight.
       axis_sizes: worker-grid shape whose product is K.
-      symmetric: whether W is symmetric.
+      perms: ((axis, recv_from, weight), ...) — non-circulant exchanges,
+        where position i of the tuple ``recv_from`` receives the value held
+        by ``recv_from[i]`` (random-matching rounds).
+      symmetric: whether W is symmetric; per-round matrices of schedules
+        may be asymmetric (one-peer exponential).
     """
 
     name: str
     W: np.ndarray
     shifts: tuple
     axis_sizes: tuple
+    perms: tuple = ()
     symmetric: bool = True
 
     @property
@@ -42,20 +112,26 @@ class Topology:
         return int(self.W.shape[0])
 
     @property
+    def rho(self) -> float:
+        return spectral_gap(self.W) if self.symmetric else mixing_gap(self.W)
+
+    @property
     def degree(self) -> int:
         """Non-self exchanges per worker per round: what the bytes on the
-        wire scale with."""
-        return sum(1 for (_, s, _) in self.shifts if s != 0)
+        wire scale with.  Each perm entry is one payload."""
+        return (sum(1 for (_, s, _) in self.shifts if s != 0)
+                + len(self.perms))
 
     def self_weight(self) -> float:
         return float(self.W[0, 0])
 
     def structure_matrix(self) -> np.ndarray:
-        """Dense W rebuilt from the shift structure, applied per axis in
-        order — what the shifted-view AXPY executes."""
+        """Dense W rebuilt from the shift and perm structure, applied per
+        axis in order — what the exchanges execute."""
         grid = self.axis_sizes
         K = self.n_workers
-        axes = sorted({ax for (ax, _, _) in self.shifts})
+        axes = sorted({ax for (ax, _, _) in self.shifts}
+                      | {ax for (ax, _, _) in self.perms})
         W = np.eye(K)
         for ax in axes:
             A = np.zeros((K, K))
@@ -67,8 +143,30 @@ class Topology:
                     idx = list(np.unravel_index(k, grid))
                     idx[ax] = (idx[ax] + sh) % n
                     A[k, np.ravel_multi_index(idx, grid)] += w
+            for (a, recv, w) in self.perms:
+                if a != ax:
+                    continue
+                for k in range(K):
+                    idx = list(np.unravel_index(k, grid))
+                    idx[ax] = recv[idx[ax]]
+                    A[k, np.ravel_multi_index(idx, grid)] += w
             W = A @ W
         return W
+
+    def validate(self) -> None:
+        if not is_doubly_stochastic(self.W,
+                                    require_symmetric=self.symmetric):
+            raise ValueError(f"topology {self.name}: W is not doubly "
+                             "stochastic")
+        if int(np.prod(self.axis_sizes)) != self.n_workers:
+            raise ValueError(f"topology {self.name}: axis_sizes "
+                             f"{self.axis_sizes} != K")
+        for (ax, recv, _w) in self.perms:
+            n = self.axis_sizes[ax]
+            if sorted(recv) != list(range(n)):
+                raise ValueError(
+                    f"topology {self.name}: perm {recv} on axis {ax} is not "
+                    f"a permutation of range({n})")
 
 
 def _circulant(K: int, offsets_weights: dict) -> np.ndarray:
@@ -117,3 +215,225 @@ def complete(K: int) -> Topology:
     W = np.full((K, K), 1.0 / K)
     shifts = tuple((0, s, 1.0 / K) for s in range(K))
     return Topology("complete", W, shifts, (K,))
+
+
+def exponential(K: int) -> Topology:
+    """One peer per power of two on each side (hypercube-like): a good ρ at
+    degree 2·⌈log₂K⌉.  At K a power of two the shifts ±K/2 name one
+    neighbour, which W counts twice (the symmetrised circulant) and the
+    shift list carries as two exchanges."""
+    offs = [0]
+    s = 1
+    while s < K:
+        offs.append(s)
+        offs.append(-s)
+        s *= 2
+    w = 1.0 / len(offs)
+    W = _circulant(K, {o: w for o in offs})
+    W = (W + W.T) / 2.0
+    shifts = tuple((0, o, w) for o in offs)
+    return Topology("exponential", W, shifts, (K,))
+
+
+def disconnected(K: int) -> Topology:
+    """W = I: no communication at all (lower bound / ablation)."""
+    return Topology("disconnected", np.eye(K), ((0, 0, 1.0),), (K,))
+
+
+def make_topology(name: str, worker_grid: Sequence[int]) -> Topology:
+    """Build a topology by name for a worker grid (product = K)."""
+    worker_grid = tuple(int(g) for g in worker_grid)
+    K = int(np.prod(worker_grid)) if worker_grid else 1
+    if name == "ring":
+        return ring(K)
+    if name == "torus":
+        grid = worker_grid if len(worker_grid) > 1 else (K,)
+        return torus(grid)
+    if name == "complete":
+        return complete(K)
+    if name == "exponential":
+        return exponential(K)
+    if name == "disconnected":
+        return disconnected(K)
+    if name == "hierarchical":
+        raise NotImplementedError(f"{name}: not ported yet — {_HIER}")
+    raise ValueError(f"unknown topology {name!r}")
+
+
+# ------------------------------------------------------------------ schedules
+@dataclasses.dataclass(frozen=True)
+class TopologySchedule:
+    """A periodic sequence of topologies: round ``r`` uses ``at(r)``.
+
+    All rounds share ``n_workers`` and ``axis_sizes``; only the exchange
+    pattern varies.  The round index is derived from the optimizer's step
+    counter (``r = step // p − 1`` at gossip time).
+    """
+
+    name: str
+    topologies: tuple  # (Topology, ...), length T ≥ 1
+
+    def __post_init__(self):
+        if not self.topologies:
+            raise ValueError(f"schedule {self.name}: needs ≥ 1 topology")
+
+    @property
+    def period(self) -> int:
+        return len(self.topologies)
+
+    @property
+    def n_workers(self) -> int:
+        return self.topologies[0].n_workers
+
+    @property
+    def axis_sizes(self) -> tuple:
+        return self.topologies[0].axis_sizes
+
+    def at(self, r: int) -> Topology:
+        """Topology of round ``r`` (0-based, wraps modulo the period)."""
+        return self.topologies[int(r) % self.period]
+
+    def stacked_W(self) -> np.ndarray:
+        """(T, K, K) weights — what DenseComm indexes per round."""
+        return np.stack([t.W for t in self.topologies])
+
+    def cycle_product(self) -> np.ndarray:
+        """``W_T ⋯ W_1`` (round 0 applied first, as in ``x ← W x``)."""
+        P = np.eye(self.n_workers)
+        for t in self.topologies:
+            P = t.W @ P
+        return P
+
+    @property
+    def cycle_rho(self) -> float:
+        """Effective spectral gap of one full cycle, ``1 − ‖∏W − J‖₂``."""
+        return mixing_gap(self.cycle_product())
+
+    def degrees(self) -> tuple:
+        """Non-self exchanges per round (the bytes vary by round)."""
+        return tuple(t.degree for t in self.topologies)
+
+    def validate(self) -> None:
+        K, grid = self.n_workers, self.axis_sizes
+        for t in self.topologies:
+            t.validate()
+            if t.n_workers != K or t.axis_sizes != grid:
+                raise ValueError(
+                    f"schedule {self.name}: round {t.name} grid "
+                    f"{t.axis_sizes} != {grid}")
+
+
+def static_schedule(top: Topology) -> TopologySchedule:
+    """A single topology as a period-1 schedule."""
+    return TopologySchedule(f"static_{top.name}", (top,))
+
+
+def one_peer_exponential_schedule(K: int,
+                                  self_weight: float = 0.5) -> TopologySchedule:
+    """One-peer exponential: round ``j`` exchanges only with offset ``2^j``.
+
+    Degree 1 a round, each round's W directed, yet the ⌈log₂K⌉-round cycle
+    product is the exact global average when K is a power of two
+    (``cycle_rho = 1``).
+    """
+    if K == 1:
+        return static_schedule(disconnected(1))
+    ws = float(self_weight)
+    T = max(1, math.ceil(math.log2(K)))
+    tops = []
+    for j in range(T):
+        off = 2 ** j
+        W = np.zeros((K, K))
+        for i in range(K):
+            W[i, i] += ws
+            W[i, (i + off) % K] += 1.0 - ws
+        tops.append(Topology(
+            f"one_peer_exp[{off}]", W,
+            ((0, 0, ws), (0, off, 1.0 - ws)), (K,),
+            symmetric=bool(np.allclose(W, W.T))))
+    return TopologySchedule("one_peer_exp", tuple(tops))
+
+
+def hierarchical_schedule(n_nodes: int, node_size: int,
+                          self_weight: float = 0.5) -> TopologySchedule:
+    """The two-level one-peer schedule: not ported yet."""
+    raise NotImplementedError(f"hierarchical_schedule: not ported yet — "
+                              f"{_HIER}")
+
+
+def alternating_axes_schedule(shape: Sequence[int],
+                              self_weight: float | None = None
+                              ) -> TopologySchedule:
+    """Ring mixing along one torus axis per round: round ``ax`` applies
+    ``I ⊗ … ⊗ W_ring(shape[ax]) ⊗ … ⊗ I``; the cycle product is the full
+    Kronecker torus W."""
+    shape = tuple(int(s) for s in shape)
+    tops = []
+    for ax in range(len(shape)):
+        sub = ring(shape[ax], self_weight)
+        mats = [sub.W if a == ax else np.eye(s)
+                for a, s in enumerate(shape)]
+        W = mats[0]
+        for M in mats[1:]:
+            W = np.kron(W, M)
+        shifts = tuple((ax, sh, w) for (_, sh, w) in sub.shifts)
+        tops.append(Topology(f"axis{ax}_ring", W, shifts, shape))
+    return TopologySchedule("alt_axes", tuple(tops))
+
+
+def random_matching_schedule(K: int, rounds: int, seed: int = 0,
+                             self_weight: float = 0.5) -> TopologySchedule:
+    """Seeded random perfect matchings: each round pairs workers at random
+    and pair-averages (``W = ws·I + (1−ws)·M``); with odd K one worker
+    idles a round.  The matchings come from ``np.random.default_rng(seed)``
+    as the reference draws them, so both packages see the same rounds."""
+    if rounds < 1:
+        raise ValueError("random_matching_schedule: rounds must be ≥ 1")
+    rng = np.random.default_rng(seed)
+    ws = float(self_weight)
+    tops = []
+    for r in range(rounds):
+        order = rng.permutation(K)
+        recv = np.arange(K)
+        for a, b in zip(order[0::2], order[1::2]):
+            recv[a], recv[b] = b, a
+        W = ws * np.eye(K)
+        for i in range(K):
+            W[i, recv[i]] += 1.0 - ws
+        tops.append(Topology(
+            f"matching[{r}]", W, ((0, 0, ws),), (K,),
+            perms=((0, tuple(int(x) for x in recv), 1.0 - ws),)))
+    return TopologySchedule("random_matching", tuple(tops))
+
+
+def make_schedule(name: str, worker_grid: Sequence[int], *,
+                  base_topology: str = "ring", rounds: int = 0,
+                  seed: int = 0) -> TopologySchedule:
+    """Build a topology schedule by name for a worker grid.
+
+    ``"static"`` wraps ``base_topology``; ``rounds``/``seed`` set the
+    random-matching schedule (``rounds=0`` derives ⌈log₂K⌉, at least 2).
+    """
+    grid = tuple(int(g) for g in worker_grid)
+    K = int(np.prod(grid)) if grid else 1
+    key = name.lower().replace("-", "_")
+    if key == "static":
+        return static_schedule(make_topology(base_topology, grid))
+    if key in ("one_peer_exp", "one_peer_exponential"):
+        if len(grid) > 1:
+            raise ValueError(
+                "one_peer_exp needs a single worker axis; got grid "
+                f"{grid} (use alt_axes for multi-axis grids)")
+        return one_peer_exponential_schedule(K)
+    if key in ("alt_axes", "alternating_axes"):
+        return alternating_axes_schedule(grid if len(grid) > 1 else (K,))
+    if key in ("hier_one_peer", "hierarchical_one_peer"):
+        raise NotImplementedError(f"{name}: not ported yet — {_HIER}")
+    if key in ("random_matching", "random_match"):
+        if len(grid) > 1:
+            raise ValueError(
+                "random_matching needs a single worker axis; got grid "
+                f"{grid}")
+        T = rounds or max(2, math.ceil(math.log2(max(K, 2))))
+        return random_matching_schedule(K, T, seed=seed)
+    raise ValueError(f"unknown topology schedule {name!r}")

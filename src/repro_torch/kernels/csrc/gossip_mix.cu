@@ -15,7 +15,12 @@
 // 4 x 16 MiB = 64 MiB: 20 us at 3.35 TB/s.
 //
 // Design: the n input pointers and weights travel by value in one struct
-// of kernel parameters, with one instantiation per n up to kMaxInputs.  One
+// of kernel parameters, with one instantiation per n up to kMaxInputs.
+// More inputs (the exponential graph's 9 at K = 16) are chained by the
+// wrapper (kernels/gossip_mix.py): each later launch takes the partial sum
+// as its first input with weight 1.0, and __fmul_rn(1.0f, a) is exact, so
+// the chain rounds as one left-to-right sum; each chained launch moves 8
+// bytes more an element (the partial sum written, then read again).  One
 // thread per 4 elements with float4 loads and stores, a grid-stride loop
 // over at most 8 blocks of 256 threads per SM, the ragged last sweep
 // masked by the loop bound.  The neighbour views are materialised by the

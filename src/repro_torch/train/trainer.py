@@ -2,9 +2,10 @@
 
 Port of ``History`` and ``SimTrainer`` (``src/repro/train/trainer.py:45-216``).
 ``SimTrainer`` runs whole rounds (p local momentum steps + exactly one
-gossip round, ``opt.round``) in blocks of up to ``_MAX_BLOCK_ROUNDS``
-rounds.  Per-step losses stay on the device until a block is flushed:
-one host sync per block.  A run whose length is not a multiple of p ends
+gossip round, ``opt.round``) in blocks of ``rounds_per_log`` rounds, by
+default enough to reach the next log point and at most
+``_MAX_BLOCK_ROUNDS``.  Per-step losses stay on the device until a block
+is flushed: one host sync per block.  A run whose length is not a multiple of p ends
 with a tail of local steps and no gossip, reproducing the per-step
 schedule ``mod(t+1, p) == 0`` exactly.  Per-worker ``(loss, grads)`` come
 from ``torch.func.vmap(torch.func.grad_and_value(...))`` over the
@@ -13,7 +14,7 @@ worker-stacked params.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
@@ -72,10 +73,12 @@ class SimTrainer:
     ``device``; the host waits for the device only when a block of rounds
     is flushed."""
 
-    def __init__(self, loss_fn: Callable, opt: PDSGDM, device="cuda"):
+    def __init__(self, loss_fn: Callable, opt: PDSGDM, device="cuda",
+                 rounds_per_log: Optional[int] = None):
         self.loss_fn = loss_fn
         self.opt = opt
         self.device = resolve_device(device)
+        self.rounds_per_log = rounds_per_log
         self._grad = torch.func.vmap(torch.func.grad_and_value(
             lambda p, b: loss_fn(p, b)[0]))
 
@@ -87,10 +90,12 @@ class SimTrainer:
         return self.opt.bytes_per_round_cycle(tree_map(lambda x: x[0], params))
 
     def train(self, params, batch_fn: Callable[[int], dict], steps: int,
-              log_every: int = 10) -> tuple:
+              log_every: int = 10,
+              rounds_per_log: Optional[int] = None) -> tuple:
         """Run ``steps`` local steps from worker-stacked ``params``;
-        ``batch_fn(t)`` gives step t's worker-stacked batch.  Returns
-        ``(params, state, History)``."""
+        ``batch_fn(t)`` gives step t's worker-stacked batch.
+        ``rounds_per_log`` (here or at construction) sets the rounds
+        between two host syncs.  Returns ``(params, state, History)``."""
         for leaf in tree_leaves(params):
             if leaf.device.type != self.device.type:
                 raise ValueError(f"params on {leaf.device}, trainer on "
@@ -101,8 +106,10 @@ class SimTrainer:
         per_round = self.bytes_per_round_cycle(params)
         p = opt.config.p
         n_rounds, tail = divmod(steps, p)
-        # rounds per block: enough to reach the next log point, capped
-        block = min(_MAX_BLOCK_ROUNDS, max(1, -(-log_every // p)))
+        # rounds per block: the caller's, else enough to reach the next
+        # log point, capped
+        block = (rounds_per_log or self.rounds_per_log
+                 or min(_MAX_BLOCK_ROUNDS, max(1, -(-log_every // p))))
 
         def flush(losses, t0):
             # .tolist() is the block's one host sync

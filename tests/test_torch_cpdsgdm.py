@@ -45,9 +45,10 @@ from repro.models import resnet as r_resnet  # noqa: E402
 from repro.train.trainer import SimTrainer as RSimTrainer  # noqa: E402
 from repro_torch.convert import (params_from_reference,  # noqa: E402
                                  state_from_reference)
-from repro_torch.core import (CPDSGDM, DenseComm, IdentityCompressor,  # noqa: E402
-                              QSGDCompressor, SignCompressor, TopKCompressor,
-                              make_optimizer, ring)
+from repro_torch.core import (CPDSGDM, CSGDM, DenseComm,  # noqa: E402
+                              IdentityCompressor, QSGDCompressor,
+                              SignCompressor, TopKCompressor, make_optimizer,
+                              make_schedule, make_topology, ring)
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 from repro_torch.kernels.ops import KernelPlan  # noqa: E402
@@ -428,10 +429,16 @@ def test_optimizer_factory_builds_the_baselines():
     assert (d.config.mu, d.config.p, d.config.weight_decay) == (0.0, 1, 1e-4)
     pd = make_optimizer("pd_sgd", comm, p=8)
     assert (pd.config.mu, pd.config.p) == (0.0, 8)
-    for name, item in (("c_sgdm", "item 4"), ("mt_dsgdm", "item 8"),
-                       ("qg", "item 8")):
+    assert isinstance(make_optimizer("c_sgdm", comm), CSGDM)
+    for name, item in (("mt_dsgdm", "item 8"), ("qg", "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             make_optimizer(name, comm)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_topology("hierarchical", (2, 4))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_schedule("hier_one_peer", (2, 4))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        DenseComm(ring(K), membership=object(), device="cpu")
     for name in ("cpd_sgdm", "pd_sgd"):
         with pytest.raises(NotImplementedError, match="item 9"):
             make_optimizer(name, comm, overlap=True)

@@ -18,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import LANE  # noqa: E402
-from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
+from repro_torch.kernels.gossip_mix import gossip_mix, launch_count  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 from repro_torch.kernels.qsgd_quant import qsgd_dequant, qsgd_quant  # noqa: E402
 from repro_torch.kernels.ref import (gossip_mix_ref,  # noqa: E402
@@ -69,6 +69,25 @@ def test_cuda_kernels_bit_exact_on_card():
                            gossip_mix_ref(xs[:n], ws))
     with pytest.raises(ValueError):
         momentum_update(x, m, g.t().contiguous().t(), lr, mu=0.9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17])
+def test_gossip_mix_chains_past_eight_inputs_on_card(n):
+    """Past 8 inputs the wrapper chains launches of at most 8, each later
+    one taking the partial sum with weight 1.0: 2 launches at n = 9 (the
+    exponential graph at K = 16), 3 at 17; bit for bit against one
+    left-to-right sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    xs = [torch.from_numpy(a).to(dev) for a in _mats(n, n, 333)]
+    ws = tuple(0.01 + 0.005 * j for j in range(n))
+    before = gossip_mix.launches
+    y = gossip_mix(xs, weights=ws)
+    torch.cuda.synchronize()
+    assert gossip_mix.launches - before == launch_count(n) == (n + 5) // 7
+    assert torch.equal(y, gossip_mix_ref(xs, ws))
 
 
 @pytest.mark.cuda

@@ -107,8 +107,6 @@ def test_gossip_bytes_equal_reference(name):
 
 def test_dense_comm_refuses_what_this_slice_does_not_port():
     with pytest.raises(NotImplementedError, match="item 7"):
-        DenseComm(r_top.one_peer_exponential_schedule(8), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
         DenseComm(top.ring(8), membership=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         DenseComm(top.ring(8), wire_dtype="bfloat16", device="cpu")

@@ -76,8 +76,13 @@ def test_momentum_matches_pallas_kernel(rows, wd, nesterov):
     assert ulp_gap(xn.numpy(), xk, largest) <= fmas_x
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 5])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 9, 17, 33])
 def test_gossip_mix_matches_pallas_kernel(n):
+    """Bit for bit against the reference's left-to-right sum, and within
+    n − 1 ulps of the Pallas kernel in interpret mode, where XLA may fuse a
+    product and a sum.  Past 8 inputs the wrapper chains launches (on the
+    CPU, plain versions), each later one taking the partial sum with
+    weight 1.0: the equality holds through the chain."""
     xs = _mats(10 + n, n, 256)
     weights = tuple(float(w) for w in np.linspace(0.1, 0.5, n))
     before = gossip_mix.launches
@@ -129,7 +134,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         gossip_mix([], weights=())
     with pytest.raises(ValueError):
-        gossip_mix([x] * 9, weights=(0.1,) * 9)
+        gossip_mix([x] * 9, weights=(0.1,) * 8)
     with pytest.raises(ValueError):
         gossip_mix([x, x], weights=(0.5,))
     with pytest.raises(TypeError):

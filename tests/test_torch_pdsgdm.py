@@ -29,7 +29,8 @@ from repro.data.synthetic import class_batch as r_class_batch  # noqa: E402
 from repro.models import resnet as r_resnet  # noqa: E402
 from repro.train.trainer import SimTrainer as RSimTrainer  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
-from repro_torch.core import DenseComm, make_optimizer, ring, schedules  # noqa: E402
+from repro_torch.core import (DenseComm, make_optimizer,  # noqa: E402
+                              make_schedule, make_topology, ring, schedules)
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 from repro_torch.kernels.ops import KernelPlan  # noqa: E402
@@ -239,11 +240,16 @@ def test_schedules_match_reference(name, args):
 
 def test_optimizer_factory_refuses_what_this_slice_does_not_port():
     comm = DenseComm(ring(K), device="cpu")
-    for name, item in (("c_sgdm", "item 4"), ("mt_dsgdm", "item 8"),
-                       ("qg_dsgdm", "item 8")):
+    for name, item in (("mt_dsgdm", "item 8"), ("qg_dsgdm", "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             make_optimizer(name, comm)
     with pytest.raises(NotImplementedError, match="item 9"):
         make_optimizer("pd_sgdm", comm, overlap=True)
     with pytest.raises(ValueError):
         make_optimizer("adam", comm)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_topology("hierarchical", (2, 4))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_schedule("hier_one_peer", (2, 4))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        DenseComm(ring(K), membership=object(), device="cpu")
