@@ -31,35 +31,46 @@ matmuls:
    (per-launch windows, back to back on cold rows, and with ``--profile``
    in the round) beside ``index_select`` and a contiguous copy of the same
    bytes; the gossip mix also at 9 and 17 inputs (chained launches), with
-   its time at 9 over the exponential path's 16 × 512 rows;
-2. drives eight paths through the port's entry points, each once, with
+   its time at 9 over the exponential path's 16 × 512 rows, and at MT's
+   two tracking shapes (n = 2 with weights (1, λ), beside ``torch.add``,
+   and n = 3 with (1, 1, −1));
+2. drives eleven paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
    ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
    ``TopKCompressor(fraction=0.1)`` (γ = 0.2), C-SGDM (p = 1), PD-SGDM on
    ``exponential(16)`` (K = 16, 9 shifted views a round) and on the
-   one-peer exponential schedule (period 3), all through
-   ``make_optimizer`` → ``SimTrainer.train`` on the kernel layout,
-   ResNet-20 at width 16, K = 8 workers on a ring where not said
-   otherwise, batch 16 per worker, p = 4, η = 0.1, μ = 0.9, weight decay
-   1e-4, 14 steps (3 rounds and a 2-step tail; C-SGDM 14 rounds); and
-   CPD-SGDM with ``SparseRowsCompressor(max_rows=64)`` through
-   ``CPDSGDM.round`` on a (65,536 × 64) f32 embedding table per worker,
-   K = 4 on a ring, Zipf lookups of batch 64, p = 4, η = 0.05, γ = 0.4
-   (the reference's ``benchmarks/embedding_wire.py``), 3 rounds and a
-   2-step tail;
+   one-peer exponential schedule (period 3), MT-DSGDm with full-precision
+   and with sign-compressed tracking and QG-DSGDm (η = 0.05, the step of
+   ``benchmarks/noniid_sweep.py``), all through ``make_optimizer`` →
+   ``SimTrainer.train`` on the kernel layout, ResNet-20 at width 16, K = 8
+   workers on a ring where not said otherwise, batch 16 per worker,
+   p = 4, η = 0.1, μ = 0.9, weight decay 1e-4, 14 steps (3 rounds and a
+   2-step tail; C-SGDM 14 rounds); and CPD-SGDM with
+   ``SparseRowsCompressor(max_rows=64)`` through ``CPDSGDM.round`` on a
+   (65,536 × 64) f32 embedding table per worker, K = 4 on a ring, Zipf
+   lookups of batch 64, p = 4, η = 0.05, γ = 0.4 (the reference's
+   ``benchmarks/embedding_wire.py``), 3 rounds and a 2-step tail;
 3. holds one kernel-path round against one round of the plain path from
-   the same init on the same batches, for each of the eight: for PD-SGDM
-   and C-SGDM the tree round, for every CPD-SGDM wire the round through
-   the per-leaf codec, which launches no codec kernel;
-4. runs Fig. 1 at the reference's settings (ResNet-20 width 4, K = 8,
-   batch 16, 90 steps): C-SGDM and PD-SGDM at p = 4, 8 and 16 on the
-   kernel layout, held to the bars of ``tests/test_system.py``.
+   the same init on the same batches, for each of the eleven: for PD-SGDM,
+   C-SGDM, MT-DSGDm and QG-DSGDm the tree round, for every CPD-SGDM wire
+   the round through the per-leaf codec, which launches no codec kernel;
+   the params, m and the tracking state;
+4. runs Fig. 1, Fig. 2, Fig. 3 and the non-IID sweep's α = 0.1 claim at
+   the reference's settings (ResNet-20 width 4, K = 8 ring, batch 16, the
+   kernel layout, cuDNN deterministic): ``fig1_phase`` (C-SGDM and PD at
+   p = 4, 8, 16, 90 steps), ``fig2_phase`` (PD at p = 4, 8, 16 and CPD
+   sign-64 at p = 4 and 16, 60 steps: comm-MB), ``fig3_phase`` (five
+   wires at 70 steps, and the bars of ``tests/test_system.py`` on CPD
+   sign-64 at 150 steps against PD at 90) and ``noniid_phase`` (D-SGD,
+   PD, QG and MT at p = 1, 2, 4 on Dirichlet(0.1) labels, 64 steps,
+   judged by the global loss of the averaged model through the trainer's
+   ``eval_fn``).
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
-time, the kernel phase, the training phase, the round parity, Fig. 1's
-losses, one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
-"device": {...}}``.  Any failure raises and exits non-zero; so does a
+time, the kernel phase, the training phase, the round parity, the four
+figure phases' rows, verdicts and wall seconds, one JSON line
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; so does a
 machine without a CUDA device, and a copy of the script outside a checkout
 (it imports the port from ``src/`` beside itself).  Imports nothing of JAX
 or of the JAX package.
@@ -97,9 +108,18 @@ EMB_K, EMB_ROWS, EMB_DIM, EMB_BATCH, EMB_MAX_ROWS = 4, 65536, 64, 64, 64
 EMB_HYPER = dict(eta=0.05, mu=0.9, p=P, gamma=0.4, weight_decay=0.0)
 EXP_K = 16                  # exponential(16): 9 shifts on one axis
 ONE_PEER = "one_peer_exp"   # period 3 at K = 8
+# MT-DSGDm and QG-DSGDm run at benchmarks/noniid_sweep.py's step: at 0.1
+# MT's tracked direction diverges at p = 4
+TRACK_ETA = 0.05
 # Fig. 1 at the reference's settings (benchmarks/common.py, fig1_pdsgdm.py)
 FIG1_K, FIG1_WIDTH, FIG1_BATCH, FIG1_STEPS = 8, 4, 16, 90
 FIG1_RUNS = (("c_sgdm", 1), ("pd_sgdm", 4), ("pd_sgdm", 8), ("pd_sgdm", 16))
+FIG2_STEPS, FIG2_TARGET = 60, 1.2          # benchmarks/fig2_comm_cost.py
+FIG3_STEPS = 70                            # benchmarks/fig3_cpdsgdm.py
+# tests/test_system.py:test_cpdsgdm_matches_pdsgdm_with_less_comm
+FIG3_CPD_STEPS, FIG3_PD_STEPS = 150, 90
+# benchmarks/noniid_sweep.py at its claim's skew
+NONIID_ALPHA, NONIID_STEPS, NONIID_PS = 0.1, 64, (1, 2, 4)
 # bytes per worker per round over one schedule cycle, on 310 used rows
 # (ResNet-20), its 272,282 f32 on the tree wire, or the table's 4,096 rows
 WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
@@ -109,7 +129,10 @@ WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
               "cpd_sgdm_sparse": (524_800,),   # 2 × 64 × (4 + 4096) B
               "c_sgdm": (7_623_896,),          # 7 × 272,282 × 4 B
               "pd_sgdm_exp16": (10_158_080,),  # 8 × 310 × 1024 × 4 B
-              "pd_sgdm_onepeer": (1_089_128,) * 3}   # 1 × 272,282 × 4 B
+              "pd_sgdm_onepeer": (1_089_128,) * 3,   # 1 × 272,282 × 4 B
+              "mt_dsgdm": (5_079_040,),        # 2 × 2 × 310 × 1024 × 4 B
+              "mt_dsgdm_sign": (2_621_360,),   # x + 2 × 310 × (128 + 4) B
+              "qg_dsgdm": (2_539_520,)}        # x only, as PD
 # the lines of nvcc's -Xptxas -v output that are printed: each kernel's
 # name, then its registers, shared memory and spills
 PTXAS_WORDS = ("Function properties", "registers", "spill")
@@ -216,6 +239,22 @@ def kernel_phase(torch, ops, bw, f32_peak):
                            gossip_mix_ref(xs[:n], ws)):
             raise AssertionError(f"gossip_mix differs at n={n}")
     print("kernel gossip_mix rows=333 n=1,2,4..8: bit-exact")
+    # MT's tracking AXPYs: ĝ = 1·g + λ·x and c + ĝ − ĝ_prev
+    track_w = ((1.0, wd), (1.0, 1.0, -1.0))
+    for rows in (main_rows, 333):
+        for ws in track_w:
+            ins = [torch.randn((rows, LANE), generator=gen, device=dev)
+                   for _ in ws]
+            y, want = gossip_mix(ins, weights=ws), gossip_mix_ref(ins, ws)
+            torch.cuda.synchronize()
+            err, ulp = float((y - want).abs().max()), max_ulp(torch, y, want)
+            if not torch.equal(y, want):
+                raise AssertionError(f"gossip_mix differs from its plain "
+                                     f"version at weights {ws}, rows={rows}")
+            r = results["gossip_mix"]
+            r[0], r[1] = max(r[0], err), max(r[1], ulp)
+    print(f"kernel gossip_mix rows={main_rows},333 weights {track_w}: "
+          f"bit-exact")
     # past 8 inputs the wrapper chains launches: exponential(16) mixes 9
     # views a round over K = 16 workers' 512 rows
     exp_w = tuple(w for (_ax, _sh, w) in exponential(EXP_K).shifts)
@@ -275,6 +314,20 @@ def kernel_phase(torch, ops, bw, f32_peak):
             bytes=4 * 4 * n, flops=5 * n),
     }
     finish_timings(timings, results, bw, f32_peak, (main_rows, LANE))
+    # MT's two tracking launches at the same shape: n = 2 reads 2 and
+    # writes 1 an element (2 products, 1 sum), n = 3 reads 3 (3 products,
+    # 2 sums); torch.add(g, x, alpha=λ) is the same function as n = 2
+    for ws, library in (((1.0, wd), lambda: torch.add(g, x, alpha=wd)),
+                        ((1.0, 1.0, -1.0), None)):
+        ins = [g, x, m][:len(ws)]
+        n_in = len(ws)
+        finish_timings({"gossip_mix": dict(
+            ms=time_ms(torch, lambda: gossip_mix(ins, weights=ws)),
+            plain_ms=time_ms(torch, lambda: gossip_mix_ref(ins, ws)),
+            library_ms=(time_ms(torch, library) if library is not None
+                        else None),
+            bytes=(n_in + 1) * 4 * n, flops=(2 * n_in - 1) * n)},
+            results, bw, f32_peak, (main_rows, LANE, "weights", ws))
     return timings
 
 
@@ -888,16 +941,22 @@ def stacked_init(torch, seed: int, k: int = K, width: int = WIDTH):
             for n, v in params.items()}
 
 
-def batch_fn(seed: int, k: int = K, batch: int = BATCH):
+def batch_fn(seed: int, k: int = K, batch: int = BATCH, alpha=None):
+    """Step t's class batch; ``alpha``: Dirichlet(α) labels per worker."""
     from repro_torch.data.synthetic import ClassStreamCfg, class_batch
-    cfg = ClassStreamCfg(batch=batch, n_workers=k, seed=seed)
+    cfg = ClassStreamCfg(batch=batch, n_workers=k, seed=seed,
+                         dirichlet_alpha=alpha)
     return lambda t: class_batch(cfg, t, DEVICE)
 
 
-# the eight paths, the kernels each must launch in a 14-step run, and the
+# the eleven paths, the kernels each must launch in a 14-step run, and the
 # path whose run each kernel's reported launches come from
 PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
-         "cpd_sgdm_sparse", "c_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer")
+         "cpd_sgdm_sparse", "c_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer",
+         "mt_dsgdm", "mt_dsgdm_sign", "qg_dsgdm")
+# MT: each step mixes ĝ = g + λx (n = 2) and c + ĝ − ĝ_prev (n = 3); each
+# round mixes x and c (or the decoded Q(c))
+MT_MIXES = 2 * STEPS + 2 * (STEPS // P)
 WORKERS = {"cpd_sgdm_sparse": EMB_K, "pd_sgdm_exp16": EXP_K}
 EXPECTED = {
     "pd_sgdm": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
@@ -916,6 +975,11 @@ EXPECTED = {
                       "topk_scatter": STEPS // P},
     "cpd_sgdm_sparse": {"momentum_update": STEPS, "row_gather": STEPS // P,
                         "row_scatter": STEPS // P},
+    "mt_dsgdm": {"momentum_update": STEPS, "gossip_mix": MT_MIXES},
+    "mt_dsgdm_sign": {"momentum_update": STEPS, "gossip_mix": MT_MIXES,
+                      "sign_pack": STEPS // P, "sign_unpack": STEPS // P},
+    # QG: the buffer update at a round is plain elementwise torch
+    "qg_dsgdm": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
 }
 OWNER = {"momentum_update": "pd_sgdm", "gossip_mix": "pd_sgdm",
          "sign_pack": "cpd_sgdm_sign", "sign_unpack": "cpd_sgdm_sign",
@@ -943,9 +1007,10 @@ def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
     """The optimizer of ``path``, built as a user builds it (``max_rows``:
     the sparse wire's row budget, as ``--compressor-rows`` sets it)."""
     from repro_torch.core import (CPDSGDM, CPDSGDMConfig, DenseComm,
-                                  QSGDCompressor, SparseRowsCompressor,
-                                  TopKCompressor, make_optimizer,
-                                  make_schedule, make_topology, ring)
+                                  QSGDCompressor, SignCompressor,
+                                  SparseRowsCompressor, TopKCompressor,
+                                  make_optimizer, make_schedule,
+                                  make_topology, ring)
     if path == "cpd_sgdm_sparse":
         return CPDSGDM(CPDSGDMConfig(use_kernel=use_kernel, **EMB_HYPER),
                        DenseComm(ring(EMB_K), device=DEVICE),
@@ -958,6 +1023,11 @@ def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
         return make_optimizer("pd_sgdm", comm, use_kernel=use_kernel, **HYPER)
     if path == "c_sgdm":        # make_optimizer swaps in complete(K)
         return make_optimizer("c_sgdm", comm, use_kernel=use_kernel, **HYPER)
+    if path in ("mt_dsgdm", "mt_dsgdm_sign", "qg_dsgdm"):
+        name = "qg_dsgdm" if path == "qg_dsgdm" else "mt_dsgdm"
+        comp = SignCompressor() if path == "mt_dsgdm_sign" else None
+        return make_optimizer(name, comm, use_kernel=use_kernel,
+                              compressor=comp, **dict(HYPER, eta=TRACK_ETA))
     comp, gamma = {
         "cpd_sgdm_sign": (None, GAMMA),                   # None: sign
         "cpd_sgdm_qsgd": (QSGDCompressor(levels=QSGD_LEVELS), GAMMA),
@@ -1049,7 +1119,7 @@ def training_phase(torch, path: str) -> dict:
         comm_mb = hist.comm_mb[-1]
         print(f"train: {path} kernel path, ResNet-20 width {WIDTH}, "
               f"K={comm.topology.n_workers} {graph}, batch {BATCH}, "
-              f"p={opt.config.p}, {STEPS} steps")
+              f"p={opt.config.p}, eta={opt.config.eta}, {STEPS} steps")
         print(f"train: {path} losses " + " ".join(f"{v:.4f}"
                                                    for v in hist.loss))
         if (not all(math.isfinite(v) for v in hist.loss)
@@ -1079,11 +1149,14 @@ def parity_phase(torch, path: str):
     path from the same init on the same batches, with cuDNN held to
     deterministic algorithms so both see the same gradients; on the
     one-peer schedule the whole cycle of three rounds, so that every W_r
-    is held.  The plain path is the tree round for PD-SGDM and C-SGDM and,
-    for every CPD-SGDM wire, the round through the per-leaf codec
-    (``_kernel_wire`` off), which launches no kernel: the round holds the
-    codec kernels against the plain codec.  Params within atol 1e-4 / rtol
-    1e-3.  CPD's x̂ too, except where the two consensus products (one over
+    is held.  The plain path is the tree round for PD-SGDM, C-SGDM,
+    MT-DSGDm and QG-DSGDm (MT's sign-compressed correction through the
+    per-leaf codec) and, for every CPD-SGDM wire, the round through the
+    per-leaf codec (``_kernel_wire`` off), which launches no kernel: the
+    round holds the codec kernels against the plain codec.  Params within
+    atol 1e-4 / rtol 1e-3, and so m and MT's and QG's c, ĝ_prev and
+    x_prev.
+    CPD's x̂ too, except where the two consensus products (one over
     the matrix, one per leaf) put the drift x_new − x̂ on opposite sides of
     a sign, a QSGD tie or a top-k or row-norm near-tie: x̂ moves there by
     at most 2·max|drift|, in a handful of elements."""
@@ -1113,6 +1186,15 @@ def parity_phase(torch, path: str):
         if not torch.allclose(got[k], want[k], rtol=1e-3, atol=1e-4):
             raise AssertionError(f"{path}: kernel round differs from the "
                                  f"plain round: {k}")
+    tracked = [key for key in ("m", "c", "g_prev", "xprev") if key in st]
+    gaps = {key: max(float((sk[key][k] - st[key][k]).abs().max())
+                     for k in st[key]) for key in tracked}
+    print(f"parity: {path} max |Δ| of the state: {gaps}")
+    for key in tracked:
+        for k, ref in st[key].items():
+            if not torch.allclose(sk[key][k], ref, rtol=1e-3, atol=1e-4):
+                raise AssertionError(f"{path}: kernel round's {key} "
+                                     f"differs from the plain round's: {k}")
     if "xhat" not in st:
         return
     drift = max(float((want[k] - init[k]).abs().max()) for k in want)
@@ -1128,6 +1210,55 @@ def parity_phase(torch, path: str):
           f"sign, level or selection (max |drift| {drift})")
 
 
+class cudnn_deterministic:
+    """Within the block, cuDNN runs deterministic algorithms: a figure's
+    verdict reads single batches' losses, and the other algorithms'
+    atomics move them from call to call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        self.torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        self.torch.backends.cudnn.deterministic = False
+
+
+def fig_run(torch, name: str, steps: int, log_every: int, *, p: int = 4,
+            eta: float = 0.1, gamma: float = 0.4, weight_decay: float = 1e-4,
+            compressor=None, alpha=None, eval_fn=None):
+    """One run at the reference's figure settings (``benchmarks/common.py``):
+    ResNet-20 width 4 from seed 0, K = 8 workers (the complete graph for
+    C-SGDM, else a ring), batch 16 of seed 0's class stream (Dirichlet(α)
+    labels with ``alpha``), μ = 0.9, through ``make_optimizer`` →
+    ``SimTrainer.train`` on the kernel layout.  Returns ``(History, wall
+    seconds)``."""
+    from repro_torch.core import DenseComm, complete, make_optimizer, ring
+    from repro_torch.models.resnet import resnet20_loss
+    from repro_torch.train.trainer import SimTrainer
+    comm = DenseComm(complete(FIG1_K) if name == "c_sgdm" else ring(FIG1_K),
+                     device=DEVICE)
+    opt = make_optimizer(name, comm, eta=eta, mu=0.9, p=p, gamma=gamma,
+                         weight_decay=weight_decay, compressor=compressor,
+                         use_kernel=True)
+    params = stacked_init(torch, 0, FIG1_K, FIG1_WIDTH)
+    t0 = time.perf_counter()
+    _, _, hist = SimTrainer(resnet20_loss, opt, device=DEVICE).train(
+        params, batch_fn(0, FIG1_K, FIG1_BATCH, alpha), steps,
+        log_every=log_every, eval_fn=eval_fn)
+    torch.cuda.synchronize()
+    return hist, time.perf_counter() - t0
+
+
+def verdict(phase: str, missed: list, t0: float):
+    """Print the phase's verdict and wall seconds; fail on a miss."""
+    print(f"{phase}: verdict {'missed ' + str(missed) if missed else 'held'}"
+          f", {time.perf_counter() - t0:.2f} s wall")
+    if missed:
+        raise AssertionError(f"{phase}: {missed}")
+
+
 def fig1_phase(torch):
     """Fig. 1 on the card at the reference's settings
     (``benchmarks/common.py``, ``benchmarks/fig1_pdsgdm.py``): ResNet-20
@@ -1141,41 +1272,177 @@ def fig1_phase(torch):
     same on every call: the final loss is one step's batch loss, and with
     the other algorithms' atomics two calls of the same code ended PD at
     p = 16 at 0.20 and at 0.75."""
-    from repro_torch.core import DenseComm, complete, make_optimizer, ring
-    from repro_torch.models.resnet import resnet20_loss
-    from repro_torch.train.trainer import SimTrainer
+    t0 = time.perf_counter()
     first, final = {}, {}
-    torch.backends.cudnn.deterministic = True
-    try:
+    with cudnn_deterministic(torch):
         for name, p in FIG1_RUNS:
-            comm = DenseComm(complete(FIG1_K) if name == "c_sgdm"
-                             else ring(FIG1_K), device=DEVICE)
-            opt = make_optimizer(name, comm, eta=0.1, mu=0.9, p=p,
-                                 weight_decay=1e-4, use_kernel=True)
-            params = stacked_init(torch, 0, FIG1_K, FIG1_WIDTH)
-            t0 = time.perf_counter()
-            _, _, hist = SimTrainer(resnet20_loss, opt, device=DEVICE).train(
-                params, batch_fn(0, FIG1_K, FIG1_BATCH), FIG1_STEPS,
-                log_every=max(5, p))
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
+            hist, seconds = fig_run(torch, name, FIG1_STEPS, max(5, p), p=p)
             label = f"fig1/{name}_p{p}"
             first[label], final[label] = hist.loss[0], hist.loss[-1]
             print(f"fig1: {label} loss {hist.loss[0]:.4f} -> "
                   f"{hist.loss[-1]:.4f} (logged: "
                   f"{' '.join(f'{v:.3f}' for v in hist.loss)}), comm_mb "
                   f"{hist.comm_mb[-1]:.1f}, {seconds:.2f} s")
-    finally:
-        torch.backends.cudnn.deterministic = False
     base = final["fig1/c_sgdm_p1"]
     gap = max(abs(v - base) for v in final.values())
     print(f"fig1: final losses {json.dumps(final)}; max_gap_to_csgdm {gap}")
     missed = [label for label in final
               if not (final[label] < first[label] - 1.0
                       and final[label] < base + 0.5)]
-    if missed or not all(math.isfinite(v) for v in final.values()):
-        raise AssertionError(f"fig1: {missed} miss the bars (final < first "
-                             f"- 1.0 and < C-SGDM's {base} + 0.5)")
+    verdict("fig1", missed + [f"{label} final {v}" for label, v
+                              in final.items() if not math.isfinite(v)], t0)
+
+
+def fig2_phase(torch):
+    """Fig. 2 on the card at the reference's settings
+    (``benchmarks/fig2_comm_cost.py``): PD-SGDM at p = 4, 8 and 16 and
+    CPD-SGDM with ``SignCompressor(block=64)`` at p = 4 and 16, 60 steps
+    logged every 5, η = 0.1, γ = 0.4, weight decay 1e-4; rows as the
+    reference prints them (``name,µs per step,derived``: total MB, MB to
+    loss 1.2, final loss).  The claims: CPD at p = 16 ships fewer MB than
+    PD at p = 16 (``cpd_over_pd_bytes_ratio_p16`` < 1), and CPD at p = 4
+    fewer than a tenth of PD's at p = 4 (``tests/test_system.py:68``);
+    every loss finite."""
+    from repro_torch.core import SignCompressor
+    t0 = time.perf_counter()
+    runs = {}
+    with cudnn_deterministic(torch):
+        for label, name, p in (("pd_sgdm_p4", "pd_sgdm", 4),
+                               ("pd_sgdm_p8", "pd_sgdm", 8),
+                               ("pd_sgdm_p16", "pd_sgdm", 16),
+                               ("cpd_sgdm_p4_sign", "cpd_sgdm", 4),
+                               ("cpd_sgdm_p16_sign", "cpd_sgdm", 16)):
+            comp = SignCompressor(block=64) if name == "cpd_sgdm" else None
+            hist, seconds = fig_run(torch, name, FIG2_STEPS, 5, p=p,
+                                    compressor=comp)
+            runs[label] = hist
+            mb = next((mb for loss, mb in zip(hist.loss, hist.comm_mb)
+                       if loss <= FIG2_TARGET), math.nan)
+            print(f"fig2/{label},{seconds / FIG2_STEPS * 1e6:.1f},"
+                  f"total_mb={hist.comm_mb[-1]:.2f};"
+                  f"mb_to_loss{FIG2_TARGET}={mb:.2f};"
+                  f"final={hist.loss[-1]:.4f}")
+    total = {label: h.comm_mb[-1] for label, h in runs.items()}
+    ratio = total["cpd_sgdm_p16_sign"] / max(total["pd_sgdm_p16"], 1e-9)
+    print(f"fig2/cpd_over_pd_bytes_ratio_p16,0.0,ratio={ratio:.4f}")
+    missed = [label for label, h in runs.items()
+              if not all(math.isfinite(v) for v in h.loss)]
+    if not ratio < 1.0:
+        missed.append(f"cpd_over_pd_bytes_ratio_p16 {ratio} >= 1")
+    if not total["cpd_sgdm_p4_sign"] < total["pd_sgdm_p4"] / 10.0:
+        missed.append(f"CPD p=4 {total['cpd_sgdm_p4_sign']} MB >= PD p=4 "
+                      f"{total['pd_sgdm_p4']} MB / 10")
+    verdict("fig2", missed, t0)
+
+
+def fig3_phase(torch):
+    """Fig. 3 on the card at the reference's settings
+    (``benchmarks/fig3_cpdsgdm.py``): at p = 4 (CHOCO-SGD p = 1), 70 steps
+    logged every 5, η = 0.1, weight decay 1e-4: PD-SGDM full precision,
+    CPD-SGDM with sign (block 64), 4-bit QSGD (7 levels) and top-10 % at
+    γ = 0.2, and CHOCO-SGD with sign (block 64); rows as the reference
+    prints them, and ``sign_vs_full_gap``.  Then the bars of
+    ``tests/test_system.py:test_cpdsgdm_matches_pdsgdm_with_less_comm`` at
+    that test's settings (no weight decay): CPD sign-64 over 150 steps
+    against PD over 90; the least of CPD's last 6 logged losses below its
+    first − 1.5 and below PD's least of the last 6 + 0.75, and CPD's
+    comm-MB below a tenth of PD's."""
+    from repro_torch.core import (QSGDCompressor, SignCompressor,
+                                  TopKCompressor)
+    t0 = time.perf_counter()
+    final, missed = {}, []
+    with cudnn_deterministic(torch):
+        for label, name, kw in (
+                ("pd_sgdm_p4_full", "pd_sgdm", {}),
+                ("cpd_sgdm_p4_sign", "cpd_sgdm",
+                 dict(compressor=SignCompressor(block=64))),
+                ("cpd_sgdm_p4_qsgd4bit", "cpd_sgdm",
+                 dict(compressor=QSGDCompressor(levels=QSGD_LEVELS))),
+                ("cpd_sgdm_p4_top10pct", "cpd_sgdm",
+                 dict(gamma=TOPK_GAMMA,
+                      compressor=TopKCompressor(fraction=TOPK_FRACTION))),
+                ("choco_sgd_sign", "choco_sgd",
+                 dict(compressor=SignCompressor(block=64)))):
+            hist, seconds = fig_run(torch, name, FIG3_STEPS, 5, **kw)
+            final[label] = hist.loss[-1]
+            if not all(math.isfinite(v) for v in hist.loss):
+                missed.append(f"{label} losses not finite")
+            print(f"fig3/{label},{seconds / FIG3_STEPS * 1e6:.1f},"
+                  f"final_loss={hist.loss[-1]:.4f};"
+                  f"comm_mb={hist.comm_mb[-1]:.2f}")
+        gap = abs(final["cpd_sgdm_p4_sign"] - final["pd_sgdm_p4_full"])
+        print(f"fig3/sign_vs_full_gap,0.0,gap={gap:.4f}")
+        h_pd, _ = fig_run(torch, "pd_sgdm", FIG3_PD_STEPS, 5,
+                          weight_decay=0.0)
+        h_cpd, _ = fig_run(torch, "cpd_sgdm", FIG3_CPD_STEPS, 5,
+                           weight_decay=0.0,
+                           compressor=SignCompressor(block=64))
+    tail_cpd, tail_pd = min(h_cpd.loss[-6:]), min(h_pd.loss[-6:])
+    print(f"fig3: test_system bars: CPD sign-64 {FIG3_CPD_STEPS} steps "
+          f"first {h_cpd.loss[0]:.4f}, least of the last 6 {tail_cpd:.4f}, "
+          f"comm_mb {h_cpd.comm_mb[-1]:.2f}; PD {FIG3_PD_STEPS} steps least "
+          f"of the last 6 {tail_pd:.4f}, comm_mb {h_pd.comm_mb[-1]:.2f}")
+    if not tail_cpd < h_cpd.loss[0] - 1.5:
+        missed.append(f"CPD tail {tail_cpd} >= first {h_cpd.loss[0]} - 1.5")
+    if not tail_cpd < tail_pd + 0.75:
+        missed.append(f"CPD tail {tail_cpd} >= PD tail {tail_pd} + 0.75")
+    if not h_cpd.comm_mb[-1] < h_pd.comm_mb[-1] / 10.0:
+        missed.append(f"CPD {h_cpd.comm_mb[-1]} MB >= PD "
+                      f"{h_pd.comm_mb[-1]} MB / 10")
+    verdict("fig3", missed, t0)
+
+
+def noniid_phase(torch):
+    """The non-IID sweep's claim on the card (``benchmarks/noniid_sweep.py``
+    at α = 0.1): Dirichlet(0.1) labels per worker, K = 8 ring, 64 steps,
+    η = 0.05, μ = 0.9, weight decay 1e-4; D-SGD once, and PD-SGDM,
+    QG-DSGDm and MT-DSGDm at p = 1, 2 and 4.  Each run is judged by
+    ``eval_fn``: the global loss of the worker-averaged model on two IID
+    batches of 32 (steps 10,000 and 10,001 of the same seed's class
+    means).  Rows as the reference prints them (final global loss, the
+    last local loss, comm MB).  The claim ``noniid/claim_alpha0.1``: the
+    least over p of MT − PD is ≤ 0 (``mt_le_pd`` = 1).  Synchronous MT may
+    diverge at p = 4, as the reference's own run records; a difference
+    that is not finite takes no part in the least."""
+    from repro_torch.data.synthetic import ClassStreamCfg, class_batch
+    from repro_torch.models.resnet import resnet20_loss
+    t0 = time.perf_counter()
+    ecfg = ClassStreamCfg(batch=32, n_workers=FIG1_K, seed=0)
+    evals = [class_batch(ecfg, 10_000 + i, DEVICE) for i in range(2)]
+    vloss = torch.func.vmap(lambda p, b: resnet20_loss(p, b)[0])
+
+    def eval_fn(avg):
+        with torch.no_grad():
+            return float(torch.stack([vloss(avg, b).mean()
+                                      for b in evals]).mean())
+
+    label = f"{NONIID_ALPHA:g}"
+    results = {}
+    with cudnn_deterministic(torch):
+        for p in NONIID_PS:
+            for name in ("d_sgd", "pd_sgdm", "qg_dsgdm", "mt_dsgdm"):
+                if name == "d_sgd" and p != NONIID_PS[0]:
+                    continue         # D-SGD gossips every step: p-free
+                hist, seconds = fig_run(
+                    torch, name, NONIID_STEPS, NONIID_STEPS - 1, p=p,
+                    eta=TRACK_ETA, alpha=NONIID_ALPHA, eval_fn=eval_fn)
+                results[(p, name)] = hist.eval_metric[-1]
+                tag = "" if name == "d_sgd" else f"_p{p}"
+                print(f"noniid/{name}_a{label}{tag},"
+                      f"{seconds / NONIID_STEPS * 1e6:.1f},"
+                      f"final_loss={hist.eval_metric[-1]:.4f};"
+                      f"local_loss={hist.loss[-1]:.4f};"
+                      f"comm_mb={hist.comm_mb[-1]:.2f}")
+    diffs = {p: results[(p, "mt_dsgdm")] - results[(p, "pd_sgdm")]
+             for p in NONIID_PS}
+    finite = {p: d for p, d in diffs.items() if math.isfinite(d)}
+    best_p = min(finite, key=finite.get) if finite else None
+    best = finite[best_p] if finite else math.nan
+    mt_le_pd = int(best <= 0.0)
+    print(f"noniid/claim_alpha{label},0.0,mt_minus_pd_best={best:.4f};"
+          f"best_p={best_p};mt_le_pd={mt_le_pd}")
+    verdict("noniid", [] if mt_le_pd else
+            [f"mt_le_pd = 0: MT - PD by p {diffs}"], t0)
 
 
 def dev_us(e) -> float:
@@ -1327,6 +1594,9 @@ def main(argv=None) -> int:
     for path in PATHS:
         parity_phase(torch, path)
     fig1_phase(torch)
+    fig2_phase(torch)
+    fig3_phase(torch)
+    noniid_phase(torch)
     if args.profile:
         for path in PATHS:
             profile_round(torch, path)

@@ -1,7 +1,7 @@
 """Core of the port: topologies and their time-varying schedules, the dense
 gossip backend, LR schedules, PD-SGDM (paper Algorithm 1), CPD-SGDM
-(Algorithm 2) with its compressors and wire codecs, C-SGDM and the
-momentum-free baselines."""
+(Algorithm 2) with its compressors and wire codecs, C-SGDM, the
+momentum-free baselines, and MT-DSGDm and QG-DSGDm for non-IID data."""
 from repro_torch.core import schedules, topology
 from repro_torch.core.baselines import (CSGDM, choco_sgd, d_sgd,
                                         make_optimizer, pd_sgd)
@@ -18,6 +18,8 @@ from repro_torch.core.topology import (Topology, TopologySchedule, complete,
                                        disconnected, exponential,
                                        make_schedule, make_topology, ring,
                                        torus)
+from repro_torch.core.tracking import (MTDSGDMConfig, MTDSGDm, QGDSGDMConfig,
+                                       QGDSGDm)
 from repro_torch.core.wire import (IdentityCodec, QSGDCodec, RandKCodec,
                                    SignCodec, SparseRowsCodec, TopKCodec,
                                    WireCodec, WireKey, make_codec, wire_key)
@@ -28,6 +30,7 @@ __all__ = [
     "exponential", "disconnected", "make_topology", "make_schedule",
     "CommBackend", "DenseComm", "gossip_bytes_per_round",
     "PDSGDM", "PDSGDMConfig", "CPDSGDM", "CPDSGDMConfig",
+    "MTDSGDm", "MTDSGDMConfig", "QGDSGDm", "QGDSGDMConfig",
     "make_optimizer", "CSGDM", "d_sgd", "pd_sgd", "choco_sgd",
     "Compressor", "IdentityCompressor", "SignCompressor", "TopKCompressor",
     "RandKCompressor", "QSGDCompressor", "SparseRowsCompressor",

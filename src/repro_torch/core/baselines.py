@@ -12,8 +12,8 @@
   momentum, built on CPD-SGDM's comm round, so it ships the real codec
   payload.
 
-MT-/QG-DSGDm (ROADMAP queue A item 8) are not ported yet;
-:func:`make_optimizer` raises for their names, naming the item.
+:func:`make_optimizer` also builds MT-DSGDm and QG-DSGDm
+(:mod:`repro_torch.core.tracking`) under the reference's names.
 """
 from __future__ import annotations
 
@@ -24,13 +24,10 @@ from repro_torch.core.cpdsgdm import CPDSGDM, CPDSGDMConfig
 from repro_torch.core.gossip import CommBackend, DenseComm
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.topology import complete
+from repro_torch.core.tracking import (MTDSGDMConfig, MTDSGDm, QGDSGDMConfig,
+                                       QGDSGDm)
 
 __all__ = ["CSGDM", "d_sgd", "pd_sgd", "choco_sgd", "make_optimizer"]
-
-_NOT_YET = {
-    ("mt_dsgdm", "mtdsgdm", "mt", "qg_dsgdm", "qgdsgdm", "qg"):
-        "MT-DSGDm and QG-DSGDm are ROADMAP queue A item 8",
-}
 
 
 class CSGDM(PDSGDM):
@@ -98,6 +95,20 @@ def make_optimizer(name: str, comm: CommBackend, *, eta: float = 0.1,
                                    lr_schedule=lr_schedule,
                                    use_kernel=use_kernel,
                                    overlap=overlap), comm)
+    if name in ("mt_dsgdm", "mtdsgdm", "mt"):
+        return MTDSGDm(MTDSGDMConfig(eta=eta, mu=mu, p=p,
+                                     weight_decay=weight_decay,
+                                     lr_schedule=lr_schedule,
+                                     use_kernel=use_kernel,
+                                     overlap=overlap),
+                       comm, compressor)
+    if name in ("qg_dsgdm", "qgdsgdm", "qg"):
+        return QGDSGDm(QGDSGDMConfig(eta=eta, mu=mu, p=p,
+                                     weight_decay=weight_decay,
+                                     lr_schedule=lr_schedule,
+                                     use_kernel=use_kernel,
+                                     overlap=overlap),
+                       comm)
     if name in ("cpd_sgdm", "cpdsgdm"):
         return CPDSGDM(CPDSGDMConfig(eta=eta, mu=mu, p=p, gamma=gamma,
                                      weight_decay=weight_decay,
@@ -125,7 +136,4 @@ def make_optimizer(name: str, comm: CommBackend, *, eta: float = 0.1,
         return pd_sgd(eta, p, comm, weight_decay)
     if name in ("choco_sgd", "chocosgd", "choco"):
         return choco_sgd(eta, gamma, comm, compressor, weight_decay)
-    for names, why in _NOT_YET.items():
-        if name in names:
-            raise NotImplementedError(f"{name}: not ported yet — {why}")
     raise ValueError(f"unknown optimizer {name!r}")

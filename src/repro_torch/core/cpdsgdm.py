@@ -46,10 +46,10 @@ import torch
 from repro_torch.core.compression import Compressor, SignCompressor
 from repro_torch.core.gossip import CommBackend, gossip_bytes_per_round
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
-from repro_torch.core.wire import make_codec, wire_key
+from repro_torch.core.wire import leaf_keys, make_codec, round_trip_tree
 from repro_torch.kernels import LANE
 from repro_torch.kernels import ops as kops
-from repro_torch.tree import leaf_order, tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["CPDSGDMConfig", "CPDSGDM"]
 
@@ -95,28 +95,11 @@ class CPDSGDM(PDSGDM):
         """Per-leaf codec wire: codecs without a (matching) kernel format."""
         return self.config.packed_wire and self.codec is not None
 
-    _wire_key = staticmethod(wire_key)
-
-    def _leaf_keys(self, tree, r) -> dict:
-        """Per leaf, what a keyed codec's pack/unpack take: the indices of
-        the shared (leaf, round) key, derived once, outside ``vmap``, for
-        every worker alike.  None for the other codecs, which read no key (building one
-        would read the round off the device)."""
-        codec = self.codec
-        if codec is None or not codec.keyed:
-            return {name: None for name in tree}
-        keys = {}
-        for i, name in enumerate(leaf_order(tree)):
-            leaf = tree[name]
-            n = int(np.prod(tuple(leaf.shape[1:]), dtype=np.int64))
-            keys[name] = codec.derive_idx(self._wire_key(r, i), n,
-                                          leaf.device)
-        return keys
-
     def _apply_Q(self, tree, r):
         """Q leaf-wise and per worker (the ``packed_wire=False`` path)."""
         comp = self.compressor
-        keys = self._leaf_keys(tree, r)
+        keys = (leaf_keys(self.codec, tree, r) if self.codec is not None
+                else {name: None for name in tree})
         return {name: torch.func.vmap(
                     lambda x, key=keys[name]: comp.apply(x, key))(leaf)
                 for name, leaf in tree.items()}
@@ -161,19 +144,8 @@ class CPDSGDM(PDSGDM):
     def _comm_payload_wire(self, new_state, xhat, diff, r):
         """Lines 7-9 with per-leaf codec payloads, packed and unpacked per
         stacked worker (the dense backend simulates the exchange)."""
-        codec = self.codec
-        keys = self._leaf_keys(diff, r)
-
-        def round_trip(leaf, key):
-            shape = tuple(leaf.shape[1:])
-            n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-            payload = torch.func.vmap(lambda x: codec.pack(x, key))(leaf)
-            return torch.func.vmap(
-                lambda p: codec.unpack(p, n, shape, torch.float32,
-                                       key=key))(payload)
-
-        new_state["xhat"] = {name: h + round_trip(diff[name], keys[name])
-                             for name, h in xhat.items()}
+        q = round_trip_tree(self.codec, diff, r)
+        new_state["xhat"] = {name: h + q[name] for name, h in xhat.items()}
 
     # -- kernel round (flatten-once matrix domain) ------------------------------
     @property

@@ -1,0 +1,301 @@
+"""MT-DSGDm and QG-DSGDm: momentum variants for non-IID workloads.
+
+Port of ``src/repro/core/tracking.py:84-654`` on the dense simulation
+backend.  Both keep PD-SGDM's periodic structure (p local steps, one
+gossip) and its fused round, on the tree and on the flatten-once kernel
+layout.
+
+* **MT-DSGDm** (Momentum Tracking, periodic form).  Each worker carries a
+  tracking correction ``c`` and feeds it, not its raw gradient, into the
+  momentum recursion; a round gossips ``(x, c)``::
+
+      ĝ = ∇F(x; ξ) + λx;   c ← c + ĝ − ĝ_prev;   m ← μm + c;   x ← x − ηm
+      at a round:  x ← Σⱼ w_kj xⱼ;   c ← Σⱼ w_kj Q(cⱼ)
+
+  With ``c₀ = ĝ₋₁ = 0``, mean_k c = mean_k ĝ after every step and every
+  (doubly stochastic) mix.  ``Q`` is an optional wire codec for the
+  correction (compressed tracking); every worker mixes the quantized
+  corrections, its own included.  On the kernel layout a local step is
+  three launches: ``gossip_mix`` for ĝ = 1·g + λ·x (skipped at λ = 0),
+  ``gossip_mix`` for c + ĝ − ĝ_prev, and one ``momentum_update`` at
+  weight decay 0 on c; a round gossips x and c (or packs c with the
+  codec's rows kernels, unpacks it and gossips the decoded matrix).
+* **QG-DSGDm** (quasi-global momentum, periodic form).  The buffer is
+  frozen within a round and moves once per gossip, from the mixed round
+  displacement::
+
+      x ← x − η(ĝ + μm)                                (m frozen)
+      at a round:  x ← Σⱼ w_kj xⱼ;   m ← μm + (1−μ)(x_prev − x)/(ηp);
+                   x_prev ← x
+
+  The kernel round runs the momentum kernel, whose x update is exactly
+  x − η(μm + ĝ), and discards its m; the buffer update is plain elementwise
+  torch, as the reference leaves it to XLA.  One tensor on the wire.
+
+Not ported, and refused at construction: overlapped rounds and MT's
+drip refresh (ROADMAP queue A item 9, refused by
+:class:`~repro_torch.core.pdsgdm.PDSGDM`), the sharded backend with its
+per-neighbour correction payloads (item 12, refused there too), elastic
+membership with its masked correction wire (item 7, refused by
+:class:`~repro_torch.core.gossip.DenseComm`) and hierarchical gossip's
+per-level bytes (item 10, :meth:`MTDSGDm.hier_bytes_per_level`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.compression import Compressor
+from repro_torch.core.gossip import CommBackend, gossip_bytes_per_round
+from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
+from repro_torch.core.wire import make_codec, round_trip_tree
+from repro_torch.kernels import LANE
+from repro_torch.kernels import ops as kops
+from repro_torch.tree import tree_leaves, tree_map
+
+__all__ = ["MTDSGDMConfig", "MTDSGDm", "QGDSGDMConfig", "QGDSGDm"]
+
+
+def _zeros_f32(tree):
+    return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class MTDSGDMConfig(PDSGDMConfig):
+    """MT-DSGDm shares PD-SGDM's knobs; the tracking wire is shaped by the
+    compressor handed to the optimizer (None = full-precision c)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class QGDSGDMConfig(PDSGDMConfig):
+    """QG-DSGDm shares PD-SGDM's knobs (``nesterov`` is rejected: the
+    buffer is not a gradient accumulator, there is nothing to look ahead
+    along)."""
+
+
+class MTDSGDm(PDSGDM):
+    """Momentum Tracking, periodic form.  Gossips ``(x, c)`` pairs."""
+
+    def __init__(self, config: MTDSGDMConfig, comm: CommBackend,
+                 compressor: Optional[Compressor] = None):
+        codec = make_codec(compressor) if compressor is not None else None
+        if codec is not None and config.overlap:
+            raise ValueError(
+                "MT-DSGDm compressed tracking does not compose with "
+                "overlap=True: the in-flight correction payload would need "
+                "a second codec wire per round")
+        super().__init__(config, comm)
+        self.compressor = compressor
+        self.codec = codec
+
+    # -- state ---------------------------------------------------------------
+    def init(self, params) -> dict:
+        state = super().init(params)
+        # c₀ = ĝ₋₁ = 0: the first local step sets c = ĝ₀
+        state["c"] = _zeros_f32(params)
+        state["g_prev"] = _zeros_f32(params)
+        return state
+
+    # -- local step (tracking + momentum) -------------------------------------
+    def local_step(self, state, params, grads):
+        """ĝ = g + λx, c ← c + ĝ − ĝ_prev, then the momentum step on c,
+        each op rounded as the kernel round rounds it."""
+        cfg = self.config
+        lr = cfg.lr(state["step"])
+        g32 = tree_map(lambda g, x: g.to(torch.float32)
+                       + cfg.weight_decay * x.to(torch.float32),
+                       grads, params)
+        c_new = tree_map(lambda c, g, gp: c + g - gp,
+                         state["c"], g32, state["g_prev"])
+
+        def upd(x, m, c):
+            x32 = x.to(torch.float32)
+            m_new = cfg.mu * m + c
+            d = (c + cfg.mu * m_new) if cfg.nesterov else m_new
+            return (x32 - lr * d).to(x.dtype), m_new
+
+        pairs = tree_map(upd, params, state["m"], c_new)
+        new_state = dict(state)
+        new_state["m"] = {k: m for k, (_, m) in pairs.items()}
+        new_state["c"] = c_new
+        new_state["g_prev"] = g32
+        new_state["step"] = state["step"] + 1
+        return {k: x for k, (x, _) in pairs.items()}, new_state
+
+    # -- communication: gossip (x, c) ------------------------------------------
+    def comm_round(self, state, params):
+        r = self.round_index(state)
+        c = state["c"]
+        if self.codec is not None:
+            # Q(c) per leaf and worker, with the shared (leaf, round) keys
+            c = round_trip_tree(self.codec, c, r)
+        new_state = dict(state)
+        new_state["c"] = self.comm.mix(c, r=r)
+        return self.comm.mix(params, r=r), new_state
+
+    # -- kernel round (flatten-once matrix domain) ------------------------------
+    def _kernel_wire(self) -> bool:
+        return (self.codec is not None and self.codec.rows_supported
+                and self.codec.block == LANE)
+
+    @property
+    def kernel_comm_supported(self) -> bool:
+        """Full-precision c mixes like x; compressed tracking needs the
+        codec's rows format at the lane block (a rand-k or sign-64 wire
+        falls back to the tree comm at the round boundary)."""
+        return self.codec is None or self._kernel_wire()
+
+    def mat_state(self, plan, state) -> dict:
+        mats = super().mat_state(plan, state)
+        mats["c"] = plan.flatten(state["c"])
+        mats["g_prev"] = plan.flatten(state["g_prev"])
+        return mats
+
+    def unmat_state(self, plan, mats, state, step) -> dict:
+        new_state = super().unmat_state(plan, mats, state, step)
+        new_state["c"] = plan.unflatten(mats["c"], dtype=torch.float32)
+        new_state["g_prev"] = plan.unflatten(mats["g_prev"],
+                                             dtype=torch.float32)
+        return new_state
+
+    def local_step_mat(self, x_mat, mats, g_mat, step):
+        """The tracking update as two fused AXPYs, then the momentum
+        kernel on c."""
+        cfg = self.config
+        g32 = (kops.gossip_mix_mat((g_mat, x_mat), (1.0, cfg.weight_decay))
+               if cfg.weight_decay else g_mat)
+        c_new = kops.gossip_mix_mat((mats["c"], g32, mats["g_prev"]),
+                                    (1.0, 1.0, -1.0))
+        x_new, m_new = kops.momentum_update_mat(
+            x_mat, mats["m"], c_new, mu=cfg.mu, lr=cfg.lr(step),
+            weight_decay=0.0, nesterov=cfg.nesterov)
+        return x_new, {**mats, "m": m_new, "c": c_new, "g_prev": g32}
+
+    def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
+        """Dual gossip on the kernel layout: x and c mix matrix to matrix;
+        compressed tracking packs c with the codec's rows kernels, unpacks
+        it and mixes the decoded matrix (the self term quantized too)."""
+        x_new = self._gossip_mat(x_mat, r, plan=plan)
+        if self.codec is None:
+            c_new = self._gossip_mat(mats["c"], r, plan=plan)
+        else:
+            payload = self.codec.rows_pack(mats["c"], counts=counts,
+                                           plan=plan)
+            c_new = self._gossip_mat(self.codec.rows_unpack(payload,
+                                                            plan=plan), r)
+        return x_new, {**mats, "c": c_new}
+
+    # -- comm-cost model --------------------------------------------------------
+    def bytes_per_comm_round(self, params, r: int = 0) -> int:
+        """The 2-tensor payload: full-precision x plus the correction wire
+        (the codec's exact bytes when compressed, else f32 on the same
+        wire as x), both × round ``r``'s degree."""
+        top = self.comm.topology_at(r)
+        if top.name == "hierarchical":
+            return self.hier_bytes_per_level(params, r=r)["inter"]
+        kernel_wire = self._kernel_wire_active()
+        x_bytes = (top.degree * self._mat_wire_bytes(params) if kernel_wire
+                   else gossip_bytes_per_round(params, self.comm, r=r))
+        sizes = [int(np.prod(tuple(l.shape), dtype=np.int64))
+                 for l in tree_leaves(params)]
+        if self.codec is not None:
+            c_payload = sum(self.codec.wire_bytes(n) for n in sizes)
+        elif kernel_wire:
+            c_payload = self._mat_wire_bytes(params)
+        else:
+            c_payload = sum(sizes) * min(4, self.comm.wire_itemsize)
+        return x_bytes + top.degree * c_payload
+
+    def hier_bytes_per_level(self, params, r: int = 0) -> dict:
+        raise NotImplementedError(
+            "hierarchical gossip and its per-level bytes are ROADMAP queue "
+            "A item 10")
+
+
+class QGDSGDm(PDSGDM):
+    """Quasi-global momentum, periodic form.  Gossips x only."""
+
+    def __init__(self, config: QGDSGDMConfig, comm: CommBackend):
+        if config.nesterov:
+            raise ValueError(
+                "QG-DSGDm has no nesterov variant: the quasi-global buffer "
+                "is a displacement average, not a gradient accumulator")
+        super().__init__(config, comm)
+        # 1 − μ rounded in f32, as the reference computes it
+        self._one_minus_mu = float(np.float32(1.0) - np.float32(config.mu))
+
+    # -- state ---------------------------------------------------------------
+    def init(self, params) -> dict:
+        state = super().init(params)
+        # the previous round's post-gossip params (f32 master copy)
+        state["xprev"] = tree_map(
+            lambda x: x.detach().to(torch.float32, copy=True), params)
+        return state
+
+    # -- local step: momentum-corrected gradient, frozen buffer ----------------
+    def local_step(self, state, params, grads):
+        """x − η(μm + ĝ), rounded as the momentum kernel's x update; m does
+        not move."""
+        cfg = self.config
+        lr = cfg.lr(state["step"])
+
+        def upd(x, m, g):
+            x32 = x.to(torch.float32)
+            d = cfg.mu * m + (g.to(torch.float32) + cfg.weight_decay * x32)
+            return (x32 - lr * d).to(x.dtype)
+
+        new_state = dict(state)
+        new_state["step"] = state["step"] + 1
+        return tree_map(upd, params, state["m"], grads), new_state
+
+    def _round_inv(self, r) -> torch.Tensor:
+        """1/(η p), with η at the round's last local step (t = (r+1)·p − 1):
+        the normalizer of the displacement → direction conversion."""
+        cfg = self.config
+        return 1.0 / (cfg.lr((r + 1) * cfg.p - 1) * cfg.p)
+
+    def _fold(self, m, xprev, x_mixed, inv):
+        """μm + (1−μ)(x_prev − x_mixed)/(ηp)."""
+        d_hat = (xprev - x_mixed.to(torch.float32)) * inv
+        return self.config.mu * m + self._one_minus_mu * d_hat
+
+    # -- communication: mix, then fold the global displacement into m ----------
+    def comm_round(self, state, params):
+        r = self.round_index(state)
+        mixed = self.comm.mix(params, r=r)
+        inv = self._round_inv(r)
+        new_state = dict(state)
+        new_state["m"] = tree_map(lambda m, xp, xm: self._fold(m, xp, xm, inv),
+                                  state["m"], state["xprev"], mixed)
+        new_state["xprev"] = tree_map(lambda x: x.to(torch.float32), mixed)
+        return mixed, new_state
+
+    # -- kernel round ----------------------------------------------------------
+    def mat_state(self, plan, state) -> dict:
+        mats = super().mat_state(plan, state)
+        mats["xprev"] = plan.flatten(state["xprev"])
+        return mats
+
+    def unmat_state(self, plan, mats, state, step) -> dict:
+        new_state = super().unmat_state(plan, mats, state, step)
+        new_state["xprev"] = plan.unflatten(mats["xprev"],
+                                            dtype=torch.float32)
+        return new_state
+
+    def local_step_mat(self, x_mat, mats, g_mat, step):
+        """One momentum launch; its m is discarded (the buffer moves only
+        at a gossip)."""
+        cfg = self.config
+        x_new, _ = kops.momentum_update_mat(
+            x_mat, mats["m"], g_mat, mu=cfg.mu, lr=cfg.lr(step),
+            weight_decay=cfg.weight_decay, nesterov=False)
+        return x_new, mats
+
+    def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
+        x_new = self._gossip_mat(x_mat, r, plan=plan)
+        m_new = self._fold(mats["m"], mats["xprev"], x_new,
+                           self._round_inv(r))
+        return x_new, {**mats, "m": m_new, "xprev": x_new}

@@ -61,13 +61,14 @@ from repro_torch.kernels.ref import (_pack_fields, qsgd_bits, qsgd_rows_ref,
 # the inverse scatter of topk_rows → (R, block) f32: (0, 0.0) placeholder
 # slots add nothing
 from repro_torch.kernels.ref import topk_rows_unpack_ref as topk_rows_unpack
+from repro_torch.tree import leaf_order
 
 __all__ = [
     "WireCodec", "IdentityCodec", "SignCodec", "TopKCodec", "RandKCodec",
     "QSGDCodec", "SparseRowsCodec", "WireKey", "make_codec", "wire_key",
     "topk_rows", "topk_rows_unpack", "qsgd_rows", "qsgd_rows_unpack",
     "qsgd_bits", "sign_rows", "sign_rows_unpack", "sparse_row_select",
-    "topk_width", "payload_nbytes",
+    "topk_width", "payload_nbytes", "leaf_keys", "round_trip_tree",
 ]
 
 Payload = Dict[str, torch.Tensor]
@@ -583,6 +584,39 @@ def make_codec(comp: Compressor) -> WireCodec:
     if isinstance(comp, IdentityCompressor):
         return IdentityCodec()
     raise TypeError(f"no wire codec for compressor {comp!r}")
+
+
+def leaf_keys(codec: WireCodec, tree: dict, r) -> dict:
+    """Per leaf of a worker-stacked ``tree``, what a keyed codec's pack and
+    unpack take: the indices of the shared (leaf, round) key, derived once,
+    outside ``vmap``, for every worker alike.  None for the other codecs,
+    which read no key (building one would read the round off the
+    device)."""
+    if not codec.keyed:
+        return {name: None for name in tree}
+    keys = {}
+    for i, name in enumerate(leaf_order(tree)):
+        leaf = tree[name]
+        n = int(np.prod(tuple(leaf.shape[1:]), dtype=np.int64))
+        keys[name] = codec.derive_idx(wire_key(r, i), n, leaf.device)
+    return keys
+
+
+def round_trip_tree(codec: WireCodec, tree: dict, r) -> dict:
+    """``unpack(pack(x))`` of every leaf of a worker-stacked ``tree``, per
+    worker (``torch.func.vmap``), with round ``r``'s shared keys: what each
+    worker decodes from the per-leaf payload of round ``r``."""
+    keys = leaf_keys(codec, tree, r)
+
+    def one(leaf, key):
+        shape = tuple(leaf.shape[1:])
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        payload = torch.func.vmap(lambda x: codec.pack(x, key))(leaf)
+        return torch.func.vmap(
+            lambda p: codec.unpack(p, n, shape, torch.float32,
+                                   key=key))(payload)
+
+    return {name: one(leaf, keys[name]) for name, leaf in tree.items()}
 
 
 def payload_nbytes(payload: Payload) -> int:

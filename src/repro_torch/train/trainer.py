@@ -1,6 +1,9 @@
 """Round-based training loop of the dense K-worker simulation.
 
-Port of ``History`` and ``SimTrainer`` (``src/repro/train/trainer.py:45-216``).
+Port of ``History`` and ``SimTrainer`` (``src/repro/train/trainer.py:45-216``),
+with the eval hook: ``train(..., eval_fn=...)`` hands the worker average,
+re-stacked over the K workers, to ``eval_fn`` once per block that holds a
+log point, and records its value beside each of those log points.
 ``SimTrainer`` runs whole rounds (p local momentum steps + exactly one
 gossip round, ``opt.round``) in blocks of ``rounds_per_log`` rounds, by
 default enough to reach the next log point and at most
@@ -33,6 +36,15 @@ class History:
     steps: List[int] = dataclasses.field(default_factory=list)
     loss: List[float] = dataclasses.field(default_factory=list)
     comm_mb: List[float] = dataclasses.field(default_factory=list)
+    eval_metric: List[float] = dataclasses.field(default_factory=list)
+
+    def rows(self):
+        """One dict per log point: step, loss, comm-MB and the eval value
+        (None without an ``eval_fn``)."""
+        for i, s in enumerate(self.steps):
+            yield {"step": s, "loss": self.loss[i],
+                   "comm_mb": self.comm_mb[i],
+                   "eval": self.eval_metric[i] if self.eval_metric else None}
 
 
 def _stack_batches(batches: list) -> dict:
@@ -90,12 +102,15 @@ class SimTrainer:
         return self.opt.bytes_per_round_cycle(tree_map(lambda x: x[0], params))
 
     def train(self, params, batch_fn: Callable[[int], dict], steps: int,
-              log_every: int = 10,
+              log_every: int = 10, eval_fn: Optional[Callable] = None,
               rounds_per_log: Optional[int] = None) -> tuple:
         """Run ``steps`` local steps from worker-stacked ``params``;
         ``batch_fn(t)`` gives step t's worker-stacked batch.
         ``rounds_per_log`` (here or at construction) sets the rounds
-        between two host syncs.  Returns ``(params, state, History)``."""
+        between two host syncs.  ``eval_fn(avg_params) -> float`` gets the
+        worker average re-stacked to K workers at the end of each round (or
+        tail) that holds a log point: one value per log point, in
+        ``History.eval_metric``.  Returns ``(params, state, History)``."""
         for leaf in tree_leaves(params):
             if leaf.device.type != self.device.type:
                 raise ValueError(f"params on {leaf.device}, trainer on "
@@ -106,15 +121,31 @@ class SimTrainer:
         per_round = self.bytes_per_round_cycle(params)
         p = opt.config.p
         n_rounds, tail = divmod(steps, p)
-        # rounds per block: the caller's, else enough to reach the next
-        # log point, capped
-        block = (rounds_per_log or self.rounds_per_log
-                 or min(_MAX_BLOCK_ROUNDS, max(1, -(-log_every // p))))
+        explicit = rounds_per_log or self.rounds_per_log
+        if eval_fn is not None:
+            # params exist only at block boundaries: a larger block would
+            # pair a log step with an eval taken a whole block later
+            if explicit not in (None, 1):
+                raise ValueError(
+                    "eval_fn needs rounds_per_log=1: params only exist at "
+                    "block boundaries, so a larger block would mis-pair "
+                    "eval values with log steps")
+            block = 1
+        else:
+            # the caller's, else enough to reach the next log point, capped
+            block = explicit or min(_MAX_BLOCK_ROUNDS,
+                                    max(1, -(-log_every // p)))
 
-        def flush(losses, t0):
+        def flush(losses, t0, params):
+            logged = len(hist.steps)
             # .tolist() is the block's one host sync
             _log_chunk(hist, torch.cat(losses).tolist(), t0, steps=steps,
                        log_every=log_every, p=p, per_round_bytes=per_round)
+            new = len(hist.steps) - logged
+            if eval_fn is not None and new:
+                avg = tree_map(lambda x: x.mean(0, keepdim=True).expand_as(x)
+                               .contiguous(), params)
+                hist.eval_metric.extend([float(eval_fn(avg))] * new)
 
         done = 0                                   # steps completed
         while done < n_rounds * p:
@@ -126,11 +157,11 @@ class SimTrainer:
                 params, state, lv = opt.round(state, params, self._grads_fn,
                                               batches)
                 losses.append(lv)
-            flush(losses, done)
+            flush(losses, done, params)
             done += r * p
         if tail:
             batches = _stack_batches([batch_fn(done + i) for i in range(tail)])
             params, state, lv = opt.round(state, params, self._grads_fn,
                                           batches, gossip=False)
-            flush([lv], done)
+            flush([lv], done, params)
         return params, state, hist

@@ -46,7 +46,8 @@ from repro.train.trainer import SimTrainer as RSimTrainer  # noqa: E402
 from repro_torch.convert import (params_from_reference,  # noqa: E402
                                  state_from_reference)
 from repro_torch.core import (CPDSGDM, CSGDM, DenseComm,  # noqa: E402
-                              IdentityCompressor, QSGDCompressor,
+                              IdentityCompressor, MTDSGDm, QGDSGDm,
+                              QSGDCompressor,
                               SignCompressor, TopKCompressor, make_optimizer,
                               make_schedule, make_topology, ring)
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
@@ -430,16 +431,16 @@ def test_optimizer_factory_builds_the_baselines():
     pd = make_optimizer("pd_sgd", comm, p=8)
     assert (pd.config.mu, pd.config.p) == (0.0, 8)
     assert isinstance(make_optimizer("c_sgdm", comm), CSGDM)
-    for name, item in (("mt_dsgdm", "item 8"), ("qg", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_optimizer(name, comm)
+    # MT-DSGDm and QG-DSGDm: ported (tests/test_torch_tracking.py)
+    assert isinstance(make_optimizer("mt_dsgdm", comm), MTDSGDm)
+    assert isinstance(make_optimizer("qg", comm), QGDSGDm)
     with pytest.raises(NotImplementedError, match="item 10"):
         make_topology("hierarchical", (2, 4))
     with pytest.raises(NotImplementedError, match="item 10"):
         make_schedule("hier_one_peer", (2, 4))
     with pytest.raises(NotImplementedError, match="item 7"):
         DenseComm(ring(K), membership=object(), device="cpu")
-    for name in ("cpd_sgdm", "pd_sgd"):
+    for name in ("cpd_sgdm", "pd_sgd", "mt_dsgdm", "qg"):
         with pytest.raises(NotImplementedError, match="item 9"):
             make_optimizer(name, comm, overlap=True)
     for name in ("d_sgd", "choco"):

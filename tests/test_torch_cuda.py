@@ -498,3 +498,53 @@ def test_cpd_kernel_round_on_card_matches_per_leaf_round(kind):
         gap = (hk[name] - ht[name]).abs()
         assert int((~near).sum()) <= 8, name
         assert bool((gap[~near] <= 2 * drift).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mt_dsgdm", "qg_dsgdm"])
+def test_tracking_kernel_round_on_card_matches_cpu_round(name):
+    """One MT-DSGDm and one QG-DSGDm kernel round on the card (p = 4, K = 4
+    ring, weight decay 1e-4) over a multi-leaf tree whose leaves end
+    mid-row, against the plain round on the CPU from the same inputs:
+    params, m and the tracking state within atol 2e-5 (the tracking tests'
+    bar).  MT launches 2 mixes and 1 momentum update a step and 2 mixes a
+    round (x and c); QG 1 momentum update a step and 1 mix a round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import DenseComm, make_optimizer, ring
+    k, p = 4, 4
+    rng = np.random.default_rng(0)
+    leaves = {"w1": rng.standard_normal((k, 33, 65), dtype=np.float32),
+              "w2": rng.standard_normal((k, 7), dtype=np.float32),
+              "w3": rng.standard_normal((k, 2, 5, 11), dtype=np.float32)}
+    targets = rng.standard_normal((p, k), dtype=np.float32)
+
+    def grads_fn(pp, batch):
+        def g(x):
+            return x - batch["t"].reshape((k,) + (1,) * (x.dim() - 1))
+        return torch.zeros((), device=batch["t"].device), \
+            {n: g(x) for n, x in pp.items()}
+
+    out, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        opt = make_optimizer(name, DenseComm(ring(k), device=dev), eta=0.05,
+                             mu=0.9, p=p, weight_decay=1e-4,
+                             use_kernel=dev == "cuda")
+        params = {n: torch.from_numpy(v).to(dev) for n, v in leaves.items()}
+        before = (momentum_update.launches, gossip_mix.launches)
+        got, state, _ = opt.round(opt.init(params), params, grads_fn,
+                                  {"t": torch.from_numpy(targets).to(dev)})
+        torch.cuda.synchronize()
+        launches[dev] = (momentum_update.launches - before[0],
+                         gossip_mix.launches - before[1])
+        out[dev] = {"x": got, **{key: state[key] for key in
+                                 ("m", "c", "g_prev", "xprev")
+                                 if key in state}}
+    mixes = 2 * p + 2 if name == "mt_dsgdm" else 1
+    assert launches == {"cuda": (p, mixes), "cpu": (0, 0)}
+    assert out["cuda"].keys() == out["cpu"].keys()
+    for key, tree in out["cpu"].items():
+        for n, want in tree.items():
+            np.testing.assert_allclose(out["cuda"][key][n].cpu().numpy(),
+                                       want.numpy(), atol=2e-5,
+                                       err_msg=f"{key}/{n}")
