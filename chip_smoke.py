@@ -30,16 +30,22 @@ matmuls:
    timing window's floor, and the gather's times by three methods
    (per-launch windows, back to back on cold rows, and with ``--profile``
    in the round) beside ``index_select`` and a contiguous copy of the same
-   bytes; the gossip mix also at 9 and 17 inputs (chained launches), with
-   its time at 9 over the exponential path's 16 × 512 rows, and at MT's
-   two tracking shapes (n = 2 with weights (1, λ), beside ``torch.add``,
-   and n = 3 with (1, 1, −1));
+   bytes; the gossip mix in both its designs: on the shifted views of
+   the ring (8, 512, 1024) and exponential(16) (16, 512, 1024) cut at
+   ResNet-20's 310 used rows, a 2 × 4 torus (one launch per axis) and a
+   ragged ring, through ``PDSGDM._gossip_mat`` too, and on 1 … 9, 17 and
+   33 distinct matrices (33 chains two launches) and MT's two tracking
+   shapes (n = 2 with weights (1, λ), n = 3 with (1, 1, −1)); its times:
+   the ring's and exp16's gossip steps beside ``W @ x`` (the uncut mix,
+   same bytes and operations) and the plain version, n = 2 beside
+   ``torch.add``, and n = 3;
 2. drives eleven paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
    ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
    ``TopKCompressor(fraction=0.1)`` (γ = 0.2), C-SGDM (p = 1), PD-SGDM on
-   ``exponential(16)`` (K = 16, 9 shifted views a round) and on the
+   ``exponential(16)`` (K = 16, 9 shifted views a round, one launch) and
+   on the
    one-peer exponential schedule (period 3), MT-DSGDm with full-precision
    and with sign-compressed tracking and QG-DSGDm (η = 0.05, the step of
    ``benchmarks/noniid_sweep.py``), all through ``make_optimizer`` →
@@ -55,7 +61,9 @@ matmuls:
    the same init on the same batches, for each of the eleven: for PD-SGDM,
    C-SGDM, MT-DSGDm and QG-DSGDm the tree round, for every CPD-SGDM wire
    the round through the per-leaf codec, which launches no codec kernel;
-   the params, m and the tracking state;
+   the params, m and the tracking state; and profiles one kernel round of
+   PD on the ring and on ``exp16``, MT and QG: their gossip dispatches no
+   ``aten::roll`` and no ``aten::constant_pad_nd``;
 4. runs Fig. 1, Fig. 2, Fig. 3 and the non-IID sweep's α = 0.1 claim at
    the reference's settings (ResNet-20 width 4, K = 8 ring, batch 16, the
    kernel layout, cuDNN deterministic): ``fig1_phase`` (C-SGDM and PD at
@@ -107,6 +115,7 @@ TOPK_FRACTION, TOPK_GAMMA = 0.1, 0.2    # Fig. 3's cpd_sgdm_p4_top10pct
 EMB_K, EMB_ROWS, EMB_DIM, EMB_BATCH, EMB_MAX_ROWS = 4, 65536, 64, 64, 64
 EMB_HYPER = dict(eta=0.05, mu=0.9, p=P, gamma=0.4, weight_decay=0.0)
 EXP_K = 16                  # exponential(16): 9 shifts on one axis
+TORUS = (2, 4)              # a torus of K = 8: two axes, one launch each
 ONE_PEER = "one_peer_exp"   # period 3 at K = 8
 # MT-DSGDm and QG-DSGDm run at benchmarks/noniid_sweep.py's step: at 0.1
 # MT's tracked direction diverges at p = 4
@@ -188,17 +197,15 @@ def max_ulp(torch, a, b) -> int:
 
 
 def kernel_phase(torch, ops, bw, f32_peak):
-    """Each kernel against its plain version, bit for bit, and its times."""
-    from repro_torch.core import exponential, ring
-    from repro_torch.kernels.gossip_mix import gossip_mix, launch_count
+    """Each kernel against its plain version, bit for bit, and its times:
+    the momentum update here, the gossip mix in :func:`gossip_kernel_phase`."""
     from repro_torch.kernels.momentum import momentum_update
-    from repro_torch.kernels.ref import gossip_mix_ref, momentum_update_ref
+    from repro_torch.kernels.ref import momentum_update_ref
     LANE = ops.LANE
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1234)
     mu, wd = HYPER["mu"], HYPER["weight_decay"]
     lr = torch.full((), HYPER["eta"], dtype=torch.float32, device=dev)
-    ring_w = tuple(w for (_ax, _sh, w) in ring(K).shifts)
     main_rows = K * 512                  # (K, rows, 1024) folded onto rows
     results = {}
     for rows in (main_rows, 333):
@@ -218,77 +225,6 @@ def kernel_phase(torch, ops, bw, f32_peak):
                                      f"version at rows={rows}")
             r = results.setdefault("momentum_update", [0.0, 0])
             r[0], r[1] = max(r[0], err), max(r[1], ulp)
-        y = gossip_mix([x, m, g], weights=ring_w)
-        want = gossip_mix_ref([x, m, g], ring_w)
-        torch.cuda.synchronize()
-        err, ulp = float((y - want).abs().max()), max_ulp(torch, y, want)
-        print(f"kernel gossip_mix rows={rows} n=3: max_abs_err={err} "
-              f"max_ulp={ulp}")
-        if not torch.equal(y, want):
-            raise AssertionError(f"gossip_mix differs from its plain version "
-                                 f"at rows={rows}")
-        r = results.setdefault("gossip_mix", [0.0, 0])
-        r[0], r[1] = max(r[0], err), max(r[1], ulp)
-    # every other input count the kernel is instantiated for (the ring and
-    # the torus axes use 3 and 2; 1 and up to 8 are legal)
-    xs = [torch.randn((333, LANE), generator=gen, device=dev)
-          for _ in range(8)]
-    for n in (1, 2, 4, 5, 6, 7, 8):
-        ws = tuple(0.1 + 0.05 * j for j in range(n))
-        if not torch.equal(gossip_mix(xs[:n], weights=ws),
-                           gossip_mix_ref(xs[:n], ws)):
-            raise AssertionError(f"gossip_mix differs at n={n}")
-    print("kernel gossip_mix rows=333 n=1,2,4..8: bit-exact")
-    # MT's tracking AXPYs: ĝ = 1·g + λ·x and c + ĝ − ĝ_prev
-    track_w = ((1.0, wd), (1.0, 1.0, -1.0))
-    for rows in (main_rows, 333):
-        for ws in track_w:
-            ins = [torch.randn((rows, LANE), generator=gen, device=dev)
-                   for _ in ws]
-            y, want = gossip_mix(ins, weights=ws), gossip_mix_ref(ins, ws)
-            torch.cuda.synchronize()
-            err, ulp = float((y - want).abs().max()), max_ulp(torch, y, want)
-            if not torch.equal(y, want):
-                raise AssertionError(f"gossip_mix differs from its plain "
-                                     f"version at weights {ws}, rows={rows}")
-            r = results["gossip_mix"]
-            r[0], r[1] = max(r[0], err), max(r[1], ulp)
-    print(f"kernel gossip_mix rows={main_rows},333 weights {track_w}: "
-          f"bit-exact")
-    # past 8 inputs the wrapper chains launches: exponential(16) mixes 9
-    # views a round over K = 16 workers' 512 rows
-    exp_w = tuple(w for (_ax, _sh, w) in exponential(EXP_K).shifts)
-    xs = [torch.randn((EXP_K * 512, LANE), generator=gen, device=dev)
-          for _ in range(17)]
-    for n, ws in ((9, exp_w), (17, tuple(0.01 + 0.005 * j
-                                         for j in range(17)))):
-        for rows in (EXP_K * 512, 333):
-            before = gossip_mix.launches
-            y = gossip_mix([x[:rows] for x in xs[:n]], weights=ws)
-            want = gossip_mix_ref([x[:rows] for x in xs[:n]], ws)
-            torch.cuda.synchronize()
-            if gossip_mix.launches - before != launch_count(n):
-                raise AssertionError(f"gossip_mix n={n}: "
-                                     f"{gossip_mix.launches - before} "
-                                     f"launches")
-            err, ulp = float((y - want).abs().max()), max_ulp(torch, y, want)
-            print(f"kernel gossip_mix rows={rows} n={n} ({launch_count(n)} "
-                  f"chained launches): max_abs_err={err} max_ulp={ulp}")
-            if not torch.equal(y, want):
-                raise AssertionError(f"gossip_mix differs from its plain "
-                                     f"version at n={n}, rows={rows}")
-            r = results["gossip_mix"]
-            r[0], r[1] = max(r[0], err), max(r[1], ulp)
-    n9 = xs[:9]
-    e9 = n9[0].numel()
-    # the two chained launches; bound: 9 reads and 1 write an element,
-    # 9 products and 8 sums
-    finish_timings({"gossip_mix": dict(
-        ms=time_ms(torch, lambda: gossip_mix(n9, weights=exp_w)),
-        plain_ms=time_ms(torch, lambda: gossip_mix_ref(n9, exp_w)),
-        library_ms=None, bytes=10 * 4 * e9, flops=17 * e9)},
-        results, bw, f32_peak, tuple(n9[0].shape) + ("n", 9))
-    del xs, n9
 
     # times at the main path's shape and configuration
     x, m, g = (torch.randn((main_rows, LANE), generator=gen, device=dev)
@@ -307,28 +243,207 @@ def kernel_phase(torch, ops, bw, f32_peak):
                 lr=HYPER["eta"], dampening=0.0, nesterov=False,
                 maximize=False, is_first_step=False)),
             bytes=5 * 4 * n, flops=6 * n),
-        "gossip_mix": dict(
-            ms=time_ms(torch, lambda: gossip_mix([x, m, g], weights=ring_w)),
-            plain_ms=time_ms(torch, lambda: gossip_mix_ref([x, m, g], ring_w)),
-            library_ms=None,
-            bytes=4 * 4 * n, flops=5 * n),
     }
     finish_timings(timings, results, bw, f32_peak, (main_rows, LANE))
-    # MT's two tracking launches at the same shape: n = 2 reads 2 and
-    # writes 1 an element (2 products, 1 sum), n = 3 reads 3 (3 products,
-    # 2 sums); torch.add(g, x, alpha=λ) is the same function as n = 2
+    del x, m, g, xs, ms, gs
+    timings.update(gossip_kernel_phase(torch, ops, bw, f32_peak))
+    return timings
+
+
+def turns(torch, fns: dict) -> dict:
+    """Each of ``fns`` timed by :func:`time_ms` in two turns, in order and
+    then in reverse (A B … B A); the mean of its two medians."""
+    got = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            got[name].append(time_ms(torch, fns[name]))
+    return {name: statistics.mean(v) for name, v in got.items()}
+
+
+def gossip_step_setup(torch, ops, path: str, top=None):
+    """The optimizer of ``path`` (or PD-SGDM on ``top``), the kernel plan
+    of ResNet-20 width 16 over its workers, and a random kernel matrix of
+    that plan: what ``PDSGDM._gossip_mat`` takes in the round."""
+    if top is None:
+        opt = make_opt(path, use_kernel=True)
+    else:
+        from repro_torch.core import DenseComm, make_optimizer
+        opt = make_optimizer("pd_sgdm", DenseComm(top, device=DEVICE),
+                             use_kernel=True, **HYPER)
+    params = stacked_init(torch, 3, opt.comm.topology.n_workers)
+    plan = ops.KernelPlan.for_tree(params, worker_dim=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x = plan.flatten({n: torch.randn(v.shape, generator=gen, device=DEVICE)
+                      for n, v in params.items()})
+    return opt, plan, x
+
+
+def plain_gossip(top, x, lim):
+    """The plain gossip of a shift graph on the kernel layout: per axis,
+    the wire cut, the worker-grid roll, the re-pad and the left-to-right
+    sum (``ref.gossip_shift_ref``)."""
+    from repro_torch.kernels.ref import gossip_shift_ref
+    per_axis: dict = {}
+    for (ax, sh, w) in top.shifts:
+        per_axis.setdefault(ax, []).append((sh, w))
+    for ax in sorted(per_axis):
+        shifts, ws = zip(*per_axis[ax])
+        x = gossip_shift_ref(x, shifts, ws, grid=top.axis_sizes, axis=ax,
+                             lim=lim)
+    return x
+
+
+def gossip_kernel_phase(torch, ops, bw, f32_peak) -> dict:
+    """The gossip mix against its plain version, bit for bit, and its
+    times.
+
+    Shift graphs (one launch per axis, the views read in place), in the
+    tile design the kernel picks and in the stream design forced: the ring
+    (8, 512, 1024) and a 2 × 4 torus at ResNet-20's 310 used rows,
+    exponential(16) (16, 512, 1024) with 9 views, and a ragged
+    (8, 333, 1024) ring cut at 201 rows; and ``PDSGDM._gossip_mat`` on the
+    ring, ``exp16`` and the torus with the real plan.  Distinct matrices:
+    n = 1 … 9, 17 and 33 on 333 rows (33 chains two launches), MT's
+    (1, λ) and (1, 1, −1) on (4096, 1024) and 333 rows.  Times, in the
+    same window in two turns: the ring and ``exp16`` steps in both designs
+    beside their plain version and ``W @ x``; n = 2 beside ``torch.add``;
+    n = 3."""
+    from repro_torch.core import exponential, ring, torus
+    from repro_torch.kernels.gossip_mix import (gossip_mix,
+                                                gossip_mix_shifted,
+                                                launch_count)
+    from repro_torch.kernels.ref import gossip_mix_ref, gossip_shift_ref
+    LANE = ops.LANE
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    wd = HYPER["weight_decay"]
+    results = {}
+    _, plan, _ = gossip_step_setup(torch, ops, "pd_sgdm")
+    used, rows = plan.used_rows, plan.rows
+    designs = {"tile": False, "stream": True}     # name: _force_stream
+    for label, top, n_rows, lim in (
+            ("ring", ring(K), rows, used),
+            ("exp16", exponential(EXP_K), rows, used),
+            ("torus", torus(TORUS), rows, used),
+            ("ring ragged", ring(K), 333, 201)):
+        x = torch.randn((top.n_workers, n_rows, LANE), generator=gen,
+                        device=dev)
+        x[0, lim, :8] = -0.0    # −0.0 in the self view, padded neighbours
+        per_axis: dict = {}
+        for (ax, sh, w) in top.shifts:
+            per_axis.setdefault(ax, []).append((sh, w))
+        want = plain_gossip(top, x, lim)
+        for design, force in designs.items():
+            before = gossip_mix.launches
+            y = x
+            for ax in sorted(per_axis):
+                shifts, ws = zip(*per_axis[ax])
+                y = gossip_mix_shifted(y, grid=top.axis_sizes, axis=ax,
+                                       shifts=shifts, weights=ws, lim=lim,
+                                       _force_stream=force)
+            same_bits(torch, "gossip_mix", (y,), (want,), results,
+                      f"{label}, design {design}")
+            if gossip_mix.launches - before != len(per_axis):
+                raise AssertionError(f"gossip_mix {label}: "
+                                     f"{gossip_mix.launches - before} "
+                                     f"launches for {len(per_axis)} axes")
+        print(f"kernel gossip_mix {label} {tuple(x.shape)} lim={lim}, "
+              f"{len(top.shifts)} views on {len(per_axis)} axes: bit-exact "
+              f"in designs {', '.join(designs)}, one launch per axis")
+    for label, path, top in (("ring", "pd_sgdm", None),
+                             ("exp16", "pd_sgdm_exp16", None),
+                             ("torus", None, torus(TORUS))):
+        opt, plan, x = gossip_step_setup(torch, ops, path, top)
+        top = opt.comm.topology
+        before = gossip_mix.launches
+        y = opt._gossip_mat(x, 0, plan=plan)
+        launches = gossip_mix.launches - before
+        same_bits(torch, "gossip_mix", (y,),
+                  (plain_gossip(top, x, plan.used_rows),), results,
+                  f"{label} step")
+        axes = len({ax for (ax, _, _) in top.shifts})
+        if launches != axes:
+            raise AssertionError(f"{label} step: {launches} launches")
+        print(f"kernel gossip_mix {label} step (_gossip_mat, "
+              f"{tuple(x.shape)}, used_rows={plan.used_rows}): bit-exact, "
+              f"{launches} launches")
+    xs = [torch.randn((333, LANE), generator=gen, device=dev)
+          for _ in range(33)]
+    for n in (1, 2, 3, 4, 5, 6, 7, 8, 9, 17, 33):
+        ws = tuple(0.01 + 0.005 * j for j in range(n))
+        before = gossip_mix.launches
+        y = gossip_mix(xs[:n], weights=ws)
+        same_bits(torch, "gossip_mix", (y,), (gossip_mix_ref(xs[:n], ws),),
+                  results, f"n={n}")
+        if gossip_mix.launches - before != launch_count(n):
+            raise AssertionError(f"gossip_mix n={n}: "
+                                 f"{gossip_mix.launches - before} launches")
+    print(f"kernel gossip_mix rows=333 n=1..9,17,33 (launches "
+          f"{[launch_count(n) for n in (9, 17, 33)]} at 9, 17, 33): "
+          f"bit-exact")
+    del xs
+    # MT's tracking AXPYs: ĝ = 1·g + λ·x and c + ĝ − ĝ_prev
+    track_w = ((1.0, wd), (1.0, 1.0, -1.0))
+    main_rows = K * 512
+    for n_rows in (main_rows, 333):
+        for ws in track_w:
+            ins = [torch.randn((n_rows, LANE), generator=gen, device=dev)
+                   for _ in ws]
+            same_bits(torch, "gossip_mix", (gossip_mix(ins, weights=ws),),
+                      (gossip_mix_ref(ins, ws),), results,
+                      f"weights {ws}, rows={n_rows}")
+    print(f"kernel gossip_mix rows={main_rows},333 weights {track_w}: "
+          f"bit-exact")
+
+    # the two gossip steps as the round runs them, each design's launch,
+    # the plain composition and W @ x (the uncut mix: a proxy with the
+    # same bytes and operations); bound: x read once, y written once
+    timings = {}
+    for path in ("pd_sgdm", "pd_sgdm_exp16"):
+        opt, plan, x = gossip_step_setup(torch, ops, path)
+        top = opt.comm.topology
+        shifts, ws = zip(*[(sh, w) for (_ax, sh, w) in top.shifts])
+        k, W, lim = x.shape[0], opt.comm._W, plan.used_rows
+        fns = {"step": lambda: opt._gossip_mat(x, 0, plan=plan)}
+        for d, force in designs.items():
+            fns[d] = (lambda force=force: gossip_mix_shifted(
+                x, grid=top.axis_sizes, axis=0, shifts=shifts, weights=ws,
+                lim=lim, _force_stream=force))
+        fns["plain"] = lambda: gossip_shift_ref(x, shifts, ws,
+                                                grid=top.axis_sizes, axis=0,
+                                                lim=lim)
+        fns["W @ x"] = lambda: W @ x.reshape(k, -1)
+        t = turns(torch, fns)
+        print(f"kernel gossip_mix {path} step {tuple(x.shape)}, "
+              f"{len(shifts)} views, used_rows={lim}, ms: "
+              + ", ".join(f"{d} {t[d]:.5f}" for d in fns))
+        timings[path] = dict(ms=t["step"], plain_ms=t["plain"],
+                             library_ms=t["W @ x"], bytes=2 * 4 * x.numel(),
+                             flops=(2 * len(shifts) - 1) * x.numel())
+        finish_timings({"gossip_mix": timings[path]}, results, bw, f32_peak,
+                       (path,) + tuple(x.shape))
+    # MT's two tracking launches on (4096, 1024): n = 2 reads 2 and writes
+    # 1 an element, beside torch.add(g, x, alpha=λ), the same function;
+    # n = 3 reads 3
+    g, x, m = (torch.randn((main_rows, LANE), generator=gen, device=dev)
+               for _ in range(3))
     for ws, library in (((1.0, wd), lambda: torch.add(g, x, alpha=wd)),
                         ((1.0, 1.0, -1.0), None)):
         ins = [g, x, m][:len(ws)]
-        n_in = len(ws)
+        fns = {"kernel": lambda: gossip_mix(ins, weights=ws),
+               "plain": lambda: gossip_mix_ref(ins, ws)}
+        if library is not None:
+            fns["torch.add"] = library
+        t = turns(torch, fns)
+        print(f"kernel gossip_mix ({main_rows}, {LANE}) n={len(ws)} weights "
+              f"{ws}, ms: " + ", ".join(f"{d} {t[d]:.5f}" for d in fns))
         finish_timings({"gossip_mix": dict(
-            ms=time_ms(torch, lambda: gossip_mix(ins, weights=ws)),
-            plain_ms=time_ms(torch, lambda: gossip_mix_ref(ins, ws)),
-            library_ms=(time_ms(torch, library) if library is not None
-                        else None),
-            bytes=(n_in + 1) * 4 * n, flops=(2 * n_in - 1) * n)},
-            results, bw, f32_peak, (main_rows, LANE, "weights", ws))
-    return timings
+            ms=t["kernel"], plain_ms=t["plain"],
+            library_ms=t.get("torch.add"),
+            bytes=(len(ws) + 1) * 4 * x.numel(),
+            flops=(2 * len(ws) - 1) * x.numel())}, results, bw, f32_peak,
+            (main_rows, LANE, "n", len(ws)))
+    return {"gossip_mix": timings["pd_sgdm"]}
 
 
 def finish_timings(timings, results, bw, f32_peak, shape):
@@ -962,9 +1077,8 @@ EXPECTED = {
     "pd_sgdm": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
     # C-SGDM: p = 1, the gradient mean is a matmul, no gossip
     "c_sgdm": {"momentum_update": STEPS},
-    # 9 views a round: 8 in one launch, the partial sum and the 9th in a
-    # second
-    "pd_sgdm_exp16": {"momentum_update": STEPS, "gossip_mix": STEPS // P * 2},
+    # 9 views a round, all in one launch
+    "pd_sgdm_exp16": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
     # a time-varying graph mixes through W_r @ x on the matrix
     "pd_sgdm_onepeer": {"momentum_update": STEPS},
     "cpd_sgdm_sign": {"momentum_update": STEPS, "sign_pack": STEPS // P,
@@ -1445,6 +1559,54 @@ def noniid_phase(torch):
             [f"mt_le_pd = 0: MT - PD by p {diffs}"], t0)
 
 
+def gossip_dispatch_phase(torch):
+    """One kernel round each of PD on the ring and on exponential(16), MT
+    and QG under the CPU profiler, with the optimizer's ``_gossip_mat``
+    run inside a ``record_function`` range: the gossip steps dispatch no
+    ``aten::roll`` and no ``aten::constant_pad_nd`` (the views are read in
+    place), and the round no ``aten::roll`` at all (the ResNet's stride-2
+    convolutions pad, outside the gossip)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for path, steps in (("pd_sgdm", 1), ("pd_sgdm_exp16", 1),
+                        ("mt_dsgdm", 2), ("qg_dsgdm", 1)):
+        opt = make_opt(path, use_kernel=True)
+        gossip = opt._gossip_mat
+
+        def traced(*args, _gossip=gossip, **kwargs):
+            with record_function("gossip_step"):
+                return _gossip(*args, **kwargs)
+
+        opt._gossip_mat = traced
+        drive(torch, opt, path, 0, P)                  # warm-up round
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            drive(torch, opt, path, 0, P)
+            torch.cuda.synchronize()
+        events = prof.events()
+
+        def in_step(e):
+            while e.cpu_parent is not None:
+                e = e.cpu_parent
+                if e.name == "gossip_step":
+                    return True
+            return False
+
+        seen = sum(1 for e in events if e.name == "gossip_step")
+        counts = {name: (sum(1 for e in events if e.name == name
+                             and in_step(e)),
+                         sum(1 for e in events if e.name == name))
+                  for name in ("aten::roll", "aten::constant_pad_nd")}
+        print(f"profile: {path} round: {seen} gossip steps; aten::roll "
+              f"{counts['aten::roll'][0]} in them, {counts['aten::roll'][1]} "
+              f"in the round; aten::constant_pad_nd "
+              f"{counts['aten::constant_pad_nd'][0]} in them, "
+              f"{counts['aten::constant_pad_nd'][1]} in the round")
+        if (seen != steps or counts["aten::roll"][1]
+                or counts["aten::constant_pad_nd"][0]):
+            raise AssertionError(f"{path}: the gossip copies its views "
+                                 f"({seen} steps, {counts})")
+
+
 def dev_us(e) -> float:
     """Device time (µs) of a profiler ``key_averages()`` entry."""
     return (getattr(e, "self_device_time_total", None)
@@ -1526,7 +1688,8 @@ def profile_round(torch, path: str):
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         print(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
-    for name in ("momentum_kernel", "gossip_mix_kernel", "sign_pack_kernel",
+    for name in ("momentum_kernel", "gossip_mix_kernel",
+                 "gossip_mix_tile_kernel", "sign_pack_kernel",
                  "sign_unpack_kernel", "qsgd_quant_kernel",
                  "qsgd_dequant_kernel", "topk_select_kernel",
                  "topk_scatter_kernel", "row_gather_kernel",
@@ -1583,7 +1746,6 @@ def main(argv=None) -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-
     timings = kernel_phase(torch, ops, bw, f32_peak)
     timings.update(codec_kernel_phase(torch, ops, bw, f32_peak))
     timings.update(topk_kernel_phase(torch, ops, bw, f32_peak))
@@ -1593,6 +1755,7 @@ def main(argv=None) -> int:
     runs = {path: training_phase(torch, path) for path in PATHS}
     for path in PATHS:
         parity_phase(torch, path)
+    gossip_dispatch_phase(torch)
     fig1_phase(torch)
     fig2_phase(torch)
     fig3_phase(torch)

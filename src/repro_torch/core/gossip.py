@@ -3,12 +3,13 @@
 Port of ``src/repro/core/gossip.py:84-373`` and ``:840-875``.
 :class:`DenseComm` keeps every leaf worker-stacked (leading dim K) and
 mixes ``x⁽ᵏ⁾ ← Σⱼ w_kj x⁽ʲ⁾`` either as ``W @ flat`` over the worker dim
-(:meth:`DenseComm.mix`, the tree path) or, on the kernel path, as shifted
-views of the worker grid (:meth:`DenseComm._roll`) fed to the fused AXPY
-kernel by the optimizer.  Built from a :class:`TopologySchedule`, it stacks
-the schedule's ``(T, K, K)`` weights on its device and ``mix(tree, r)``
-selects round ``r``'s by ``r mod T``, where ``r`` may be a 0-d device
-tensor: no host sync.
+(:meth:`DenseComm.mix`, the tree path), as shifted views of the worker
+grid (:meth:`DenseComm._roll`, :meth:`DenseComm.shift_views`) or, on the
+kernel path, through the fused AXPY kernel, which the optimizer hands the
+topology's shifts to read the views in place.  Built from a
+:class:`TopologySchedule`, it stacks the schedule's ``(T, K, K)`` weights
+on its device and ``mix(tree, r)`` selects round ``r``'s by ``r mod T``,
+where ``r`` may be a 0-d device tensor: no host sync.
 
 Not in this slice, and refused at construction: membership schedules
 (ROADMAP queue A item 7), the bf16 wire (queue A item 10) and the sharded

@@ -189,10 +189,6 @@ class PDSGDM:
             weight_decay=cfg.weight_decay, nesterov=cfg.nesterov)
         return x_new, {**mats, "m": m_new}
 
-    def _shift_view_mat(self, mat, ax: int, sh: int):
-        """The matrix each worker receives from its (ax, sh) neighbour."""
-        return self.comm._roll(mat, ax, sh)
-
     def _mat_wire_static(self) -> bool:
         """Whether :meth:`_gossip_mat` runs the shift-structured AXPY wire,
         whose neighbour exchanges ship the ``plan.used_rows`` extent: a
@@ -208,30 +204,25 @@ class PDSGDM:
 
     def _gossip_mat(self, x_mat, r, *, plan=None):
         """Gossip mix on the kernel layout: one fused AXPY per topology
-        axis over the self view and the shifted neighbour views (chained
-        launches past 8 views: the exponential graph's 9 at K = 16); other
-        graphs take ``comm.mix`` on the matrix with round ``r``'s W.
-        With a ``plan`` each neighbour view is cut to the ``used_rows`` wire
-        extent and re-padded, so what is exchanged is what is accounted."""
+        axis that reads the self view and the shifted neighbour views of
+        ``x_mat`` in place (one launch up to 32 views: the exponential
+        graph's 9 at K = 16 too); other graphs take ``comm.mix`` on the
+        matrix with round ``r``'s W.  With a ``plan`` each neighbour view
+        reads only the ``used_rows`` wire extent and zeros past it, so what
+        is exchanged is what is accounted."""
         if not self._mat_wire_static():
             return self.comm.mix(x_mat, r=r)
-        u = plan.used_rows if plan is not None else None
+        top = self.comm.topology
+        lim = plan.used_rows if plan is not None else None
         per_axis: dict = {}
-        for (ax, sh, w) in self.comm.topology.shifts:
+        for (ax, sh, w) in top.shifts:
             per_axis.setdefault(ax, []).append((sh, w))
         y = x_mat
         for ax in sorted(per_axis):
-            views, weights = [], []
-            for (sh, w) in per_axis[ax]:
-                if sh == 0:
-                    views.append(y)
-                elif u is not None and u < y.shape[-2]:
-                    views.append(plan.pad_wire(
-                        self._shift_view_mat(plan.wire(y), ax, sh)))
-                else:
-                    views.append(self._shift_view_mat(y, ax, sh))
-                weights.append(w)
-            y = kops.gossip_mix_mat(tuple(views), tuple(weights))
+            shifts, weights = zip(*per_axis[ax])
+            y = kops.gossip_mix_shifted(y, grid=top.axis_sizes, axis=ax,
+                                        shifts=shifts, weights=weights,
+                                        lim=lim)
         return y
 
     def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):

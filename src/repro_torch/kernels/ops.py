@@ -30,14 +30,15 @@ from repro_torch.kernels import qsgd_quant as qq
 from repro_torch.kernels import row_gather as rg
 from repro_torch.kernels import sign_compress as sc
 from repro_torch.kernels import topk_select as tk
-from repro_torch.kernels.gossip_mix import gossip_mix
+from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_shifted
 from repro_torch.kernels.momentum import momentum_update
 from repro_torch.tree import leaf_order
 
 __all__ = ["KernelPlan", "PLAN_BLOCK_ROWS", "LANE", "momentum_update_mat",
-           "gossip_mix_mat", "delayed_mix_mat", "tile_counts", "sign_pack",
-           "sign_unpack", "qsgd_pack", "qsgd_unpack", "topk_pack",
-           "topk_unpack", "row_gather", "row_scatter"]
+           "gossip_mix_mat", "gossip_mix_shifted", "delayed_mix_mat",
+           "tile_counts", "sign_pack", "sign_unpack", "qsgd_pack",
+           "qsgd_unpack", "topk_pack", "topk_unpack", "row_gather",
+           "row_scatter"]
 
 # The reference pads rows to the lcm of its Pallas kernels' BLOCK_ROWS
 # (128 and 256); the port keeps that value so both layouts have equal rows.

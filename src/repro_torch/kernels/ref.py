@@ -21,7 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["momentum_update_ref", "gossip_mix_ref", "tree_sum", "qsgd_bits",
+__all__ = ["momentum_update_ref", "gossip_mix_ref", "gossip_shift_ref",
+           "tree_sum", "qsgd_bits",
            "qsgd_inv_levels", "sign_pack_rows_ref", "sign_unpack_ref",
            "qsgd_rows_ref", "qsgd_rows_unpack_ref", "topk_width",
            "topk_rows_ref", "topk_rows_unpack_ref", "row_gather_ref",
@@ -45,6 +46,30 @@ def gossip_mix_ref(tensors, weights):
     for w, t in zip(weights[1:], tensors[1:]):
         acc = acc + w * t
     return acc
+
+
+def _shift_view_ref(x, *, grid, axis: int, shift: int, lim: int):
+    """The view of ``x`` (K, rows, d) that worker k receives from the
+    worker ``shift`` further along ``axis`` of the row-major worker
+    ``grid``, as the wire ships it: rows cut to ``lim``, the worker grid
+    rolled (``DenseComm._roll``), the cut rows padded back with +0.0
+    (``KernelPlan.wire`` and ``pad_wire``)."""
+    rows = x.shape[-2]
+    v = x[..., :lim, :] if lim < rows else x
+    g = torch.roll(v.reshape(tuple(grid) + tuple(v.shape[1:])), -shift,
+                   dims=axis)
+    v = g.reshape(v.shape)
+    return F.pad(v, (0, 0, 0, rows - lim)) if lim < rows else v
+
+
+def gossip_shift_ref(x, shifts, weights, *, grid, axis: int, lim: int):
+    """One topology axis of a shift graph: the self view (shift 0) is
+    ``x`` itself, every other view is :func:`_shift_view_ref`, and the views
+    are summed by :func:`gossip_mix_ref` in ``shifts`` order."""
+    views = [x if sh == 0 else _shift_view_ref(x, grid=grid, axis=axis,
+                                               shift=sh, lim=lim)
+             for sh in shifts]
+    return gossip_mix_ref(views, weights)
 
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:

@@ -18,11 +18,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import LANE  # noqa: E402
-from repro_torch.kernels.gossip_mix import gossip_mix, launch_count  # noqa: E402
+from repro_torch.kernels.gossip_mix import (gossip_mix,  # noqa: E402
+                                            gossip_mix_shifted, launch_count)
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 from repro_torch.kernels.qsgd_quant import qsgd_dequant, qsgd_quant  # noqa: E402
 from repro_torch.kernels.ref import (gossip_mix_ref,  # noqa: E402
-                                     momentum_update_ref, qsgd_rows_ref,
+                                     gossip_shift_ref, momentum_update_ref, qsgd_rows_ref,
                                      qsgd_rows_unpack_ref, row_gather_ref,
                                      row_scatter_ref, sign_pack_rows_ref,
                                      sign_unpack_ref, topk_rows_ref,
@@ -72,12 +73,12 @@ def test_cuda_kernels_bit_exact_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [9, 17])
+@pytest.mark.parametrize("n", [9, 17, 32, 33])
 def test_gossip_mix_chains_past_eight_inputs_on_card(n):
-    """Past 8 inputs the wrapper chains launches of at most 8, each later
-    one taking the partial sum with weight 1.0: 2 launches at n = 9 (the
-    exponential graph at K = 16), 3 at 17; bit for bit against one
-    left-to-right sum."""
+    """One launch takes up to 32 inputs (the exponential graph's 9 at
+    K = 16 in one); past 32 the wrapper chains launches, each later one
+    taking the partial sum with weight 1.0: 2 launches at n = 33; bit for
+    bit against one left-to-right sum."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -86,8 +87,70 @@ def test_gossip_mix_chains_past_eight_inputs_on_card(n):
     before = gossip_mix.launches
     y = gossip_mix(xs, weights=ws)
     torch.cuda.synchronize()
-    assert gossip_mix.launches - before == launch_count(n) == (n + 5) // 7
-    assert torch.equal(y, gossip_mix_ref(xs, ws))
+    assert gossip_mix.launches - before == launch_count(n) == \
+        (1 if n <= 32 else 2)
+    assert _same_bits(y, gossip_mix_ref(xs, ws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph,rows,lim", [
+    ("ring", 512, 310), ("exp16", 512, 310), ("torus", 512, 310),
+    ("ring", 333, 201), ("exp16", 333, 333)])
+def test_gossip_mix_shifted_bit_exact_on_card(graph, rows, lim):
+    """The shifted-view mix of a static shift graph, one launch per axis,
+    equals the plain cut, roll, re-pad and sum bit for bit in both
+    designs (the tile the kernel picks, and the stream design forced),
+    signs of zero included: the ring and exponential(16) at ResNet-20's
+    310 used rows of 512, a 2 × 4 torus, ragged rows, and no cut."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import exponential, ring, torus
+    top = {"ring": ring(8), "exp16": exponential(16),
+           "torus": torus((2, 4))}[graph]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(rows + lim)
+    x = torch.from_numpy(rng.standard_normal(
+        (top.n_workers, rows, LANE), dtype=np.float32)).to(dev)
+    x[0, lim - 1, :8] = -0.0
+    if lim < rows:
+        x[0, lim, :8] = -0.0       # −0.0 in the self view, padded neighbours
+    per_axis = {}
+    for (ax, sh, w) in top.shifts:
+        per_axis.setdefault(ax, []).append((sh, w))
+    want = x
+    for ax in sorted(per_axis):
+        shifts, ws = zip(*per_axis[ax])
+        want = gossip_shift_ref(want, shifts, ws, grid=top.axis_sizes,
+                                axis=ax, lim=lim)
+    for force_stream in (False, True):
+        before = gossip_mix.launches
+        y = x
+        for ax in sorted(per_axis):
+            shifts, ws = zip(*per_axis[ax])
+            y = gossip_mix_shifted(y, grid=top.axis_sizes, axis=ax,
+                                   shifts=shifts, weights=ws, lim=lim,
+                                   _force_stream=force_stream)
+        torch.cuda.synchronize()
+        assert gossip_mix.launches - before == len(per_axis)
+        assert _same_bits(y, want), force_stream
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ws", [(1.0, 1e-4), (1.0, 1.0, -1.0)])
+@pytest.mark.parametrize("rows", [4096, 333])
+def test_gossip_mix_tracking_weights_bit_exact_on_card(ws, rows):
+    """MT-DSGDm's two tracking AXPYs on distinct matrices, ĝ = 1·g + λ·x
+    and c + ĝ − ĝ_prev, at the main path's (4096, 1024) and at 333 rows:
+    one launch, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    ins = [torch.from_numpy(a).to(dev) for a in _mats(rows, len(ws), rows)]
+    before = gossip_mix.launches
+    y = gossip_mix(ins, weights=ws)
+    torch.cuda.synchronize()
+    assert gossip_mix.launches == before + 1
+    assert _same_bits(y, gossip_mix_ref(ins, ws))
 
 
 @pytest.mark.cuda

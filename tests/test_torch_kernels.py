@@ -28,7 +28,11 @@ from repro.kernels.gossip_mix import gossip_mix as r_gossip_mix  # noqa: E402
 from repro.kernels.momentum import momentum_update as r_momentum  # noqa: E402
 from repro_torch.kernels import LANE, build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
+from repro_torch.core import DenseComm, exponential, ring, torus  # noqa: E402
+from repro_torch.kernels.gossip_mix import (gossip_mix,  # noqa: E402
+                                            gossip_mix_shifted)
+from repro_torch.kernels.ref import (gossip_mix_ref,  # noqa: E402
+                                     gossip_shift_ref)
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,6 +98,72 @@ def test_gossip_mix_matches_pallas_kernel(n):
     np.testing.assert_array_equal(y.numpy(), np.asarray(yr))
     magnitude = sum(np.abs(np.float32(w) * x) for w, x in zip(weights, xs))
     assert ulp_gap(y.numpy(), yk, magnitude) <= max(n - 1, 0)
+
+
+@pytest.mark.parametrize("graph,axis", [("ring", 0), ("torus", 0),
+                                        ("torus", 1), ("exp16", 0)])
+@pytest.mark.parametrize("lim", [5, 16])
+@pytest.mark.parametrize("signs", ["ring", "negative"])
+def test_gossip_shift_ref_is_the_roll_pad_composition(graph, axis, lim,
+                                                      signs):
+    """The plain version of the shifted-view mix is the composition it
+    replaces on the kernel path, bit for bit (signs of zero included):
+    each neighbour view cut to the wire extent, rolled over the worker
+    grid by ``DenseComm._roll``, re-padded with zero rows, then
+    ``gossip_mix_ref`` in ``shifts`` order; the self view uncut.  −0.0 in
+    the self view meets the padded neighbour rows' +0.0 there (weights of
+    the graph, and weights that make each zero product −0.0).  The
+    wrapper, on a CPU tensor, runs exactly that and counts no launch."""
+    top = {"ring": ring(8), "torus": torus((2, 4)),
+           "exp16": exponential(16)}[graph]
+    comm = DenseComm(top, device="cpu")
+    views = [(sh, w) for (ax, sh, w) in top.shifts if ax == axis]
+    shifts = tuple(sh for sh, _ in views)
+    ws = tuple(w if signs == "ring" or sh == 0 else -w for sh, w in views)
+    rows = 16
+    rng = np.random.default_rng(len(shifts) + lim)
+    x = torch.from_numpy(rng.standard_normal((top.n_workers, rows, LANE),
+                                             dtype=np.float32))
+    x[:, lim:, :4] = -0.0
+    want = gossip_mix_ref(
+        [x if sh == 0 else torch.nn.functional.pad(
+            comm._roll(x[:, :lim], axis, sh), (0, 0, 0, rows - lim))
+         for sh in shifts], ws)
+    got = gossip_shift_ref(x, shifts, ws, grid=top.axis_sizes, axis=axis,
+                           lim=lim)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if lim < rows:
+        zero = want[:, lim:, :4]
+        assert bool((zero == 0).all())
+        assert bool(torch.signbit(zero).all()) == (signs == "negative")
+    before = gossip_mix.launches
+    y = gossip_mix_shifted(x, grid=top.axis_sizes, axis=axis, shifts=shifts,
+                           weights=ws, lim=lim)
+    assert gossip_mix.launches == before
+    assert torch.equal(y.view(torch.int32), want.view(torch.int32))
+
+
+def test_gossip_mix_shifted_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((8, 16, LANE))
+    ok = dict(grid=(8,), axis=0, shifts=(0, 1, -1), weights=(0.5, 0.25, 0.25))
+    assert gossip_mix_shifted(x, **ok).shape == x.shape
+    with pytest.raises(ValueError):                 # grid is not K
+        gossip_mix_shifted(x, **{**ok, "grid": (2, 2)})
+    with pytest.raises(ValueError):                 # no such axis
+        gossip_mix_shifted(x, **{**ok, "axis": 1})
+    with pytest.raises(ValueError):                 # a weight short
+        gossip_mix_shifted(x, **{**ok, "weights": (0.5, 0.5)})
+    with pytest.raises(ValueError):                 # no views
+        gossip_mix_shifted(x, **{**ok, "shifts": (), "weights": ()})
+    with pytest.raises(ValueError):                 # no worker dim
+        gossip_mix_shifted(x[0], **ok)
+    with pytest.raises(ValueError):                 # not contiguous
+        gossip_mix_shifted(x.transpose(0, 1).contiguous().transpose(0, 1),
+                           **ok)
+    with pytest.raises(TypeError):
+        gossip_mix_shifted(x.double(), **ok)
+    with pytest.raises(ValueError):
+        gossip_mix_shifted(x, lim=-1, **ok)
 
 
 def test_mat_wrappers_fold_worker_dims():

@@ -23,14 +23,18 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import make_optimizer as r_make_optimizer  # noqa: E402
 from repro.core import schedules as r_schedules  # noqa: E402
 from repro.core.gossip import DenseComm as RDenseComm  # noqa: E402
+from repro.core import topology as r_top  # noqa: E402
 from repro.core.topology import ring as r_ring  # noqa: E402
 from repro.data.synthetic import ClassStreamCfg as RCfg  # noqa: E402
 from repro.data.synthetic import class_batch as r_class_batch  # noqa: E402
+from repro.kernels import ops as r_kops  # noqa: E402
+from repro.kernels import ref as r_kref  # noqa: E402
 from repro.models import resnet as r_resnet  # noqa: E402
 from repro.train.trainer import SimTrainer as RSimTrainer  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
-from repro_torch.core import (DenseComm, make_optimizer,  # noqa: E402
-                              make_schedule, make_topology, ring, schedules)
+from repro_torch.core import (DenseComm, exponential,  # noqa: E402
+                              make_optimizer, make_schedule, make_topology,
+                              ring, schedules, torus)
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 from repro_torch.kernels.ops import KernelPlan  # noqa: E402
@@ -212,6 +216,58 @@ def test_bytes_per_comm_round_at_full_width(use_kernel, expected):
     ropt = r_make_optimizer("pd_sgdm", RDenseComm(r_ring(K)),
                             use_kernel=use_kernel, **HYPER)
     assert ropt.bytes_per_comm_round(shapes) == expected
+
+
+@pytest.mark.parametrize("graph", ["ring", "torus", "exp16"])
+def test_gossip_mat_matches_reference(graph, monkeypatch):
+    """The kernel-layout gossip step of a static shift graph, one fused mix
+    per topology axis over neighbour views cut to the ``used_rows`` wire
+    extent (41 of 64 rows here; every row of the matrix random, so the cut
+    shows): bit for bit against the reference's ``PDSGDM._gossip_mat`` with
+    its plain left-to-right sum in place of the Pallas kernel, and within
+    Σ (views − 1) over the axes ulps of its magnitude against the Pallas
+    kernel in interpret mode, where XLA may fuse a product and a sum (as
+    tests/test_torch_kernels.py's ``test_gossip_mix_matches_pallas_kernel``
+    bounds one mix)."""
+    tops = {"ring": (ring(8), r_ring(8)),
+            "torus": (torus((2, 4)), r_top.torus((2, 4))),
+            "exp16": (exponential(16), r_top.exponential(16))}
+    top, rtop = tops[graph]
+    k = top.n_workers
+    rng = np.random.default_rng(k + len(top.shifts))
+    tree = {"w": rng.standard_normal((k, 40_000), dtype=np.float32),
+            "b": rng.standard_normal((k, 7), dtype=np.float32)}
+    plan = KernelPlan.for_tree({n: torch.from_numpy(v)
+                                for n, v in tree.items()},
+                               worker_dim=True, block_rows=64)
+    rplan = r_kops.KernelPlan.for_tree(tree, worker_dim=True, block_rows=64)
+    assert (plan.used_rows, plan.rows) == (rplan.used_rows, rplan.rows) \
+        == (41, 64)
+    x = rng.standard_normal((k, plan.rows, 1024), dtype=np.float32)
+    opt = make_optimizer("pd_sgdm", DenseComm(top, device="cpu"),
+                         use_kernel=True, **HYPER)
+    before = gossip_mix.launches
+    y = opt._gossip_mat(torch.from_numpy(x), 0, plan=plan).numpy()
+    assert gossip_mix.launches == before            # CPU: plain version
+    ropt = r_make_optimizer("pd_sgdm", RDenseComm(rtop), use_kernel=True,
+                            kernel_interpret=True, **HYPER)
+    yk = np.asarray(ropt._gossip_mat(jnp.asarray(x), 0, plan=rplan))
+
+    def plain_mix(mats, weights, interpret=False):
+        rows = [m.reshape(-1, 1024) for m in mats]
+        return r_kref.gossip_mix_ref(rows, weights).reshape(mats[0].shape)
+
+    monkeypatch.setattr(r_kops, "gossip_mix_mat", plain_mix)
+    yr = np.asarray(ropt._gossip_mat(jnp.asarray(x), 0, plan=rplan))
+    np.testing.assert_array_equal(y, yr)
+    # the magnitude: the same mix of |x| (every weight is positive)
+    magnitude = opt._gossip_mat(torch.from_numpy(np.abs(x)), 0,
+                                plan=plan).numpy()
+    spacing = np.spacing(np.maximum(magnitude, np.maximum(np.abs(y),
+                                                          np.abs(yk))))
+    axes = len({ax for (ax, _, _) in top.shifts})
+    gap = np.max(np.abs(y.astype(np.float64) - yk) / spacing)
+    assert gap <= len(top.shifts) - axes
 
 
 def test_tail_steps_do_not_gossip():

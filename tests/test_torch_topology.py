@@ -192,12 +192,14 @@ def test_scheduled_dense_comm_equals_reference(name):
 
 # ------------------------------------------------------------ gossip_mix
 def test_gossip_mix_launch_count():
-    """Past 8 inputs a mix chains launches of at most 8, each later one
-    taking the partial sum: 1 + ⌈(n − 8)/7⌉ (the values themselves are
-    held at n = 9, 17 and 33 in tests/test_torch_kernels.py)."""
-    assert [launch_count(n) for n in range(1, 10)] == [1] * 8 + [2]
+    """One launch takes up to 32 inputs; past that a mix chains launches
+    of at most 32, each later one taking the partial sum: 1 + ⌈(n − 32)/31⌉
+    (the values themselves are held at n = 9, 17 and 33 in
+    tests/test_torch_kernels.py)."""
+    assert [launch_count(n) for n in range(1, 10)] == [1] * 9
     assert [launch_count(n) for n in (15, 16, 17, 22, 23, 33)] == \
-        [2, 3, 3, 3, 4, 5]
+        [1, 1, 1, 1, 1, 2]
+    assert [launch_count(n) for n in (32, 63, 64, 94, 95)] == [1, 2, 3, 3, 4]
 
 
 # ------------------------------------------------------------ rounds
@@ -362,13 +364,13 @@ def test_scheduled_cpdsgdm_sign_matches_reference(block):
 def test_exponential16_kernel_round_launches():
     """On the CPU the plain versions count no launch; the shifted-view mix
     of exponential(16) takes 9 views on one axis, which a CUDA tensor
-    would run as 2 chained launches a round."""
+    runs as one launch a round."""
     opt = make_optimizer("pd_sgdm", DenseComm(top.exponential(16),
                                               device="cpu"),
                          use_kernel=True, **HYPER)
     assert opt._mat_wire_static()
     views = [s for s in opt.comm.topology.shifts if s[0] == 0]
-    assert len(views) == 9 and launch_count(len(views)) == 2
+    assert len(views) == 9 and launch_count(len(views)) == 1
     params, batches = _quad_setup(16, steps=P)
     before = (momentum_update.launches, gossip_mix.launches)
     _port_train(opt, params, batches, P)
