@@ -39,7 +39,7 @@ matmuls:
    the ring's and exp16's gossip steps beside ``W @ x`` (the uncut mix,
    same bytes and operations) and the plain version, n = 2 beside
    ``torch.add``, and n = 3;
-2. drives eleven paths through the port's entry points, each once, with
+2. drives fourteen paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
    ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
@@ -48,7 +48,11 @@ matmuls:
    on the
    one-peer exponential schedule (period 3), MT-DSGDm with full-precision
    and with sign-compressed tracking and QG-DSGDm (η = 0.05, the step of
-   ``benchmarks/noniid_sweep.py``), all through ``make_optimizer`` →
+   ``benchmarks/noniid_sweep.py``), and under elastic membership
+   (``DenseComm(ring(8), membership=membership_from_events(8, 3, ...))``:
+   round 0 kills worker 3, round 1 also stalls worker 6, round 2 revives
+   3) PD-SGDM, CPD-SGDM with the sign wire and MT-DSGDm with sign
+   tracking (η = 0.05), all through ``make_optimizer`` →
    ``SimTrainer.train`` on the kernel layout, ResNet-20 at width 16, K = 8
    workers on a ring where not said otherwise, batch 16 per worker,
    p = 4, η = 0.1, μ = 0.9, weight decay 1e-4, 14 steps (3 rounds and a
@@ -58,7 +62,9 @@ matmuls:
    lookups of batch 64, p = 4, η = 0.05, γ = 0.4 (the reference's
    ``benchmarks/embedding_wire.py``), 3 rounds and a 2-step tail;
 3. holds one kernel-path round against one round of the plain path from
-   the same init on the same batches, for each of the eleven: for PD-SGDM,
+   the same init on the same batches, for each of the fourteen (the
+   one-peer path over its 3-round cycle, the churn paths each round of
+   theirs from the same start): for PD-SGDM,
    C-SGDM, MT-DSGDm and QG-DSGDm the tree round, for every CPD-SGDM wire
    the round through the per-leaf codec, which launches no codec kernel;
    the params, m and the tracking state; and profiles one kernel round of
@@ -73,11 +79,20 @@ matmuls:
    sign-64 at 150 steps against PD at 90) and ``noniid_phase`` (D-SGD,
    PD, QG and MT at p = 1, 2, 4 on Dirichlet(0.1) labels, 64 steps,
    judged by the global loss of the averaged model through the trainer's
-   ``eval_fn``).
+   ``eval_fn``);
+5. holds the claims of ``benchmarks/elastic_sweep.py`` (``elastic_phase``:
+   PD, CPD sign, MT and QG at churn 0, 0.1 and 0.25 through
+   ``repro_torch.testing.run_dense_chaos`` on the kernel layout: every
+   round's masked matrix checked and its bytes equal to the byte oracle,
+   each cell's MB equal to the committed ``BENCH_elastic.json``'s, the
+   survivors bounded) and the equal-bytes claim of
+   ``benchmarks/topology_sweep.py`` (``topology_phase``: the static ring
+   at 96 steps against the one-peer schedule at 192, K = 16).
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, the four
-figure phases' rows, verdicts and wall seconds, one JSON line
+figure phases' and the elastic and topology phases' rows, verdicts and
+wall seconds, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; so does a
 machine without a CUDA device, and a copy of the script outside a checkout
 (it imports the port from ``src/`` beside itself).  Imports nothing of JAX
@@ -129,6 +144,16 @@ FIG3_STEPS = 70                            # benchmarks/fig3_cpdsgdm.py
 FIG3_CPD_STEPS, FIG3_PD_STEPS = 150, 90
 # benchmarks/noniid_sweep.py at its claim's skew
 NONIID_ALPHA, NONIID_STEPS, NONIID_PS = 0.1, 64, (1, 2, 4)
+# the churn paths' membership, period 3: round 0 kills worker 3, round 1
+# also stalls worker 6, round 2 revives worker 3 (everyone exchanges)
+CHURN_ROUNDS = 3
+CHURN_EVENTS = ((0, "kill", 3), (1, "straggle", 6), (2, "revive", 3))
+# benchmarks/elastic_sweep.py: K = 8 ring, a D = 64 quadratic, p = 2
+ELASTIC_D, ELASTIC_P, ELASTIC_ROUNDS, ELASTIC_SEED = 64, 2, 16, 7
+ELASTIC_RATES = (0.0, 0.1, 0.25)
+# benchmarks/topology_sweep.py: K = 16, D = 64, PD at η = 0.2, p = 4; the
+# static ring at S steps against the one-peer schedule at 2S
+TOPO_K, TOPO_D, TOPO_ETA, TOPO_STEPS = 16, 64, 0.2, 96
 # bytes per worker per round over one schedule cycle, on 310 used rows
 # (ResNet-20), its 272,282 f32 on the tree wire, or the table's 4,096 rows
 WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
@@ -141,7 +166,14 @@ WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
               "pd_sgdm_onepeer": (1_089_128,) * 3,   # 1 × 272,282 × 4 B
               "mt_dsgdm": (5_079_040,),        # 2 × 2 × 310 × 1024 × 4 B
               "mt_dsgdm_sign": (2_621_360,),   # x + 2 × 310 × (128 + 4) B
-              "qg_dsgdm": (2_539_520,)}        # x only, as PD
+              "qg_dsgdm": (2_539_520,),        # x only, as PD
+              # under churn: the tree wire × 1.5, 1 and 2 active edges a
+              # worker (12, 8 and 16 of the ring's 16 exchanges)
+              "pd_sgdm_churn": (1_633_692, 1_089_128, 2_178_256),
+              # 81,840 B × 5/8, 2/8 and 8/8 committing workers
+              "cpd_sgdm_sign_churn": (51_150, 20_460, 81_840),
+              # (272,282 × 4 + 40,920 B) × 1.5, 1 and 2 active edges
+              "mt_dsgdm_sign_churn": (1_695_072, 1_130_048, 2_260_096)}
 # the lines of nvcc's -Xptxas -v output that are printed: each kernel's
 # name, then its registers, shared memory and spills
 PTXAS_WORDS = ("Function properties", "registers", "spill")
@@ -1064,11 +1096,12 @@ def batch_fn(seed: int, k: int = K, batch: int = BATCH, alpha=None):
     return lambda t: class_batch(cfg, t, DEVICE)
 
 
-# the eleven paths, the kernels each must launch in a 14-step run, and the
-# path whose run each kernel's reported launches come from
+# the fourteen paths, the kernels each must launch in a 14-step run, and
+# the path whose run each kernel's reported launches come from
 PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
          "cpd_sgdm_sparse", "c_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer",
-         "mt_dsgdm", "mt_dsgdm_sign", "qg_dsgdm")
+         "mt_dsgdm", "mt_dsgdm_sign", "qg_dsgdm", "pd_sgdm_churn",
+         "cpd_sgdm_sign_churn", "mt_dsgdm_sign_churn")
 # MT: each step mixes ĝ = g + λx (n = 2) and c + ĝ − ĝ_prev (n = 3); each
 # round mixes x and c (or the decoded Q(c))
 MT_MIXES = 2 * STEPS + 2 * (STEPS // P)
@@ -1094,6 +1127,14 @@ EXPECTED = {
                       "sign_pack": STEPS // P, "sign_unpack": STEPS // P},
     # QG: the buffer update at a round is plain elementwise torch
     "qg_dsgdm": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
+    # under churn the gossip is W_r @ x with round r's masked W; CPD packs
+    # on the tree at the round boundary through the sign kernels; MT's
+    # compressed correction takes the per-leaf codec (no sign launch)
+    "pd_sgdm_churn": {"momentum_update": STEPS},
+    "cpd_sgdm_sign_churn": {"momentum_update": STEPS, "sign_pack": STEPS // P,
+                            "sign_unpack": STEPS // P},
+    "mt_dsgdm_sign_churn": {"momentum_update": STEPS,
+                            "gossip_mix": 2 * STEPS},
 }
 OWNER = {"momentum_update": "pd_sgdm", "gossip_mix": "pd_sgdm",
          "sign_pack": "cpd_sgdm_sign", "sign_unpack": "cpd_sgdm_sign",
@@ -1124,7 +1165,7 @@ def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
                                   QSGDCompressor, SignCompressor,
                                   SparseRowsCompressor, TopKCompressor,
                                   make_optimizer, make_schedule,
-                                  make_topology, ring)
+                                  make_topology, membership_from_events, ring)
     if path == "cpd_sgdm_sparse":
         return CPDSGDM(CPDSGDMConfig(use_kernel=use_kernel, **EMB_HYPER),
                        DenseComm(ring(EMB_K), device=DEVICE),
@@ -1132,7 +1173,11 @@ def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
     graph = {"pd_sgdm_exp16": make_topology("exponential", (EXP_K,)),
              "pd_sgdm_onepeer": make_schedule(ONE_PEER, (K,))}.get(path,
                                                                  ring(K))
-    comm = DenseComm(graph, device=DEVICE)
+    membership = None
+    if path.endswith("_churn"):
+        membership = membership_from_events(K, CHURN_ROUNDS, CHURN_EVENTS)
+        path = path[:-len("_churn")]
+    comm = DenseComm(graph, membership=membership, device=DEVICE)
     if path in ("pd_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer"):
         return make_optimizer("pd_sgdm", comm, use_kernel=use_kernel, **HYPER)
     if path == "c_sgdm":        # make_optimizer swaps in complete(K)
@@ -1224,6 +1269,8 @@ def training_phase(torch, path: str) -> dict:
     comm = opt.comm
     graph = (comm.schedule.name if comm.schedule is not None
              else comm.topology.name)
+    if comm.membership is not None:
+        graph += f" under {CHURN_EVENTS}"
     if hist is None:
         comm_mb = want_mb
         print(f"train: {path} kernel path, {EMB_ROWS} x {EMB_DIM} f32 table "
@@ -1263,7 +1310,8 @@ def parity_phase(torch, path: str):
     path from the same init on the same batches, with cuDNN held to
     deterministic algorithms so both see the same gradients; on the
     one-peer schedule the whole cycle of three rounds, so that every W_r
-    is held.  The plain path is the tree round for PD-SGDM, C-SGDM,
+    is held (the churn paths hold theirs round by round:
+    ``churn_parity_phase``).  The plain path is the tree round for PD-SGDM, C-SGDM,
     MT-DSGDm and QG-DSGDm (MT's sign-compressed correction through the
     per-leaf codec) and, for every CPD-SGDM wire, the round through the
     per-leaf codec (``_kernel_wire`` off), which launches no kernel: the
@@ -1274,6 +1322,8 @@ def parity_phase(torch, path: str):
     the matrix, one per leaf) put the drift x_new − x̂ on opposite sides of
     a sign, a QSGD tie or a top-k or row-norm near-tie: x̂ moves there by
     at most 2·max|drift|, in a handful of elements."""
+    if path.endswith("_churn"):
+        return churn_parity_phase(torch, path)
     kernels = counters()
     torch.backends.cudnn.deterministic = True
     opt = make_opt(path, True)
@@ -1291,11 +1341,18 @@ def parity_phase(torch, path: str):
              if fn.launches != before[name]}
     if stray:
         raise AssertionError(f"{path}: the plain round launched {stray}")
-    worst = max(float((got[k] - want[k]).abs().max()) for k in want)
     losses = (f", losses {hk.loss} vs {ht.loss}" if hk is not None else "")
-    print(f"parity: {path} {steps} steps, kernel path vs "
-          f"{'per-leaf codec' if cpd else 'tree'} path: "
-          f"max |Δparam| = {worst}{losses}")
+    hold_parity(torch, path, f"{steps} steps, kernel path vs "
+                f"{'per-leaf codec' if cpd else 'tree'} path", init,
+                (got, sk), (want, st), losses)
+
+
+def hold_parity(torch, path, what, start, kernel, plain, losses=""):
+    """The bars of ``parity_phase`` on the params and state that a kernel
+    run and a plain run reached from the params ``start``."""
+    (got, sk), (want, st) = kernel, plain
+    worst = max(float((got[k] - want[k]).abs().max()) for k in want)
+    print(f"parity: {path} {what}: max |Δparam| = {worst}{losses}")
     for k in want:
         if not torch.allclose(got[k], want[k], rtol=1e-3, atol=1e-4):
             raise AssertionError(f"{path}: kernel round differs from the "
@@ -1311,7 +1368,7 @@ def parity_phase(torch, path: str):
                                      f"differs from the plain round's: {k}")
     if "xhat" not in st:
         return
-    drift = max(float((want[k] - init[k]).abs().max()) for k in want)
+    drift = max(float((want[k] - start[k]).abs().max()) for k in want)
     worst, moved = 0.0, 0
     for k, ref in st["xhat"].items():
         gap = (sk["xhat"][k] - ref).abs()
@@ -1322,6 +1379,54 @@ def parity_phase(torch, path: str):
                                  f"per-leaf x̂: {k}")
     print(f"parity: {path} max |Δx̂| = {worst}, {moved} elements moved by a "
           f"sign, level or selection (max |drift| {drift})")
+
+
+def churn_parity_phase(torch, path: str):
+    """Each round of a churn path's 3-round cycle held on its own: from the
+    kernel path's params and state after the rounds before it, one kernel
+    round against one plain round (as in ``parity_phase``) on the same
+    batches, at ``parity_phase``'s bars, so that every masked W_r is held.
+    Both paths mix with ``W_r @ x``, one over the matrix and one per leaf,
+    and cuBLAS sums the K terms in an order that depends on the shape: a
+    masked W_r (weights 1/3 and 2/3) leaves them an ulp apart, which the
+    next round does not inherit (ReLU flips would grow it)."""
+    from repro_torch.models.resnet import resnet20_loss
+    kernels = counters()
+    opt, plain = make_opt(path, True), make_opt(path, False)
+    cpd = path.startswith("cpd")
+    if cpd:
+        plain._kernel_wire = lambda: False          # the per-leaf codec
+    grad = torch.func.vmap(torch.func.grad_and_value(
+        lambda prm, b: resnet20_loss(prm, b)[0]))
+
+    def grads_fn(prm, b):
+        g, losses = grad(prm, b)
+        return losses.mean(), g
+
+    p = opt.config.p
+    data = batch_fn(1)
+    params = stacked_init(torch, 1)
+    state = opt.init(params)
+    with cudnn_deterministic(torch):
+        for r in range(opt.comm.round_cycle):
+            steps = [data(r * p + i) for i in range(p)]
+            batches = {k: torch.stack([b[k] for b in steps])
+                       for k in steps[0]}
+            got, sk, lk = opt.round(state, params, grads_fn, batches)
+            before = {name: fn.launches for name, fn in kernels.items()}
+            want, st, lt = plain.round(state, params, grads_fn, batches)
+            torch.cuda.synchronize()
+            stray = {name: fn.launches - before[name]
+                     for name, fn in kernels.items()
+                     if fn.launches != before[name]}
+            if stray:
+                raise AssertionError(f"{path}: the plain round launched "
+                                     f"{stray}")
+            hold_parity(torch, path, f"round {r} of {p} steps, kernel "
+                        f"path vs {'per-leaf codec' if cpd else 'tree'} "
+                        f"path", params, (got, sk), (want, st),
+                        f", losses {lk.tolist()} vs {lt.tolist()}")
+            params, state = got, sk
 
 
 class cudnn_deterministic:
@@ -1559,6 +1664,186 @@ def noniid_phase(torch):
             [f"mt_le_pd = 0: MT - PD by p {diffs}"], t0)
 
 
+def elastic_phase(torch):
+    """``benchmarks/elastic_sweep.py``'s claims on the card at its settings:
+    K = 8 ring, a heterogeneous quadratic ``0.5‖x − b_k‖²`` over D = 64,
+    p = 2, η = 0.05, μ = 0.9, 16 rounds, chaos script seed 7 at churn 0
+    (``full_membership``), 0.1 and 0.25; PD-SGDM, CPD-SGDM with the sign
+    wire (γ = 0.5), MT-DSGDm and QG-DSGDm through the port's
+    ``run_dense_chaos`` on the kernel layout.  b and x₀ come from the
+    card's generator (seeds 3 and 0), so the losses are not the
+    reference's; the bytes depend only on the script and the shapes.
+    Rows as the reference prints them.  Held: every round's matrix passes
+    ``check_round_matrix``; every round's accounted bytes equal
+    ``oracle_fleet_bytes``; every cell's ``mb_total`` equals the committed
+    ``BENCH_elastic.json``'s to its 4 printed decimals, and so PD's
+    ``bytes_saved_frac`` at 0.25 is 0.8516; ``survivors_bounded`` = 1
+    (each cell's final loss within 2×, its peak consensus within 5×, of
+    its optimizer's churn-free run)."""
+    from repro_torch.core import DenseComm, SignCompressor, make_optimizer
+    from repro_torch.core.topology import full_membership, ring
+    from repro_torch.testing import (chaos_script, check_round_matrix,
+                                     membership_for, oracle_fleet_bytes,
+                                     run_dense_chaos)
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, "benchmarks", "BENCH_elastic.json")) as f:
+        bench = {row["name"]: row["derived"] for row in json.load(f)["rows"]}
+    gen = torch.Generator(device=DEVICE)
+    b = 2.0 * torch.randn((K, ELASTIC_D), generator=gen.manual_seed(3),
+                          device=DEVICE)
+    x0 = torch.randn((1, ELASTIC_D), generator=gen.manual_seed(0),
+                     device=DEVICE)
+
+    def grads_fn(params, batch):
+        g = {"w": params["w"] - b}
+        return 0.5 * torch.sum(g["w"] ** 2, dim=-1).mean(), g
+
+    kernels = counters()
+    results, missed = {}, []
+    for rate in ELASTIC_RATES:
+        if rate == 0.0:
+            events, ms = [], full_membership(K)
+        else:
+            events = chaos_script(K, ELASTIC_ROUNDS, seed=ELASTIC_SEED,
+                                  kill_prob=rate, straggle_prob=rate)
+            ms = membership_for(K, ELASTIC_ROUNDS, events)
+        for name, kw in (("pd_sgdm", {}),
+                         ("cpd_sgdm", {"gamma": 0.5,
+                                       "compressor": SignCompressor()}),
+                         ("mt_dsgdm", {}), ("qg_dsgdm", {})):
+            opt = make_optimizer(name, DenseComm(ring(K), membership=ms,
+                                                 device=DEVICE),
+                                 eta=0.05, mu=0.9, p=ELASTIC_P,
+                                 use_kernel=True, **kw)
+            before = {n: fn.launches for n, fn in kernels.items()}
+            t1 = time.perf_counter()
+            run = run_dense_chaos(opt, events, {"w": x0.expand(K, -1)
+                                                .contiguous()},
+                                  grads_fn, ELASTIC_ROUNDS)
+            seconds = time.perf_counter() - t1
+            launched = {n: fn.launches - before[n]
+                        for n, fn in kernels.items() if fn.launches
+                        != before[n]}
+            one = {"w": x0[0]}
+            label = f"elastic/{name}_c{rate:g}"
+            for r in range(ELASTIC_ROUNDS):
+                check_round_matrix(opt.comm, r)
+                want = oracle_fleet_bytes(opt, one, r)
+                if run.accounted_bytes[r] != want:
+                    missed.append(f"{label} round {r}: accounted "
+                                  f"{run.accounted_bytes[r]} != {want}")
+            total = float(run.accounted_bytes.sum())
+            base = results.get((0.0, name), {}).get("mb_total",
+                                                    total / 1e6) * 1e6
+            saved = 1.0 - total / base if base else 0.0
+            ratio = float(run.avg_loss[-1] / run.avg_loss[0])
+            results[(rate, name)] = {
+                "final_loss": float(run.avg_loss[-1]), "loss_ratio": ratio,
+                "max_consensus": float(run.consensus.max()),
+                "mb_total": total / 1e6, "bytes_saved_frac": saved}
+            print(f"{label},{seconds / ELASTIC_ROUNDS * 1e6:.1f},"
+                  f"final_loss={run.avg_loss[-1]:.4f};"
+                  f"loss_ratio={ratio:.4f};"
+                  f"max_consensus={run.consensus.max():.4f};"
+                  f"mb_total={total / 1e6:.4f};"
+                  f"bytes_saved_frac={saved:.4f}; launches {launched}")
+            if not all(math.isfinite(v) for v in run.avg_loss):
+                missed.append(f"{label}: loss {run.avg_loss}")
+            ref = bench[label]
+            if (round(total / 1e6, 4) != ref["mb_total"]
+                    or round(saved, 4) != ref["bytes_saved_frac"]):
+                missed.append(f"{label}: mb_total {total / 1e6}, saved "
+                              f"{saved} against BENCH_elastic.json's {ref}")
+    bounded = int(all(
+        v["final_loss"] <= 2.0 * results[(0.0, name)]["final_loss"]
+        and v["max_consensus"] <= 5.0 * results[(0.0, name)]["max_consensus"]
+        for (rate, name), v in results.items() if rate > 0.0))
+    top_saved = results[(max(ELASTIC_RATES), "pd_sgdm")]["bytes_saved_frac"]
+    print(f"elastic/claim_survivors,0.0,survivors_bounded={bounded};"
+          f"cells={len(results)}")
+    print(f"elastic/claim_bytes,0.0,bytes_saved_frac={top_saved:.4f};"
+          f"rate={max(ELASTIC_RATES):g}")
+    if not bounded:
+        missed.append("survivors_bounded = 0")
+    if round(top_saved, 4) != bench["elastic/claim_bytes"]["bytes_saved_frac"]:
+        missed.append(f"bytes_saved_frac {top_saved}")
+    verdict("elastic", missed, t0)
+
+
+def topology_phase(torch):
+    """``benchmarks/topology_sweep.py``'s equal-bytes claim on the card:
+    K = 16 workers, worker k's loss ``0.5·mean((x − c_k)²)`` with targets
+    ``base + 3·offset`` (D = 64, from the card's generator, seeds 3 and
+    4), PD-SGDM at η = 0.2, μ = 0.9, p = 4 from x = 0 through
+    ``SimTrainer``; the static ring for 96 steps against the one-peer
+    exponential schedule for 192, on the tree layout (the sweep's) and on
+    the kernel layout.  Held: on the tree layout both runs ship the same
+    comm-MB exactly, and on both layouts the one-peer consensus
+    (mean_k ‖x_k − x̄‖) is below half the ring's.  On the kernel layout the
+    ring's neighbour views ship a whole 1024-lane row per 64-float leaf
+    (4,096 B a neighbour against 256 B), so its comm-MB is printed, not
+    held equal."""
+    from repro_torch.core import DenseComm, PDSGDM, PDSGDMConfig
+    from repro_torch.core.topology import (one_peer_exponential_schedule,
+                                           ring, static_schedule)
+    from repro_torch.train.trainer import SimTrainer
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    base = torch.randn((TOPO_D,), generator=gen.manual_seed(3),
+                       device=DEVICE)
+    offs = torch.randn((TOPO_K, TOPO_D), generator=gen.manual_seed(4),
+                       device=DEVICE) * 3.0
+    batch = {"y": base[None, :] + offs}
+
+    def loss_fn(params, b):
+        return 0.5 * torch.mean((params["x"] - b["y"]) ** 2), {}
+
+    kernels = counters()
+    missed, got = [], {}
+    for use_kernel in (False, True):
+        layout = "kernel" if use_kernel else "tree"
+        for name, sched, steps in (
+                ("static_ring", static_schedule(ring(TOPO_K)), TOPO_STEPS),
+                ("one_peer_exp", one_peer_exponential_schedule(TOPO_K),
+                 2 * TOPO_STEPS)):
+            opt = PDSGDM(PDSGDMConfig(eta=TOPO_ETA, mu=0.9, p=P,
+                                      use_kernel=use_kernel),
+                         DenseComm(sched, device=DEVICE))
+            before = {n: fn.launches for n, fn in kernels.items()}
+            t1 = time.perf_counter()
+            params, _, hist = SimTrainer(
+                loss_fn, opt, device=DEVICE,
+                rounds_per_log=steps // P).train(
+                    {"x": torch.zeros((TOPO_K, TOPO_D), device=DEVICE)},
+                    lambda t: batch, steps, log_every=steps)
+            seconds = time.perf_counter() - t1
+            launched = {n: fn.launches - before[n]
+                        for n, fn in kernels.items()
+                        if fn.launches != before[n]}
+            x = params["x"].double().cpu()
+            consensus = float((x - x.mean(0)).norm(dim=1).mean())
+            got[(layout, name)] = (consensus, hist.comm_mb[-1])
+            print(f"topology_sweep/{name} ({layout} layout, {steps} steps),"
+                  f"{seconds / steps * 1e6:.1f},consensus={consensus:.4f};"
+                  f"comm_mb={hist.comm_mb[-1]:.6f};"
+                  f"cycle_rho={opt.comm.schedule.cycle_rho:.4f}; "
+                  f"launches {launched}")
+            if not math.isfinite(consensus):
+                missed.append(f"{layout} {name}: consensus {consensus}")
+        ring_c, ring_mb = got[(layout, "static_ring")]
+        peer_c, peer_mb = got[(layout, "one_peer_exp")]
+        print(f"topology_sweep/equal_bytes_one_peer_exp ({layout} layout),"
+              f"0.0,comm_mb={peer_mb:.6f};consensus={peer_c:.4f};"
+              f"consensus_ring_same_mb={ring_c:.4f};"
+              f"ring_over_one_peer={ring_c / peer_c:.2f}")
+        if not peer_c < 0.5 * ring_c:
+            missed.append(f"{layout}: one-peer consensus {peer_c} >= half "
+                          f"the ring's {ring_c}")
+        if not use_kernel and peer_mb != ring_mb:
+            missed.append(f"comm_mb {peer_mb} != {ring_mb}")
+    verdict("topology", missed, t0)
+
+
 def gossip_dispatch_phase(torch):
     """One kernel round each of PD on the ring and on exponential(16), MT
     and QG under the CPU profiler, with the optimizer's ``_gossip_mat``
@@ -1760,6 +2045,8 @@ def main(argv=None) -> int:
     fig2_phase(torch)
     fig3_phase(torch)
     noniid_phase(torch)
+    elastic_phase(torch)
+    topology_phase(torch)
     if args.profile:
         for path in PATHS:
             profile_round(torch, path)

@@ -1,5 +1,5 @@
-"""Core of the port: topologies and their time-varying schedules, the dense
-gossip backend, LR schedules, PD-SGDM (paper Algorithm 1), CPD-SGDM
+"""Core of the port: topologies, their time-varying schedules and elastic
+membership, the dense gossip backend, LR schedules, PD-SGDM (paper Algorithm 1), CPD-SGDM
 (Algorithm 2) with its compressors and wire codecs, C-SGDM, the
 momentum-free baselines, and MT-DSGDm and QG-DSGDm for non-IID data."""
 from repro_torch.core import schedules, topology
@@ -14,10 +14,12 @@ from repro_torch.core.cpdsgdm import CPDSGDM, CPDSGDMConfig
 from repro_torch.core.gossip import (CommBackend, DenseComm,
                                      gossip_bytes_per_round)
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
-from repro_torch.core.topology import (Topology, TopologySchedule, complete,
-                                       disconnected, exponential,
-                                       make_schedule, make_topology, ring,
-                                       torus)
+from repro_torch.core.topology import (MembershipSchedule, Topology,
+                                       TopologySchedule, active_edge_count,
+                                       complete, disconnected, exponential,
+                                       full_membership, make_schedule,
+                                       make_topology, masked_matrix,
+                                       membership_from_events, ring, torus)
 from repro_torch.core.tracking import (MTDSGDMConfig, MTDSGDm, QGDSGDMConfig,
                                        QGDSGDm)
 from repro_torch.core.wire import (IdentityCodec, QSGDCodec, RandKCodec,
@@ -28,6 +30,8 @@ __all__ = [
     "topology", "schedules",
     "Topology", "TopologySchedule", "ring", "torus", "complete",
     "exponential", "disconnected", "make_topology", "make_schedule",
+    "MembershipSchedule", "full_membership", "membership_from_events",
+    "masked_matrix", "active_edge_count",
     "CommBackend", "DenseComm", "gossip_bytes_per_round",
     "PDSGDM", "PDSGDMConfig", "CPDSGDM", "CPDSGDMConfig",
     "MTDSGDm", "MTDSGDMConfig", "QGDSGDm", "QGDSGDMConfig",

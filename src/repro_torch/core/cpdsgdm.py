@@ -30,10 +30,17 @@ matrix product, as the reference leaves it to XLA, with round r's W under
 a schedule — and the round ships nothing but the payload accounted by
 :meth:`CPDSGDM.bytes_per_comm_round` (round r's degree).
 
+Elastic membership: worker s commits its x̂ update (and ships q) in round
+r only if s and every copy-holder of s (the workers that receive from it)
+are active; a worker that does not commit keeps its x̂ bit for bit, and
+its drift rides into its next committed q.  The consensus uses round r's
+masked W.  Under churn the kernel round runs the comm on the tree at the
+round boundary, where the commit gate lives; a codec with a kernel format
+still packs there through the codec kernels (:meth:`_comm_kernel_wire`).
+
 Not ported: overlapped rounds (ROADMAP queue A item 9, refused by
-:class:`~repro_torch.core.pdsgdm.PDSGDM`), the sharded backend with its
-``xhat_nbrs`` copies (item 12) and membership with its commit masks
-(item 7; :class:`~repro_torch.core.gossip.DenseComm` refuses it).
+:class:`~repro_torch.core.pdsgdm.PDSGDM`) and the sharded backend with
+its ``xhat_nbrs`` copies and pruned exchanges (item 12).
 """
 from __future__ import annotations
 
@@ -44,8 +51,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.compression import Compressor, SignCompressor
-from repro_torch.core.gossip import CommBackend, gossip_bytes_per_round
+from repro_torch.core.gossip import (CommBackend, gossip_bytes_per_round,
+                                     select_round, worker_mask_like)
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
+from repro_torch.core.topology import exchanges
 from repro_torch.core.wire import leaf_keys, make_codec, round_trip_tree
 from repro_torch.kernels import LANE
 from repro_torch.kernels import ops as kops
@@ -74,6 +83,35 @@ class CPDSGDM(PDSGDM):
             self.codec = make_codec(self.compressor)
         except TypeError:                # custom operator without a codec
             self.codec = None
+        # elastic membership: the commit mask of every round of the joint
+        # cycle, on the host (bytes) and on the device (the x̂ gate)
+        self._commit_np = self._commit_t = None
+        if comm.membership is not None:
+            self._commit_np = np.stack(
+                [self._commit_mask(comm.topology_at(r), comm.active_at(r))
+                 for r in range(comm.round_cycle)])
+            self._commit_t = torch.tensor(self._commit_np,
+                                          device=comm.device)
+
+    # -- elastic membership: commit masks -------------------------------------
+    @staticmethod
+    def _commit_mask(top, act) -> np.ndarray:
+        """(K,) bool: worker ``s`` commits its error-compensation update in
+        a round where only ``act`` workers exchange, i.e. ``s`` and every
+        copy-holder of ``s`` (each worker that receives from it) are
+        active."""
+        act = np.asarray(act, dtype=bool)
+        ok = act.copy()
+        for (k, j, _w) in exchanges(top):
+            if not act[k]:
+                ok[j] = False
+        return ok
+
+    def _commit_at(self, r) -> torch.Tensor:
+        """(K,) bool commit mask of round ``r`` on the device (``r`` an int
+        or a 0-d tensor)."""
+        return select_round(self._commit_t, r, "a MembershipSchedule",
+                            "_commit_at(r)")
 
     # -- state ---------------------------------------------------------------
     def init(self, params) -> dict:
@@ -128,6 +166,13 @@ class CPDSGDM(PDSGDM):
             q = self._apply_Q(diff, r)
             new_state["xhat"] = tree_map(
                 lambda h, qq: h + qq.to(torch.float32), xhat, q)
+        if self._commit_t is not None:
+            # a worker that does not commit keeps its x̂ bit for bit
+            cm = self._commit_at(r)
+            new_state["xhat"] = tree_map(
+                lambda h_new, h_old: torch.where(
+                    worker_mask_like(cm, h_new), h_new, h_old),
+                new_state["xhat"], xhat)
         return params_new, new_state
 
     def _comm_kernel_wire(self, new_state, xhat, diff):
@@ -150,9 +195,10 @@ class CPDSGDM(PDSGDM):
     # -- kernel round (flatten-once matrix domain) ------------------------------
     @property
     def kernel_comm_supported(self) -> bool:
-        """Matrix-domain comm needs the kernel wire format and full
-        membership; other codecs (a sign block other than the lane, say)
-        fall back to the tree comm at the round boundary."""
+        """Matrix-domain comm needs the kernel wire format and no
+        membership schedule; other codecs (a sign block other than the
+        lane, say) and every codec under churn fall back to the tree comm
+        at the round boundary, where the commit gate lives."""
         return self._kernel_wire() and self.comm.membership is None
 
     def mat_state(self, plan, state) -> dict:
@@ -190,15 +236,24 @@ class CPDSGDM(PDSGDM):
         """Per-worker wire bytes of communication round ``r``; ``params`` is
         one worker's tree.  Codec wire: per leaf the codec's exact payload
         (padding blocks included, they really ship), × the degree.
-        ``packed_wire=False`` ships the full-precision f32 q."""
+        ``packed_wire=False`` ships the full-precision f32 q.  Under
+        membership only committing workers ship, each to all its
+        copy-holders: × committers / K (a float where that is not 1)."""
+        frac = 1.0
+        if self._commit_np is not None:
+            cm = self._commit_np[r % self._commit_np.shape[0]]
+            frac = float(cm.sum()) / cm.shape[0]
+        sizes = [int(np.prod(tuple(l.shape), dtype=np.int64))
+                 for l in tree_leaves(params)]
         if self.config.packed_wire and self.codec is not None:
-            payload = sum(
-                self.codec.wire_bytes(int(np.prod(tuple(l.shape),
-                                                  dtype=np.int64)))
-                for l in tree_leaves(params))
-            return self.comm.topology_at(r).degree * payload
+            payload = sum(self.codec.wire_bytes(n) for n in sizes)
+            base = self.comm.topology_at(r).degree * payload
+            return base if frac == 1.0 else base * frac
         bits = (32.0 if self.codec is not None
                 else self.compressor.wire_bits_per_element(
                     tree_leaves(params)[0].dtype))
+        if self._commit_np is not None:
+            base = self.comm.topology_at(r).degree * sum(sizes) * bits / 8.0
+            return int(base) if frac == 1.0 else float(base * frac)
         return gossip_bytes_per_round(params, self.comm,
                                       bits_per_element=bits, r=r)

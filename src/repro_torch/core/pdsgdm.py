@@ -1,7 +1,9 @@
 """PD-SGDM — Periodic Decentralized Momentum SGD (paper Algorithm 1).
 
 Port of ``src/repro/core/pdsgdm.py:36-620`` on the dense simulation
-backend, over a static graph or a time-varying schedule.
+backend, over a static graph or a time-varying schedule, with or without
+elastic membership (a churn round mixes with its masked W through
+``comm.mix`` and is charged its live edges only).
 Per worker k, per iteration t::
 
     m⁽ᵏ⁾ₜ   = μ m⁽ᵏ⁾ₜ₋₁ + ∇F(x⁽ᵏ⁾ₜ; ξ⁽ᵏ⁾ₜ)
@@ -192,8 +194,8 @@ class PDSGDM:
     def _mat_wire_static(self) -> bool:
         """Whether :meth:`_gossip_mat` runs the shift-structured AXPY wire,
         whose neighbour exchanges ship the ``plan.used_rows`` extent: a
-        static graph (period 1), full membership, no perms, and neither
-        complete nor disconnected.  Every other graph mixes through
+        static graph (period 1), no membership schedule, no perms, and
+        neither complete nor disconnected.  Every other graph mixes through
         ``comm.mix`` on the matrix."""
         top = self.comm.topology
         return (self.comm.period == 1

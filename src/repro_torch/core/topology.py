@@ -1,7 +1,7 @@
 """Gossip topologies, mixing matrices and time-varying schedules (numpy
 only).
 
-Port of ``src/repro/core/topology.py:61-575``.  A topology holds a
+Port of ``src/repro/core/topology.py:61-780``.  A topology holds a
 doubly-stochastic mixing matrix ``W`` over K workers (paper §3.2,
 Assumption 1) and its neighbour structure: weighted circulant shifts per
 worker-grid axis, which the kernel path turns into shifted views mixed by
@@ -9,17 +9,19 @@ the fused AXPY, and, for non-circulant graphs such as random matchings,
 explicit per-axis permutations (``perms``).  A :class:`TopologySchedule` is
 a periodic sequence ``W_1, …, W_T``: round ``r`` gossips with
 ``W_{(r mod T)+1}``; what governs convergence is the mixing of the cycle
-product ``W_T ⋯ W_1`` (:attr:`TopologySchedule.cycle_rho`).
+product ``W_T ⋯ W_1`` (:attr:`TopologySchedule.cycle_rho`).  A
+:class:`MembershipSchedule` is elastic membership: per round, which workers
+hold state (``live``) and which exchange (``active``); :func:`masked_matrix`
+is a round's mixing matrix with only the active workers exchanging.
 
 Not in this module yet: hierarchical graphs and their schedule (ROADMAP
-queue A item 10), and membership schedules with their masked matrices
-(item 7).
+queue A item 10).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -31,6 +33,8 @@ __all__ = [
     "static_schedule", "one_peer_exponential_schedule",
     "alternating_axes_schedule", "random_matching_schedule",
     "hierarchical_schedule",
+    "MembershipSchedule", "full_membership", "membership_from_events",
+    "masked_matrix", "active_edge_count", "exchanges",
 ]
 
 _HIER = "hierarchical gossip is ROADMAP queue A item 10"
@@ -437,3 +441,194 @@ def make_schedule(name: str, worker_grid: Sequence[int], *,
         T = rounds or max(2, math.ceil(math.log2(max(K, 2))))
         return random_matching_schedule(K, T, seed=seed)
     raise ValueError(f"unknown topology schedule {name!r}")
+
+
+# --------------------------------------------------------- elastic membership
+@dataclasses.dataclass(frozen=True)
+class MembershipSchedule:
+    """Per-round worker liveness for elastic membership, period ``M``.
+
+    Two (M, K) bool masks, indexed ``[r % M, k]``:
+
+    * ``live``: worker k still holds state in round r.  A dead worker has
+      left the fleet: its row and column are masked out of the round's
+      mixing matrix and none of its edges ship bytes.
+    * ``active``: worker k takes part in round r's exchange.
+      ``active ⊆ live``: a live worker that is not active is a
+      **straggler**: it keeps training locally but skips the exchange
+      (self-weight 1, its masked row is ``e_k``).
+
+    The mixing matrix reads only ``active``; ``live`` drives the chaos
+    harness's metrics (loss and consensus over live workers) and revival
+    warm-starts.  The round index comes from the optimizer's step counter,
+    as for a :class:`TopologySchedule`.
+    """
+
+    name: str
+    live: np.ndarray      # (M, K) bool
+    active: np.ndarray    # (M, K) bool, active ⊆ live
+
+    @property
+    def period(self) -> int:
+        return int(self.live.shape[0])
+
+    @property
+    def n_workers(self) -> int:
+        return int(self.live.shape[1])
+
+    def live_at(self, r: int) -> np.ndarray:
+        """(K,) bool: workers holding state in round ``r``."""
+        return np.asarray(self.live[int(r) % self.period], dtype=bool)
+
+    def active_at(self, r: int) -> np.ndarray:
+        """(K,) bool: workers exchanging in round ``r``."""
+        return np.asarray(self.active[int(r) % self.period], dtype=bool)
+
+    def all_active(self) -> bool:
+        return bool(np.all(self.active))
+
+    def validate(self) -> None:
+        live = np.asarray(self.live)
+        active = np.asarray(self.active)
+        if live.shape != active.shape or live.ndim != 2:
+            raise ValueError(
+                f"membership {self.name}: live {live.shape} and active "
+                f"{active.shape} must both be (rounds, K)")
+        if live.dtype != np.bool_ or active.dtype != np.bool_:
+            raise ValueError(f"membership {self.name}: masks must be bool")
+        if np.any(active & ~live):
+            raise ValueError(
+                f"membership {self.name}: active ⊄ live (a dead worker "
+                "cannot exchange)")
+        if not np.all(live.any(axis=1)):
+            raise ValueError(
+                f"membership {self.name}: some round has no live worker "
+                "(nobody left to warm-start from)")
+
+
+def full_membership(K: int, name: str = "full") -> MembershipSchedule:
+    """Everyone live and active every round (period 1): every masked
+    quantity equals its unmasked form."""
+    ones = np.ones((1, K), dtype=bool)
+    return MembershipSchedule(name, ones, ones.copy())
+
+
+def membership_from_events(K: int, n_rounds: int,
+                           events: Sequence) -> MembershipSchedule:
+    """A period-``n_rounds`` membership from a fault script.
+
+    ``events`` holds ``(round, kind, worker)`` triples, or objects with
+    those attributes:
+
+    * ``"kill"``: the worker leaves the fleet at that round (dead from
+      then on, until revived);
+    * ``"revive"``: the worker rejoins at that round (the chaos harness
+      warm-starts its state from a live donor before the round runs);
+    * ``"straggle"``: the worker skips that one round's exchange but
+      stays live and keeps computing.
+
+    Workers start live; the masks depend only on the event list.
+    """
+    def _fields(e):
+        if hasattr(e, "round"):
+            return int(e.round), str(e.kind), int(e.worker)
+        r, kind, w = e
+        return int(r), str(kind), int(w)
+
+    by_round: dict = {}
+    for e in events:
+        r, kind, w = _fields(e)
+        if kind not in ("kill", "revive", "straggle"):
+            raise ValueError(f"unknown membership event kind {kind!r}")
+        if not (0 <= w < K) or not (0 <= r < n_rounds):
+            raise ValueError(f"membership event out of range: {(r, kind, w)}")
+        by_round.setdefault(r, []).append((kind, w))
+
+    live = np.ones((n_rounds, K), dtype=bool)
+    straggle = np.zeros((n_rounds, K), dtype=bool)
+    alive = np.ones(K, dtype=bool)
+    for r in range(n_rounds):
+        for (kind, w) in by_round.get(r, []):
+            if kind == "kill":
+                alive[w] = False
+            elif kind == "revive":
+                alive[w] = True
+            else:
+                straggle[r, w] = True
+        live[r] = alive
+    ms = MembershipSchedule("events", live, live & ~straggle)
+    ms.validate()
+    return ms
+
+
+def exchanges(top: Topology, axis: Optional[int] = None):
+    """``(k, j, w)`` for every exchange between two distinct workers: k
+    receives w of j's value.  The weighted shifts then the perms of one
+    ``axis``, as :meth:`Topology.structure_matrix` walks them, or of every
+    axis in ascending order."""
+    grid = top.axis_sizes
+    axes = (sorted({ax for (ax, _, _) in top.shifts}
+                   | {ax for (ax, _, _) in top.perms})
+            if axis is None else [axis])
+    for ax in axes:
+        n = grid[ax]
+        for (a, sh, w) in top.shifts:
+            if a != ax or sh == 0:
+                continue
+            for k in range(top.n_workers):
+                idx = list(np.unravel_index(k, grid))
+                idx[ax] = (idx[ax] + sh) % n
+                j = int(np.ravel_multi_index(idx, grid))
+                if j != k:
+                    yield k, j, w
+        for (a, recv, w) in top.perms:
+            if a != ax:
+                continue
+            for k in range(top.n_workers):
+                idx = list(np.unravel_index(k, grid))
+                idx[ax] = recv[idx[ax]]
+                j = int(np.ravel_multi_index(idx, grid))
+                if j != k:
+                    yield k, j, w
+
+
+def masked_matrix(top: Topology, active) -> np.ndarray:
+    """A round's mixing matrix with only ``active`` workers exchanging, in
+    float64: the structure matrix's per-axis product, each axis factor
+    ``A`` masked per worker k::
+
+        A'_kj = A_kj   if k ≠ j and both k and j are active
+              = 0      if k ≠ j and either is not
+        A'_kk = 1 − Σ_{j≠k} A'_kj      (lost neighbour mass goes to self)
+
+    Every row sums to 1; an inactive worker's row is ``e_k`` and no active
+    row reads its column.  For a symmetric base W the result is doubly
+    stochastic over the active set.  With every worker active it equals
+    ``structure_matrix()``.  The factors multiply as ``W = A @ W``, axis
+    by axis in ascending order.
+    """
+    act = np.asarray(active, dtype=bool)
+    K = top.n_workers
+    if act.shape != (K,):
+        raise ValueError(f"active mask shape {act.shape} != ({K},)")
+    axes = sorted({ax for (ax, _, _) in top.shifts}
+                  | {ax for (ax, _, _) in top.perms})
+    W = np.eye(K)
+    for ax in axes:
+        A = np.zeros((K, K))
+        for (k, j, w) in exchanges(top, ax):
+            if act[k] and act[j]:
+                A[k, j] += w
+        for k in range(K):
+            A[k, k] = 1.0 - A[k].sum()
+        W = A @ W
+    return W
+
+
+def active_edge_count(top: Topology, active) -> int:
+    """Directed exchanges that ship in a round where only ``active``
+    workers take part: one per (receiver, source) pair with both ends
+    active, per weighted shift or perm.  With everyone active this is
+    ``K × degree``."""
+    act = np.asarray(active, dtype=bool)
+    return sum(1 for (k, j, _w) in exchanges(top) if act[k] and act[j])

@@ -32,13 +32,19 @@ layout.
   x − η(μm + ĝ), and discards its m; the buffer update is plain elementwise
   torch, as the reference leaves it to XLA.  One tensor on the wire.
 
+Elastic membership (a ``DenseComm`` with a membership schedule): both mix
+with round r's masked W.  A straggler's masked row is ``e_k``, so MT's
+compressed tracking keeps its raw c, not its own Q(c), and the round runs
+on the tree at the boundary; QG's straggler folds its own round
+displacement into m, and needs no code.  Bytes: the correction wire ×
+the round's active edges per worker.
+
 Not ported, and refused at construction: overlapped rounds and MT's
 drip refresh (ROADMAP queue A item 9, refused by
 :class:`~repro_torch.core.pdsgdm.PDSGDM`), the sharded backend with its
-per-neighbour correction payloads (item 12, refused there too), elastic
-membership with its masked correction wire (item 7, refused by
-:class:`~repro_torch.core.gossip.DenseComm`) and hierarchical gossip's
-per-level bytes (item 10, :meth:`MTDSGDm.hier_bytes_per_level`).
+per-neighbour correction payloads (item 12, refused there too) and
+hierarchical gossip's per-level bytes (item 10,
+:meth:`MTDSGDm.hier_bytes_per_level`).
 """
 from __future__ import annotations
 
@@ -49,7 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.compression import Compressor
-from repro_torch.core.gossip import CommBackend, gossip_bytes_per_round
+from repro_torch.core.gossip import (CommBackend, gossip_bytes_per_round,
+                                     worker_mask_like)
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.wire import make_codec, round_trip_tree
 from repro_torch.kernels import LANE
@@ -134,6 +141,13 @@ class MTDSGDm(PDSGDM):
             c = round_trip_tree(self.codec, c, r)
         new_state = dict(state)
         new_state["c"] = self.comm.mix(c, r=r)
+        am = self.comm.active_mask(r)
+        if self.codec is not None and am is not None:
+            # a straggler's masked row is e_k, which would quantize its c
+            # in place with no exchange: it keeps the raw c
+            new_state["c"] = tree_map(
+                lambda mc, cc: torch.where(worker_mask_like(am, mc), mc, cc),
+                new_state["c"], state["c"])
         return self.comm.mix(params, r=r), new_state
 
     # -- kernel round (flatten-once matrix domain) ------------------------------
@@ -144,9 +158,12 @@ class MTDSGDm(PDSGDM):
     @property
     def kernel_comm_supported(self) -> bool:
         """Full-precision c mixes like x; compressed tracking needs the
-        codec's rows format at the lane block (a rand-k or sign-64 wire
-        falls back to the tree comm at the round boundary)."""
-        return self.codec is None or self._kernel_wire()
+        codec's rows format at the lane block, and no membership (a
+        rand-k or sign-64 wire, or any codec under churn, falls back to
+        the tree comm at the round boundary, where the straggler pin
+        lives)."""
+        return self.codec is None or (self._kernel_wire()
+                                      and self.comm.membership is None)
 
     def mat_state(self, plan, state) -> dict:
         mats = super().mat_state(plan, state)
@@ -192,7 +209,8 @@ class MTDSGDm(PDSGDM):
     def bytes_per_comm_round(self, params, r: int = 0) -> int:
         """The 2-tensor payload: full-precision x plus the correction wire
         (the codec's exact bytes when compressed, else f32 on the same
-        wire as x), both × round ``r``'s degree."""
+        wire as x), both × round ``r``'s degree; under membership × the
+        round's active edges per worker."""
         top = self.comm.topology_at(r)
         if top.name == "hierarchical":
             return self.hier_bytes_per_level(params, r=r)["inter"]
@@ -207,7 +225,7 @@ class MTDSGDm(PDSGDM):
             c_payload = self._mat_wire_bytes(params)
         else:
             c_payload = sum(sizes) * min(4, self.comm.wire_itemsize)
-        return x_bytes + top.degree * c_payload
+        return x_bytes + self.comm.edges_per_worker(r) * c_payload
 
     def hier_bytes_per_level(self, params, r: int = 0) -> dict:
         raise NotImplementedError(

@@ -48,7 +48,8 @@ from repro_torch.convert import (params_from_reference,  # noqa: E402
 from repro_torch.core import (CPDSGDM, CSGDM, DenseComm,  # noqa: E402
                               IdentityCompressor, MTDSGDm, QGDSGDm,
                               QSGDCompressor,
-                              SignCompressor, TopKCompressor, make_optimizer,
+                              SignCompressor, TopKCompressor,
+                              full_membership, make_optimizer,
                               make_schedule, make_topology, ring)
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
@@ -438,8 +439,10 @@ def test_optimizer_factory_builds_the_baselines():
         make_topology("hierarchical", (2, 4))
     with pytest.raises(NotImplementedError, match="item 10"):
         make_schedule("hier_one_peer", (2, 4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DenseComm(ring(K), membership=object(), device="cpu")
+    # elastic membership is ported; the overlapped rounds' stale mix is not
+    churn = DenseComm(ring(K), membership=full_membership(K), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        churn.stale_mix({}, r=0)
     for name in ("cpd_sgdm", "pd_sgd", "mt_dsgdm", "qg"):
         with pytest.raises(NotImplementedError, match="item 9"):
             make_optimizer(name, comm, overlap=True)

@@ -611,3 +611,88 @@ def test_tracking_kernel_round_on_card_matches_cpu_round(name):
             np.testing.assert_allclose(out["cuda"][key][n].cpu().numpy(),
                                        want.numpy(), atol=2e-5,
                                        err_msg=f"{key}/{n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cpd_sgdm", "mt_dsgdm"])
+def test_churn_rounds_on_card_match_cpu_rounds(name):
+    """CPD-SGDM and MT-DSGDm with the sign wire under the churn script of
+    ``chip_smoke.py`` (K = 8 ring; round 0 kills worker 3, round 1 also
+    stalls worker 6, round 2 revives 3), its three rounds on the card on
+    the kernel layout against the plain rounds on the CPU from the same
+    inputs (p = 4, a multi-leaf tree whose leaves end mid-row).  CPD packs
+    on the tree at the round boundary through the sign kernels (1 pack and
+    1 unpack a round), MT mixes its quantized correction through the
+    per-leaf codec (no sign launch).  Params, m and c within atol 2e-5;
+    x̂ too, but for elements whose drift sits within rounding of a sign
+    flip (at most 8, each by at most 2·max|drift|).  On the card, x̂ of the
+    dead worker 3 and of its neighbours 2 and 4, which cannot commit, stays
+    bit for bit at x₀ through rounds 0 and 1; MT's straggler 6 keeps its
+    raw c in round 1, not its own Q(c), whose 2,145 entries of ``w1`` (3
+    sign blocks) would take at most 3 magnitudes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import (DenseComm, SignCompressor, make_optimizer,
+                                  membership_from_events, ring)
+    k, p = 8, 4
+    ms = membership_from_events(k, 3, [(0, "kill", 3), (1, "straggle", 6),
+                                       (2, "revive", 3)])
+    rng = np.random.default_rng(2)
+    init = rng.standard_normal((1, 33, 65), dtype=np.float32)
+    leaves = {"w1": np.repeat(init, k, axis=0),
+              "w2": rng.standard_normal((k, 7), dtype=np.float32)}
+    targets = rng.standard_normal((3, p, k), dtype=np.float32)
+
+    def grads_fn(pp, batch):
+        def g(x):
+            return x - batch["t"].reshape((k,) + (1,) * (x.dim() - 1))
+        return torch.zeros((), device=batch["t"].device), \
+            {n: g(x) for n, x in pp.items()}
+
+    out, launches, frozen, c6 = {}, {}, [], None
+    for dev in ("cuda", "cpu"):
+        kw = ({"gamma": 0.4} if name == "cpd_sgdm" else
+              {"compressor": SignCompressor()})
+        opt = make_optimizer(name, DenseComm(ring(k), membership=ms,
+                                             device=dev),
+                             eta=0.05, mu=0.9, p=p, weight_decay=1e-4,
+                             use_kernel=dev == "cuda", **kw)
+        params = {n: torch.from_numpy(v).to(dev) for n, v in leaves.items()}
+        state = opt.init(params)
+        counters = (momentum_update, gossip_mix, sign_pack, sign_unpack)
+        before = [f.launches for f in counters]
+        for r in range(3):
+            params, state, _ = opt.round(
+                state, params, grads_fn,
+                {"t": torch.from_numpy(targets[r]).to(dev)})
+            if dev == "cuda" and name == "cpd_sgdm" and r < 2:
+                frozen.append(all(torch.equal(state["xhat"]["w1"][w],
+                                              torch.from_numpy(init[0])
+                                              .to(dev)) for w in (2, 3, 4)))
+            if dev == "cuda" and name == "mt_dsgdm" and r == 1:
+                c6 = state["c"]["w1"][6].clone()
+        torch.cuda.synchronize()
+        launches[dev] = tuple(f.launches - b for f, b in zip(counters,
+                                                            before))
+        out[dev] = {"x": params, **{key: state[key] for key in
+                                    ("m", "c", "xhat") if key in state}}
+    codec = 3 if name == "cpd_sgdm" else 0
+    mixes = 0 if name == "cpd_sgdm" else 2 * 3 * p
+    assert launches == {"cuda": (3 * p, mixes, codec, codec),
+                        "cpu": (0, 0, 0, 0)}
+    if name == "cpd_sgdm":
+        assert frozen == [True, True]
+    else:
+        assert torch.unique(c6.abs()).numel() > 3
+    drift = max(float((out["cpu"]["x"][n] - torch.from_numpy(v)).abs().max())
+                for n, v in leaves.items())
+    for key, tree in out["cpu"].items():
+        for n, want in tree.items():
+            got = out["cuda"][key][n].cpu()
+            if key != "xhat":
+                np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                           atol=2e-5, err_msg=f"{key}/{n}")
+                continue
+            far = ~torch.isclose(got, want, rtol=1e-3, atol=1e-4)
+            assert int(far.sum()) <= 8, n
+            assert bool(((got - want).abs()[far] <= 2 * drift).all()), n

@@ -106,8 +106,12 @@ def test_gossip_bytes_equal_reference(name):
 
 
 def test_dense_comm_refuses_what_this_slice_does_not_port():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DenseComm(top.ring(8), membership=object(), device="cpu")
+    # elastic membership is ported (tests/test_torch_membership.py); the
+    # overlapped rounds' stale mix is not
+    churn = DenseComm(top.ring(8), membership=top.full_membership(8),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        churn.stale_mix({}, r=0)
     with pytest.raises(NotImplementedError, match="item 10"):
         DenseComm(top.ring(8), wire_dtype="bfloat16", device="cpu")
     with pytest.raises(ValueError):

@@ -33,8 +33,8 @@ from repro.models import resnet as r_resnet  # noqa: E402
 from repro.train.trainer import SimTrainer as RSimTrainer  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.core import (DenseComm, exponential,  # noqa: E402
-                              make_optimizer, make_schedule, make_topology,
-                              ring, schedules, torus)
+                              full_membership, make_optimizer, make_schedule,
+                              make_topology, ring, schedules, torus)
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 from repro_torch.kernels.ops import KernelPlan  # noqa: E402
@@ -307,5 +307,7 @@ def test_optimizer_factory_refuses_what_this_slice_does_not_port():
         make_topology("hierarchical", (2, 4))
     with pytest.raises(NotImplementedError, match="item 10"):
         make_schedule("hier_one_peer", (2, 4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DenseComm(ring(K), membership=object(), device="cpu")
+    # elastic membership is ported; the overlapped rounds' stale mix is not
+    churn = DenseComm(ring(K), membership=full_membership(K), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        churn.stale_mix({}, r=0)

@@ -37,8 +37,8 @@ from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.core import (DenseComm, MTDSGDMConfig,  # noqa: E402
                               MTDSGDm, PDSGDM, QGDSGDMConfig, QGDSGDm,
                               RandKCompressor, SignCompressor,
-                              TopKCompressor, exponential, make_optimizer,
-                              make_schedule, ring)
+                              TopKCompressor, exponential, full_membership,
+                              make_optimizer, make_schedule, ring)
 from repro_torch.core.topology import Topology  # noqa: E402
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
@@ -430,8 +430,10 @@ def test_factory_and_refusals():
     for name in ("mt_dsgdm", "qg_dsgdm"):
         with pytest.raises(NotImplementedError, match="item 9"):
             make_optimizer(name, comm, overlap=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DenseComm(ring(K), membership=object(), device="cpu")
+    # elastic membership is ported; the overlapped rounds' stale mix is not
+    churn = DenseComm(ring(K), membership=full_membership(K), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        churn.stale_mix({}, r=0)
     hier = Topology("hierarchical", np.eye(4), ((0, 0, 1.0),), (2, 2))
     opt = make_optimizer("mt", DenseComm(hier, device="cpu"))
     w = {"w": torch.zeros(10)}
