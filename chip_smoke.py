@@ -35,11 +35,14 @@ matmuls:
    ResNet-20's 310 used rows, a 2 × 4 torus (one launch per axis) and a
    ragged ring, through ``PDSGDM._gossip_mat`` too, and on 1 … 9, 17 and
    33 distinct matrices (33 chains two launches) and MT's two tracking
-   shapes (n = 2 with weights (1, λ), n = 3 with (1, 1, −1)); its times:
+   shapes (n = 2 with weights (1, λ), n = 3 with (1, 1, −1)), the
+   overlapped round's landing (1, 1) and MT's drip (1, 1/p), and with the
+   neighbour views read from a second matrix (the bf16 wire's round trip
+   of the payload) on the ring, the torus and a ragged ring; its times:
    the ring's and exp16's gossip steps beside ``W @ x`` (the uncut mix,
-   same bytes and operations) and the plain version, n = 2 beside
-   ``torch.add``, and n = 3;
-2. drives fourteen paths through the port's entry points, each once, with
+   same bytes and operations) and the plain version, the ring's bf16 step
+   and its launch beside them, n = 2 beside ``torch.add``, and n = 3;
+2. drives twenty paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
    ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
@@ -52,7 +55,11 @@ matmuls:
    (``DenseComm(ring(8), membership=membership_from_events(8, 3, ...))``:
    round 0 kills worker 3, round 1 also stalls worker 6, round 2 revives
    3) PD-SGDM, CPD-SGDM with the sign wire and MT-DSGDm with sign
-   tracking (η = 0.05), all through ``make_optimizer`` →
+   tracking (η = 0.05); with overlapped rounds (``overlap=True``) PD-SGDM,
+   MT-DSGDm and QG-DSGDm (η = 0.05) on the ring and PD-SGDM under the
+   churn script; PD-SGDM on ``DenseComm(ring(8), wire_dtype="bfloat16")``
+   and on ``hierarchical(2, 4)`` (the factored two-level round on the
+   matrix, no gossip launch); all through ``make_optimizer`` →
    ``SimTrainer.train`` on the kernel layout, ResNet-20 at width 16, K = 8
    workers on a ring where not said otherwise, batch 16 per worker,
    p = 4, η = 0.1, μ = 0.9, weight decay 1e-4, 14 steps (3 rounds and a
@@ -62,14 +69,16 @@ matmuls:
    lookups of batch 64, p = 4, η = 0.05, γ = 0.4 (the reference's
    ``benchmarks/embedding_wire.py``), 3 rounds and a 2-step tail;
 3. holds one kernel-path round against one round of the plain path from
-   the same init on the same batches, for each of the fourteen (the
-   one-peer path over its 3-round cycle, the churn paths each round of
-   theirs from the same start): for PD-SGDM,
+   the same init on the same batches, for each of the twenty (the
+   one-peer path over its 3-round cycle, the churn and overlapped paths
+   each round of theirs from the same start, 3 or 4 rounds so that every
+   stale matrix lands): for PD-SGDM,
    C-SGDM, MT-DSGDm and QG-DSGDm the tree round, for every CPD-SGDM wire
    the round through the per-leaf codec, which launches no codec kernel;
-   the params, m and the tracking state; and profiles one kernel round of
-   PD on the ring and on ``exp16``, MT and QG: their gossip dispatches no
-   ``aten::roll`` and no ``aten::constant_pad_nd``;
+   the params, m, the tracking state and the in-flight payload; and
+   profiles one kernel round of PD on the ring, on ``exp16`` and on the
+   bf16 wire, MT and QG, and overlapped PD and MT: their gossip dispatches
+   no ``aten::roll`` and no ``aten::constant_pad_nd``;
 4. runs Fig. 1, Fig. 2, Fig. 3 and the non-IID sweep's α = 0.1 claim at
    the reference's settings (ResNet-20 width 4, K = 8 ring, batch 16, the
    kernel layout, cuDNN deterministic): ``fig1_phase`` (C-SGDM and PD at
@@ -79,7 +88,8 @@ matmuls:
    sign-64 at 150 steps against PD at 90) and ``noniid_phase`` (D-SGD,
    PD, QG and MT at p = 1, 2, 4 on Dirichlet(0.1) labels, 64 steps,
    judged by the global loss of the averaged model through the trainer's
-   ``eval_fn``);
+   ``eval_fn``; at p = 4 MT again with overlapped rounds, for
+   ``noniid/claim_p4_overlap``);
 5. holds the claims of ``benchmarks/elastic_sweep.py`` (``elastic_phase``:
    PD, CPD sign, MT and QG at churn 0, 0.1 and 0.25 through
    ``repro_torch.testing.run_dense_chaos`` on the kernel layout: every
@@ -132,6 +142,7 @@ EMB_HYPER = dict(eta=0.05, mu=0.9, p=P, gamma=0.4, weight_decay=0.0)
 EXP_K = 16                  # exponential(16): 9 shifts on one axis
 TORUS = (2, 4)              # a torus of K = 8: two axes, one launch each
 ONE_PEER = "one_peer_exp"   # period 3 at K = 8
+HIER = (2, 4)               # hierarchical(2, 4): 2 nodes of 4 workers
 # MT-DSGDm and QG-DSGDm run at benchmarks/noniid_sweep.py's step: at 0.1
 # MT's tracked direction diverges at p = 4
 TRACK_ETA = 0.05
@@ -173,7 +184,17 @@ WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
               # 81,840 B × 5/8, 2/8 and 8/8 committing workers
               "cpd_sgdm_sign_churn": (51_150, 20_460, 81_840),
               # (272,282 × 4 + 40,920 B) × 1.5, 1 and 2 active edges
-              "mt_dsgdm_sign_churn": (1_695_072, 1_130_048, 2_260_096)}
+              "mt_dsgdm_sign_churn": (1_695_072, 1_130_048, 2_260_096),
+              # overlapped rounds: one payload exchange a round, as above
+              "pd_sgdm_overlap": (2_539_520,),
+              "mt_dsgdm_overlap": (5_079_040,),
+              "qg_dsgdm_overlap": (2_539_520,),
+              "pd_sgdm_overlap_churn": (1_633_692, 1_089_128, 2_178_256),
+              # the bf16 wire: 2 × 310 × 1024 × 2 B
+              "pd_sgdm_bf16": (1_269_760,),
+              # hierarchical(2, 4): the inter level, 1 × 272,282 × 4 B over
+              # the node size 4
+              "pd_sgdm_hier": (272_282,)}
 # the lines of nvcc's -Xptxas -v output that are printed: each kernel's
 # name, then its registers, shared memory and spills
 PTXAS_WORDS = ("Function properties", "registers", "spill")
@@ -292,15 +313,17 @@ def turns(torch, fns: dict) -> dict:
     return {name: statistics.mean(v) for name, v in got.items()}
 
 
-def gossip_step_setup(torch, ops, path: str, top=None):
-    """The optimizer of ``path`` (or PD-SGDM on ``top``), the kernel plan
-    of ResNet-20 width 16 over its workers, and a random kernel matrix of
-    that plan: what ``PDSGDM._gossip_mat`` takes in the round."""
+def gossip_step_setup(torch, ops, path: str, top=None, wire="float32"):
+    """The optimizer of ``path`` (or PD-SGDM on ``top`` over the ``wire``
+    dtype), the kernel plan of ResNet-20 width 16 over its workers, and a
+    random kernel matrix of that plan: what ``PDSGDM._gossip_mat`` takes
+    in the round."""
     if top is None:
         opt = make_opt(path, use_kernel=True)
     else:
         from repro_torch.core import DenseComm, make_optimizer
-        opt = make_optimizer("pd_sgdm", DenseComm(top, device=DEVICE),
+        opt = make_optimizer("pd_sgdm", DenseComm(top, wire_dtype=wire,
+                                                  device=DEVICE),
                              use_kernel=True, **HYPER)
     params = stacked_init(torch, 3, opt.comm.topology.n_workers)
     plan = ops.KernelPlan.for_tree(params, worker_dim=True)
@@ -310,10 +333,12 @@ def gossip_step_setup(torch, ops, path: str, top=None):
     return opt, plan, x
 
 
-def plain_gossip(top, x, lim):
+def plain_gossip(top, x, lim, bf16=False):
     """The plain gossip of a shift graph on the kernel layout: per axis,
     the wire cut, the worker-grid roll, the re-pad and the left-to-right
-    sum (``ref.gossip_shift_ref``)."""
+    sum (``ref.gossip_shift_ref``); with ``bf16`` the neighbour views read
+    the bf16 round trip of the axis's payload."""
+    from repro_torch.core.gossip import bf16_round_trip
     from repro_torch.kernels.ref import gossip_shift_ref
     per_axis: dict = {}
     for (ax, sh, w) in top.shifts:
@@ -321,7 +346,8 @@ def plain_gossip(top, x, lim):
     for ax in sorted(per_axis):
         shifts, ws = zip(*per_axis[ax])
         x = gossip_shift_ref(x, shifts, ws, grid=top.axis_sizes, axis=ax,
-                             lim=lim)
+                             lim=lim, nbr=bf16_round_trip(x) if bf16
+                             else None)
     return x
 
 
@@ -336,11 +362,17 @@ def gossip_kernel_phase(torch, ops, bw, f32_peak) -> dict:
     (8, 333, 1024) ring cut at 201 rows; and ``PDSGDM._gossip_mat`` on the
     ring, ``exp16`` and the torus with the real plan.  Distinct matrices:
     n = 1 … 9, 17 and 33 on 333 rows (33 chains two launches), MT's
-    (1, λ) and (1, 1, −1) on (4096, 1024) and 333 rows.  Times, in the
-    same window in two turns: the ring and ``exp16`` steps in both designs
-    beside their plain version and ``W @ x``; n = 2 beside ``torch.add``;
-    n = 3."""
+    (1, λ) and (1, 1, −1) on (4096, 1024) and 333 rows, the overlapped
+    round's landing (1, 1) and MT's drip (1, 1/p).  The bf16 wire: the
+    shifted mix with its neighbour views read from a second matrix (the
+    payload's bf16 round trip, ``nbr``) on the ring, the torus and the
+    ragged ring, and ``_gossip_mat`` of ``DenseComm(ring(8),
+    wire_dtype="bfloat16")``.  Times, in the same window in two turns: the
+    ring and ``exp16`` steps in both designs beside their plain version and
+    ``W @ x``, and the ring's bf16 step and its kernel launch (``nbr``
+    given) beside them; n = 2 beside ``torch.add``; n = 3."""
     from repro_torch.core import exponential, ring, torus
+    from repro_torch.core.gossip import bf16_round_trip
     from repro_torch.kernels.gossip_mix import (gossip_mix,
                                                 gossip_mix_shifted,
                                                 launch_count)
@@ -382,6 +414,39 @@ def gossip_kernel_phase(torch, ops, bw, f32_peak) -> dict:
         print(f"kernel gossip_mix {label} {tuple(x.shape)} lim={lim}, "
               f"{len(top.shifts)} views on {len(per_axis)} axes: bit-exact "
               f"in designs {', '.join(designs)}, one launch per axis")
+    # the bf16 wire: views of two matrices, the self view from x and the
+    # neighbour views from nbr, the f32 round trip of the bf16 payload
+    for label, top, n_rows, lim in (("ring", ring(K), rows, used),
+                                    ("torus", torus(TORUS), rows, used),
+                                    ("ring ragged", ring(K), 333, 201)):
+        x = torch.randn((top.n_workers, n_rows, LANE), generator=gen,
+                        device=dev)
+        x[0, lim, :8] = -0.0
+        per_axis: dict = {}
+        for (ax, sh, w) in top.shifts:
+            per_axis.setdefault(ax, []).append((sh, w))
+        before = gossip_mix.launches
+        y = x
+        for ax in sorted(per_axis):
+            shifts, ws = zip(*per_axis[ax])
+            y = gossip_mix_shifted(y, grid=top.axis_sizes, axis=ax,
+                                   shifts=shifts, weights=ws, lim=lim,
+                                   nbr=bf16_round_trip(y))
+        same_bits(torch, "gossip_mix", (y,),
+                  (plain_gossip(top, x, lim, bf16=True),), results,
+                  f"{label}, bf16 neighbours")
+        if gossip_mix.launches - before != len(per_axis):
+            raise AssertionError(f"gossip_mix {label} bf16: "
+                                 f"{gossip_mix.launches - before} launches")
+    for label, top in (("ring", None), ("torus", torus(TORUS))):
+        opt, plan, x = gossip_step_setup(torch, ops, "pd_sgdm_bf16", top,
+                                         wire="bfloat16")
+        same_bits(torch, "gossip_mix", (opt._gossip_mat(x, 0, plan=plan),),
+                  (plain_gossip(opt.comm.topology, x, plan.used_rows,
+                                bf16=True),), results, f"{label} bf16 step")
+    print("kernel gossip_mix ring, torus and ragged ring with the "
+          "neighbour views from the bf16 round trip (stream design), and "
+          "the bf16 steps (_gossip_mat): bit-exact, one launch per axis")
     for label, path, top in (("ring", "pd_sgdm", None),
                              ("exp16", "pd_sgdm_exp16", None),
                              ("torus", None, torus(TORUS))):
@@ -414,8 +479,9 @@ def gossip_kernel_phase(torch, ops, bw, f32_peak) -> dict:
           f"{[launch_count(n) for n in (9, 17, 33)]} at 9, 17, 33): "
           f"bit-exact")
     del xs
-    # MT's tracking AXPYs: ĝ = 1·g + λ·x and c + ĝ − ĝ_prev
-    track_w = ((1.0, wd), (1.0, 1.0, -1.0))
+    # MT's tracking AXPYs: ĝ = 1·g + λ·x and c + ĝ − ĝ_prev; the
+    # overlapped round's landing x + dx and MT's drip c + dc/p
+    track_w = ((1.0, wd), (1.0, 1.0, -1.0), (1.0, 1.0), (1.0, 1.0 / P))
     main_rows = K * 512
     for n_rows in (main_rows, 333):
         for ws in track_w:
@@ -445,6 +511,15 @@ def gossip_kernel_phase(torch, ops, bw, f32_peak) -> dict:
                                                 grid=top.axis_sizes, axis=0,
                                                 lim=lim)
         fns["W @ x"] = lambda: W @ x.reshape(k, -1)
+        if path == "pd_sgdm":
+            # the bf16 wire: the step (the round trip, then the launch)
+            # and the launch alone on a given nbr
+            bopt = make_opt("pd_sgdm_bf16", use_kernel=True)
+            nbr = bf16_round_trip(x)
+            fns["bf16 step"] = lambda: bopt._gossip_mat(x, 0, plan=plan)
+            fns["bf16 kernel"] = lambda: gossip_mix_shifted(
+                x, grid=top.axis_sizes, axis=0, shifts=shifts, weights=ws,
+                lim=lim, nbr=nbr)
         t = turns(torch, fns)
         print(f"kernel gossip_mix {path} step {tuple(x.shape)}, "
               f"{len(shifts)} views, used_rows={lim}, ms: "
@@ -454,6 +529,19 @@ def gossip_kernel_phase(torch, ops, bw, f32_peak) -> dict:
                              flops=(2 * len(shifts) - 1) * x.numel())
         finish_timings({"gossip_mix": timings[path]}, results, bw, f32_peak,
                        (path,) + tuple(x.shape))
+        if path == "pd_sgdm":
+            # the launch on the bf16 wire reads x, the used rows of nbr and
+            # writes y; the step as a function reads x and writes y
+            finish_timings({"gossip_mix": dict(
+                ms=t["bf16 kernel"], plain_ms=t["plain"], library_ms=None,
+                bytes=4 * (2 * x.numel() + k * lim * LANE),
+                flops=(2 * len(shifts) - 1) * x.numel())}, results, bw,
+                f32_peak, ("bf16 kernel", "nbr") + tuple(x.shape))
+            finish_timings({"gossip_mix": dict(
+                ms=t["bf16 step"], plain_ms=t["plain"], library_ms=None,
+                bytes=2 * 4 * x.numel(),
+                flops=(2 * len(shifts) - 1) * x.numel())}, results, bw,
+                f32_peak, ("bf16 step",) + tuple(x.shape))
     # MT's two tracking launches on (4096, 1024): n = 2 reads 2 and writes
     # 1 an element, beside torch.add(g, x, alpha=λ), the same function;
     # n = 3 reads 3
@@ -1096,15 +1184,23 @@ def batch_fn(seed: int, k: int = K, batch: int = BATCH, alpha=None):
     return lambda t: class_batch(cfg, t, DEVICE)
 
 
-# the fourteen paths, the kernels each must launch in a 14-step run, and
+# the twenty paths, the kernels each must launch in a 14-step run, and
 # the path whose run each kernel's reported launches come from
 PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
          "cpd_sgdm_sparse", "c_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer",
          "mt_dsgdm", "mt_dsgdm_sign", "qg_dsgdm", "pd_sgdm_churn",
-         "cpd_sgdm_sign_churn", "mt_dsgdm_sign_churn")
+         "cpd_sgdm_sign_churn", "mt_dsgdm_sign_churn", "pd_sgdm_overlap",
+         "mt_dsgdm_overlap", "qg_dsgdm_overlap", "pd_sgdm_bf16",
+         "pd_sgdm_hier", "pd_sgdm_overlap_churn")
 # MT: each step mixes ĝ = g + λx (n = 2) and c + ĝ − ĝ_prev (n = 3); each
 # round mixes x and c (or the decoded Q(c))
 MT_MIXES = 2 * STEPS + 2 * (STEPS // P)
+# overlapped rounds: every round (the tail too) forms the stale mix at its
+# start, every round lands it (ops.delayed_mix_mat) at its end
+OV_MIXES = (STEPS // P + 1) + STEPS // P
+# overlapped MT: the tracking mixes, a drip after every step, the stale
+# mixes of x and c, the landings
+MT_OV_MIXES = 2 * STEPS + STEPS + 2 * (STEPS // P + 1) + STEPS // P
 WORKERS = {"cpd_sgdm_sparse": EMB_K, "pd_sgdm_exp16": EXP_K}
 EXPECTED = {
     "pd_sgdm": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
@@ -1135,6 +1231,17 @@ EXPECTED = {
                             "sign_unpack": STEPS // P},
     "mt_dsgdm_sign_churn": {"momentum_update": STEPS,
                             "gossip_mix": 2 * STEPS},
+    "pd_sgdm_overlap": {"momentum_update": STEPS, "gossip_mix": OV_MIXES},
+    "mt_dsgdm_overlap": {"momentum_update": STEPS, "gossip_mix": MT_OV_MIXES},
+    "qg_dsgdm_overlap": {"momentum_update": STEPS, "gossip_mix": OV_MIXES},
+    # the shifted mix, its neighbour views read from the bf16 round trip
+    "pd_sgdm_bf16": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
+    # the factored two-level round on the matrix: a mean and a matmul
+    "pd_sgdm_hier": {"momentum_update": STEPS},
+    # the stale mix is W̃_r @ x with the delivery round's masked W; the
+    # landing is the kernel
+    "pd_sgdm_overlap_churn": {"momentum_update": STEPS,
+                              "gossip_mix": STEPS // P},
 }
 OWNER = {"momentum_update": "pd_sgdm", "gossip_mix": "pd_sgdm",
          "sign_pack": "cpd_sgdm_sign", "sign_unpack": "cpd_sgdm_sign",
@@ -1171,22 +1278,31 @@ def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
                        DenseComm(ring(EMB_K), device=DEVICE),
                        SparseRowsCompressor(max_rows=max_rows))
     graph = {"pd_sgdm_exp16": make_topology("exponential", (EXP_K,)),
-             "pd_sgdm_onepeer": make_schedule(ONE_PEER, (K,))}.get(path,
-                                                                 ring(K))
+             "pd_sgdm_onepeer": make_schedule(ONE_PEER, (K,)),
+             "pd_sgdm_hier": make_topology("hierarchical", HIER)}.get(
+                 path, ring(K))
     membership = None
     if path.endswith("_churn"):
         membership = membership_from_events(K, CHURN_ROUNDS, CHURN_EVENTS)
         path = path[:-len("_churn")]
-    comm = DenseComm(graph, membership=membership, device=DEVICE)
-    if path in ("pd_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer"):
-        return make_optimizer("pd_sgdm", comm, use_kernel=use_kernel, **HYPER)
+    overlap = path.endswith("_overlap")
+    if overlap:
+        path = path[:-len("_overlap")]
+    comm = DenseComm(graph, membership=membership, device=DEVICE,
+                     wire_dtype=("bfloat16" if path == "pd_sgdm_bf16"
+                                 else "float32"))
+    if path in ("pd_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer",
+                "pd_sgdm_bf16", "pd_sgdm_hier"):
+        return make_optimizer("pd_sgdm", comm, use_kernel=use_kernel,
+                              overlap=overlap, **HYPER)
     if path == "c_sgdm":        # make_optimizer swaps in complete(K)
         return make_optimizer("c_sgdm", comm, use_kernel=use_kernel, **HYPER)
     if path in ("mt_dsgdm", "mt_dsgdm_sign", "qg_dsgdm"):
         name = "qg_dsgdm" if path == "qg_dsgdm" else "mt_dsgdm"
         comp = SignCompressor() if path == "mt_dsgdm_sign" else None
         return make_optimizer(name, comm, use_kernel=use_kernel,
-                              compressor=comp, **dict(HYPER, eta=TRACK_ETA))
+                              compressor=comp, overlap=overlap,
+                              **dict(HYPER, eta=TRACK_ETA))
     comp, gamma = {
         "cpd_sgdm_sign": (None, GAMMA),                   # None: sign
         "cpd_sgdm_qsgd": (QSGDCompressor(levels=QSGD_LEVELS), GAMMA),
@@ -1311,7 +1427,7 @@ def parity_phase(torch, path: str):
     deterministic algorithms so both see the same gradients; on the
     one-peer schedule the whole cycle of three rounds, so that every W_r
     is held (the churn paths hold theirs round by round:
-    ``churn_parity_phase``).  The plain path is the tree round for PD-SGDM, C-SGDM,
+    ``round_parity_phase``).  The plain path is the tree round for PD-SGDM, C-SGDM,
     MT-DSGDm and QG-DSGDm (MT's sign-compressed correction through the
     per-leaf codec) and, for every CPD-SGDM wire, the round through the
     per-leaf codec (``_kernel_wire`` off), which launches no kernel: the
@@ -1322,8 +1438,8 @@ def parity_phase(torch, path: str):
     the matrix, one per leaf) put the drift x_new − x̂ on opposite sides of
     a sign, a QSGD tie or a top-k or row-norm near-tie: x̂ moves there by
     at most 2·max|drift|, in a handful of elements."""
-    if path.endswith("_churn"):
-        return churn_parity_phase(torch, path)
+    if path.endswith("_churn") or "_overlap" in path:
+        return round_parity_phase(torch, path)
     kernels = counters()
     torch.backends.cudnn.deterministic = True
     opt = make_opt(path, True)
@@ -1357,13 +1473,17 @@ def hold_parity(torch, path, what, start, kernel, plain, losses=""):
         if not torch.allclose(got[k], want[k], rtol=1e-3, atol=1e-4):
             raise AssertionError(f"{path}: kernel round differs from the "
                                  f"plain round: {k}")
-    tracked = [key for key in ("m", "c", "g_prev", "xprev") if key in st]
-    gaps = {key: max(float((sk[key][k] - st[key][k]).abs().max())
-                     for k in st[key]) for key in tracked}
+    tracked = {key: (sk[key], st[key]) for key in ("m", "c", "g_prev",
+                                                  "xprev") if key in st}
+    for key in ("buf", "buf_c"):            # an overlapped round's payload
+        if key in st.get("mix", {}):
+            tracked[f"mix.{key}"] = (sk["mix"][key], st["mix"][key])
+    gaps = {key: max(float((a[k] - b[k]).abs().max()) for k in b)
+            for key, (a, b) in tracked.items()}
     print(f"parity: {path} max |Δ| of the state: {gaps}")
-    for key in tracked:
-        for k, ref in st[key].items():
-            if not torch.allclose(sk[key][k], ref, rtol=1e-3, atol=1e-4):
+    for key, (a, b) in tracked.items():
+        for k, ref in b.items():
+            if not torch.allclose(a[k], ref, rtol=1e-3, atol=1e-4):
                 raise AssertionError(f"{path}: kernel round's {key} "
                                      f"differs from the plain round's: {k}")
     if "xhat" not in st:
@@ -1381,7 +1501,7 @@ def hold_parity(torch, path, what, start, kernel, plain, losses=""):
           f"sign, level or selection (max |drift| {drift})")
 
 
-def churn_parity_phase(torch, path: str):
+def round_parity_phase(torch, path: str):
     """Each round of a churn path's 3-round cycle held on its own: from the
     kernel path's params and state after the rounds before it, one kernel
     round against one plain round (as in ``parity_phase``) on the same
@@ -1389,13 +1509,31 @@ def churn_parity_phase(torch, path: str):
     Both paths mix with ``W_r @ x``, one over the matrix and one per leaf,
     and cuBLAS sums the K terms in an order that depends on the shape: a
     masked W_r (weights 1/3 and 2/3) leaves them an ulp apart, which the
-    next round does not inherit (ReLU flips would grow it)."""
+    next round does not inherit (ReLU flips would grow it).  An overlapped
+    path takes one round more than its cycle, and at least 3, so that
+    every stale matrix lands (round 0 is a gated no-op); the in-flight
+    payload is held with the state.  MT drips its stale tracking delta
+    into every local step, so an ulp of the stale mix (``W @ x`` per leaf
+    against the kernel's left-to-right sum) would reach the gradients
+    within the round, where a ReLU input within rounding of zero flips
+    (on the CPU rehearsal: 4e-4 in m); its plain round therefore sums the
+    stale mix per leaf in the kernel's order (``plain_gossip``, the plain
+    version), and the two rounds differ only where the kernels would."""
     from repro_torch.models.resnet import resnet20_loss
     kernels = counters()
     opt, plain = make_opt(path, True), make_opt(path, False)
     cpd = path.startswith("cpd")
     if cpd:
         plain._kernel_wire = lambda: False          # the per-leaf codec
+    if plain.overlap_refreshes and plain.comm.membership is None:
+        top = plain.comm.topology
+
+        def stale_mix(tree, r=None):
+            return {k: plain_gossip(top, v.reshape(v.shape[0], -1, 1),
+                                    v[0].numel()).reshape(v.shape)
+                    for k, v in tree.items()}
+
+        plain.comm.stale_mix = stale_mix
     grad = torch.func.vmap(torch.func.grad_and_value(
         lambda prm, b: resnet20_loss(prm, b)[0]))
 
@@ -1407,8 +1545,11 @@ def churn_parity_phase(torch, path: str):
     data = batch_fn(1)
     params = stacked_init(torch, 1)
     state = opt.init(params)
+    rounds = opt.comm.round_cycle
+    if opt.config.overlap:
+        rounds = max(rounds + 1, 3)
     with cudnn_deterministic(torch):
-        for r in range(opt.comm.round_cycle):
+        for r in range(rounds):
             steps = [data(r * p + i) for i in range(p)]
             batches = {k: torch.stack([b[k] for b in steps])
                        for k in steps[0]}
@@ -1446,13 +1587,13 @@ class cudnn_deterministic:
 
 def fig_run(torch, name: str, steps: int, log_every: int, *, p: int = 4,
             eta: float = 0.1, gamma: float = 0.4, weight_decay: float = 1e-4,
-            compressor=None, alpha=None, eval_fn=None):
+            compressor=None, alpha=None, eval_fn=None, overlap=False):
     """One run at the reference's figure settings (``benchmarks/common.py``):
     ResNet-20 width 4 from seed 0, K = 8 workers (the complete graph for
     C-SGDM, else a ring), batch 16 of seed 0's class stream (Dirichlet(α)
     labels with ``alpha``), μ = 0.9, through ``make_optimizer`` →
-    ``SimTrainer.train`` on the kernel layout.  Returns ``(History, wall
-    seconds)``."""
+    ``SimTrainer.train`` on the kernel layout (``overlap``: overlapped
+    rounds).  Returns ``(History, wall seconds)``."""
     from repro_torch.core import DenseComm, complete, make_optimizer, ring
     from repro_torch.models.resnet import resnet20_loss
     from repro_torch.train.trainer import SimTrainer
@@ -1460,7 +1601,7 @@ def fig_run(torch, name: str, steps: int, log_every: int, *, p: int = 4,
                      device=DEVICE)
     opt = make_optimizer(name, comm, eta=eta, mu=0.9, p=p, gamma=gamma,
                          weight_decay=weight_decay, compressor=compressor,
-                         use_kernel=True)
+                         use_kernel=True, overlap=overlap)
     params = stacked_init(torch, 0, FIG1_K, FIG1_WIDTH)
     t0 = time.perf_counter()
     _, _, hist = SimTrainer(resnet20_loss, opt, device=DEVICE).train(
@@ -1622,7 +1763,11 @@ def noniid_phase(torch):
     last local loss, comm MB).  The claim ``noniid/claim_alpha0.1``: the
     least over p of MT − PD is ≤ 0 (``mt_le_pd`` = 1).  Synchronous MT may
     diverge at p = 4, as the reference's own run records; a difference
-    that is not finite takes no part in the least."""
+    that is not finite takes no part in the least.  At p = 4 MT runs again
+    with overlapped rounds (``mt_dsgdm_ov``, the stale tracking delta
+    dripped into every local step), and ``noniid/claim_p4_overlap`` holds
+    if its last local loss is finite and below 10
+    (``mt_overlap_survives_p4`` = 1), printed beside synchronous MT's."""
     from repro_torch.data.synthetic import ClassStreamCfg, class_batch
     from repro_torch.models.resnet import resnet20_loss
     t0 = time.perf_counter()
@@ -1636,16 +1781,22 @@ def noniid_phase(torch):
                                       for b in evals]).mean())
 
     label = f"{NONIID_ALPHA:g}"
-    results = {}
+    results, local = {}, {}
     with cudnn_deterministic(torch):
         for p in NONIID_PS:
-            for name in ("d_sgd", "pd_sgdm", "qg_dsgdm", "mt_dsgdm"):
+            for name in ("d_sgd", "pd_sgdm", "qg_dsgdm", "mt_dsgdm",
+                         "mt_dsgdm_ov"):
                 if name == "d_sgd" and p != NONIID_PS[0]:
                     continue         # D-SGD gossips every step: p-free
+                if name == "mt_dsgdm_ov" and p < 4:
+                    continue         # where synchronous MT's c ages
+                overlap = name.endswith("_ov")
                 hist, seconds = fig_run(
-                    torch, name, NONIID_STEPS, NONIID_STEPS - 1, p=p,
-                    eta=TRACK_ETA, alpha=NONIID_ALPHA, eval_fn=eval_fn)
+                    torch, name[:-3] if overlap else name, NONIID_STEPS,
+                    NONIID_STEPS - 1, p=p, eta=TRACK_ETA, alpha=NONIID_ALPHA,
+                    eval_fn=eval_fn, overlap=overlap)
                 results[(p, name)] = hist.eval_metric[-1]
+                local[(p, name)] = hist.loss[-1]
                 tag = "" if name == "d_sgd" else f"_p{p}"
                 print(f"noniid/{name}_a{label}{tag},"
                       f"{seconds / NONIID_STEPS * 1e6:.1f},"
@@ -1660,8 +1811,16 @@ def noniid_phase(torch):
     mt_le_pd = int(best <= 0.0)
     print(f"noniid/claim_alpha{label},0.0,mt_minus_pd_best={best:.4f};"
           f"best_p={best_p};mt_le_pd={mt_le_pd}")
-    verdict("noniid", [] if mt_le_pd else
-            [f"mt_le_pd = 0: MT - PD by p {diffs}"], t0)
+    ov, sync = local[(4, "mt_dsgdm_ov")], local[(4, "mt_dsgdm")]
+    survives = int(math.isfinite(ov) and ov < 10.0)
+    print(f"noniid/claim_p4_overlap,0.0,mt_sync_local_p4={sync:.4f};"
+          f"mt_overlap_local_p4={ov:.4f};overlap_minus_sync_global="
+          f"{results[(4, 'mt_dsgdm_ov')] - results[(4, 'mt_dsgdm')]:.4f};"
+          f"mt_overlap_survives_p4={survives}")
+    missed = [] if mt_le_pd else [f"mt_le_pd = 0: MT - PD by p {diffs}"]
+    if not survives:
+        missed.append(f"mt_overlap_survives_p4 = 0: local loss {ov}")
+    verdict("noniid", missed, t0)
 
 
 def elastic_phase(torch):
@@ -1846,14 +2005,16 @@ def topology_phase(torch):
 
 def gossip_dispatch_phase(torch):
     """One kernel round each of PD on the ring and on exponential(16), MT
-    and QG under the CPU profiler, with the optimizer's ``_gossip_mat``
+    and QG, PD on the bf16 wire, and overlapped PD and MT (whose gossip is
+    the stale mix) under the CPU profiler, with the optimizer's ``_gossip_mat``
     run inside a ``record_function`` range: the gossip steps dispatch no
     ``aten::roll`` and no ``aten::constant_pad_nd`` (the views are read in
     place), and the round no ``aten::roll`` at all (the ResNet's stride-2
     convolutions pad, outside the gossip)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     for path, steps in (("pd_sgdm", 1), ("pd_sgdm_exp16", 1),
-                        ("mt_dsgdm", 2), ("qg_dsgdm", 1)):
+                        ("mt_dsgdm", 2), ("qg_dsgdm", 1), ("pd_sgdm_bf16", 1),
+                        ("pd_sgdm_overlap", 1), ("mt_dsgdm_overlap", 2)):
         opt = make_opt(path, use_kernel=True)
         gossip = opt._gossip_mat
 

@@ -37,12 +37,15 @@ def pick_donor(live, joiner: int) -> int:
 def warm_start_worker(params, state, *, joiner: int, donor: int):
     """``(params, state)`` with ``donor``'s slot copied over ``joiner``'s in
     every worker-stacked leaf: params and the whole optimizer state
-    (momentum, x̂, the tracking correction, QG's buffers).  New tensors are
-    returned; the caller's are not written.  Leaves without a leading
-    worker dim (the step counter) are passed through."""
+    (momentum, x̂, the tracking correction, QG's buffers, an overlapped
+    round's in-flight payload).  New tensors are returned; the caller's are
+    not written.  Leaves without a leading worker dim (the step counter,
+    the staleness phase) are passed through."""
     K = tree_leaves(params)[0].shape[0]
 
     def cp(leaf):
+        if isinstance(leaf, dict):        # a nested tree: state["mix"]
+            return {k: cp(v) for k, v in leaf.items()}
         if isinstance(leaf, torch.Tensor) and leaf.dim() >= 1 \
                 and leaf.shape[0] == K:
             out = leaf.clone()
@@ -50,5 +53,4 @@ def warm_start_worker(params, state, *, joiner: int, donor: int):
             return out
         return leaf
 
-    return (tree_map(cp, params),
-            {name: tree_map(cp, sub) for name, sub in state.items()})
+    return tree_map(cp, params), cp(state)

@@ -1,7 +1,9 @@
-"""Core of the port: topologies, their time-varying schedules and elastic
-membership, the dense gossip backend, LR schedules, PD-SGDM (paper Algorithm 1), CPD-SGDM
-(Algorithm 2) with its compressors and wire codecs, C-SGDM, the
-momentum-free baselines, and MT-DSGDm and QG-DSGDm for non-IID data."""
+"""Core of the port: topologies (hierarchical ones too), their
+time-varying schedules and elastic membership, the dense gossip backend
+(overlapped rounds, the bf16 wire), LR schedules, PD-SGDM (paper
+Algorithm 1), CPD-SGDM (Algorithm 2) with its compressors and wire codecs,
+C-SGDM, the momentum-free baselines, and MT-DSGDm and QG-DSGDm for
+non-IID data."""
 from repro_torch.core import schedules, topology
 from repro_torch.core.baselines import (CSGDM, choco_sgd, d_sgd,
                                         make_optimizer, pd_sgd)
@@ -17,7 +19,8 @@ from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.topology import (MembershipSchedule, Topology,
                                        TopologySchedule, active_edge_count,
                                        complete, disconnected, exponential,
-                                       full_membership, make_schedule,
+                                       full_membership, hierarchical,
+                                       hierarchical_schedule, make_schedule,
                                        make_topology, masked_matrix,
                                        membership_from_events, ring, torus)
 from repro_torch.core.tracking import (MTDSGDMConfig, MTDSGDm, QGDSGDMConfig,
@@ -29,7 +32,8 @@ from repro_torch.core.wire import (IdentityCodec, QSGDCodec, RandKCodec,
 __all__ = [
     "topology", "schedules",
     "Topology", "TopologySchedule", "ring", "torus", "complete",
-    "exponential", "disconnected", "make_topology", "make_schedule",
+    "exponential", "disconnected", "hierarchical", "hierarchical_schedule",
+    "make_topology", "make_schedule",
     "MembershipSchedule", "full_membership", "membership_from_events",
     "masked_matrix", "active_edge_count",
     "CommBackend", "DenseComm", "gossip_bytes_per_round",

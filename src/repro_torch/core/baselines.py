@@ -131,8 +131,9 @@ def make_optimizer(name: str, comm: CommBackend, *, eta: float = 0.1,
         return d_sgd(eta, comm, weight_decay)
     if name in ("pd_sgd", "pdsgd"):
         if overlap:
-            raise NotImplementedError(
-                "overlapped rounds are ROADMAP queue A item 9")
+            return PDSGDM(PDSGDMConfig(eta=eta, mu=0.0, p=p,
+                                       weight_decay=weight_decay,
+                                       overlap=True), comm)
         return pd_sgd(eta, p, comm, weight_decay)
     if name in ("choco_sgd", "chocosgd", "choco"):
         return choco_sgd(eta, gamma, comm, compressor, weight_decay)

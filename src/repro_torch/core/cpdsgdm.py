@@ -38,9 +38,14 @@ masked W.  Under churn the kernel round runs the comm on the tree at the
 round boundary, where the commit gate lives; a codec with a kernel format
 still packs there through the codec kernels (:meth:`_comm_kernel_wire`).
 
-Not ported: overlapped rounds (ROADMAP queue A item 9, refused by
-:class:`~repro_torch.core.pdsgdm.PDSGDM`) and the sharded backend with
-its ``xhat_nbrs`` copies and pruned exchanges (item 12).
+Overlapped rounds (``overlap=True``, the tree path only, as in the
+reference): the in-flight payload is the x̂ cut after the previous round's
+line 9, and the stale consensus ``γ·gate·(W̃·x̂_buf − x̂_buf)`` is formed at
+round start and lands at its end; lines 7-9 stay at the round boundary
+(q encodes the round's own drift), commit-gated under membership.
+
+Not ported: the sharded backend with its ``xhat_nbrs`` copies and pruned
+exchanges (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 
@@ -83,6 +88,11 @@ class CPDSGDM(PDSGDM):
             self.codec = make_codec(self.compressor)
         except TypeError:                # custom operator without a codec
             self.codec = None
+        if config.overlap and config.use_kernel:
+            raise ValueError(
+                "CPD-SGDM overlap=True does not compose with use_kernel: "
+                "the delayed consensus + codec wire run on the tree path "
+                "(dense simulation only).")
         # elastic membership: the commit mask of every round of the joint
         # cycle, on the host (bytes) and on the device (the x̂ gate)
         self._commit_np = self._commit_t = None
@@ -158,6 +168,13 @@ class CPDSGDM(PDSGDM):
         diff = tree_map(lambda x, h: x.to(torch.float32) - h, params_new,
                         xhat)
         new_state = dict(state)
+        self._compress_and_commit(new_state, xhat, diff, r)
+        return params_new, new_state
+
+    def _compress_and_commit(self, new_state, xhat, diff, r):
+        """Lines 7-9 on the drift ``diff``: ``new_state["xhat"]`` = x̂ + Q,
+        where a worker that does not commit (under membership) keeps its x̂
+        bit for bit."""
         if self._kernel_wire():
             self._comm_kernel_wire(new_state, xhat, diff)
         elif self._payload_wire():
@@ -167,13 +184,43 @@ class CPDSGDM(PDSGDM):
             new_state["xhat"] = tree_map(
                 lambda h, qq: h + qq.to(torch.float32), xhat, q)
         if self._commit_t is not None:
-            # a worker that does not commit keeps its x̂ bit for bit
             cm = self._commit_at(r)
             new_state["xhat"] = tree_map(
                 lambda h_new, h_old: torch.where(
                     worker_mask_like(cm, h_new), h_new, h_old),
                 new_state["xhat"], xhat)
+
+    # -- overlapped rounds (tree path) -------------------------------------------
+    # x̂ moves only at round boundaries, so the stale consensus lands the
+    # same consensus mass as line 6, issued at round start; under membership
+    # its mask is the delivery round's.
+    def overlap_begin(self, state) -> dict:
+        mix = state["mix"]
+        gate = (mix["phase"] > 0).to(torch.float32)
+        gamma = self.config.gamma
+        mixed = self.comm.stale_mix(mix["buf"], r=self.round_index(state))
+        return {"dx": tree_map(lambda mh, h: gamma * (mh - h) * gate, mixed,
+                               mix["buf"])}
+
+    def overlap_apply(self, state, params, delta):
+        """Land the stale consensus, then lines 7-9 on the landed params
+        (commit-gated under membership) and cut the next payload, x̂."""
+        r = self.round_index(state)
+        xhat = state["xhat"]
+        params_new = tree_map(lambda x, d: (x.to(torch.float32) + d)
+                              .to(x.dtype), params, delta["dx"])
+        diff = tree_map(lambda x, h: x.to(torch.float32) - h, params_new,
+                        xhat)
+        new_state = dict(state)
+        self._compress_and_commit(new_state, xhat, diff, r)
+        new_state["mix"] = self._snapshot_mix(new_state, params_new)
         return params_new, new_state
+
+    def _snapshot_mix(self, state, params) -> dict:
+        # the payload is x̂ after line 9: line 6's consensus mixes x̂
+        return {"buf": state["xhat"],
+                "phase": torch.ones((), dtype=torch.int32,
+                                    device=state["step"].device)}
 
     def _comm_kernel_wire(self, new_state, xhat, diff):
         """Lines 7-9 on the flatten-once layout from the tree path: one

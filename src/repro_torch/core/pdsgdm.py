@@ -1,9 +1,9 @@
 """PD-SGDM — Periodic Decentralized Momentum SGD (paper Algorithm 1).
 
 Port of ``src/repro/core/pdsgdm.py:36-620`` on the dense simulation
-backend, over a static graph or a time-varying schedule, with or without
-elastic membership (a churn round mixes with its masked W through
-``comm.mix`` and is charged its live edges only).
+backend, over a static graph, a time-varying schedule or a hierarchical
+graph, with or without elastic membership (a churn round mixes with its
+masked W through ``comm.mix`` and is charged its live edges only).
 Per worker k, per iteration t::
 
     m⁽ᵏ⁾ₜ   = μ m⁽ᵏ⁾ₜ₋₁ + ∇F(x⁽ᵏ⁾ₜ; ξ⁽ᵏ⁾ₜ)
@@ -20,6 +20,22 @@ gossip; with ``use_kernel`` it runs on the flatten-once ``(K, rows, 1024)``
 layout through the CUDA kernels (:meth:`PDSGDM.kernel_round`).  The step
 counter and the learning rate stay 0-d tensors on the device: a round
 makes no host sync.
+
+* **Overlapped rounds** (``overlap=True``): round r's gossip payload, the
+  f32 snapshot of the params at round r's end, is exchanged at the start
+  of round r+1 and lands one round stale at its end,
+  ``x ← x + gate·(W̃·buf − buf)`` with W̃ the delivery's
+  (:meth:`~repro_torch.core.gossip.CommBackend.effective_stale_matrix`).
+  ``state["mix"]`` carries the in-flight ``buf`` and the staleness
+  ``phase``; round 0 has nothing in flight, and its gate (``phase > 0``, a
+  0-d device tensor) makes the correction an exact no-op while the
+  exchange still runs.  On the kernel layout the stale mix is the gossip
+  kernel (or ``W̃ @ x`` on the matrix) and the landing is
+  ``ops.delayed_mix_mat``, the gossip kernel with weights (1, 1).
+* **The bf16 wire** (``DenseComm(..., wire_dtype="bfloat16")``): on the
+  kernel layout the shifted mix reads the self view from the f32 matrix
+  and the neighbour views from its bf16 round trip (``nbr``), and each
+  neighbour exchange is charged 2 bytes an element.
 """
 from __future__ import annotations
 
@@ -29,8 +45,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.gossip import CommBackend, DenseComm, \
-    gossip_bytes_per_round
+from repro_torch.core.gossip import (CommBackend, DenseComm, bf16_round_trip,
+                                     gossip_bytes_per_round,
+                                     hier_bytes_per_round)
 from repro_torch.kernels import LANE
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import tree_leaves, tree_map
@@ -75,9 +92,6 @@ class PDSGDM:
             raise ValueError("momentum μ must be in [0, 1)")
         if config.p < 1:
             raise ValueError("communication period p must be ≥ 1")
-        if config.overlap:
-            raise NotImplementedError(
-                "overlapped rounds are ROADMAP queue A item 9")
         if not isinstance(comm, DenseComm):
             raise NotImplementedError(
                 "only the dense simulation backend is ported; the sharded "
@@ -92,11 +106,32 @@ class PDSGDM:
     # -- state ---------------------------------------------------------------
     def init(self, params) -> dict:
         device = tree_leaves(params)[0].device
-        return {
+        state = {
             "m": tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
                           params),
             "step": torch.zeros((), dtype=torch.int32, device=device),
         }
+        if self.config.overlap:
+            state["mix"] = self._delayed_mix_init(params)
+        return state
+
+    # -- DelayedMixState (overlap=True) ---------------------------------------
+    # ``buf`` is the in-flight payload, the f32 snapshot cut at the end of
+    # the previous round; ``phase`` is 0 before any payload was cut (round 0
+    # runs the exchange but gates its correction to zero), then 1.
+    def _delayed_mix_init(self, params) -> dict:
+        return {
+            "buf": tree_map(lambda x: x.detach().to(torch.float32, copy=True),
+                            params),
+            "phase": torch.zeros((), dtype=torch.int32,
+                                 device=tree_leaves(params)[0].device),
+        }
+
+    # keys of the delta that overlap_begin forms (MT adds "dc")
+    overlap_delta_keys: tuple = ("dx",)
+    # whether overlap_step_refresh does anything (MT drips its stale
+    # tracking delta into every local step)
+    overlap_refreshes: bool = False
 
     # -- local computation (Alg. 1 lines 2-4) ---------------------------------
     def local_step(self, state, params, grads):
@@ -129,6 +164,73 @@ class PDSGDM:
         """One gossip round (unconditional), with round ``r``'s topology."""
         return self.comm.mix(params, r=self.round_index(state)), state
 
+    def is_comm_step(self, state) -> torch.Tensor:
+        """mod(t+1, p) == 0 after the local step advanced the counter: a
+        0-d bool tensor on the counter's device."""
+        return (state["step"] % self.config.p) == 0
+
+    def maybe_communicate(self, state, params):
+        """The gossip round if this step ends a round.  The per-step form
+        is not the hot path: it reads :meth:`is_comm_step` on the host, one
+        sync a step (the fused :meth:`round` makes none)."""
+        if bool(self.is_comm_step(state)):
+            return self.comm_round(state, params)
+        return params, state
+
+    # -- overlapped rounds: one-round-stale delayed mixing ----------------------
+    def overlap_begin(self, state) -> dict:
+        """Exchange the in-flight payload and form the stale correction.
+        At round start ``round_index(state)`` is the payload's round r
+        (step = (r+1)·p): the topology keys on r, the membership mask on
+        the delivery round r+1 (``comm.stale_mix``).  ``phase == 0`` gates
+        the correction to zero; the exchange runs all the same."""
+        mix = state["mix"]
+        gate = (mix["phase"] > 0).to(torch.float32)
+        mixed = self.comm.stale_mix(mix["buf"], r=self.round_index(state))
+        return {"dx": tree_map(lambda mb, b: (mb - b) * gate, mixed,
+                               mix["buf"])}
+
+    def overlap_step_refresh(self, state, delta):
+        """Per-local-step refresh from the in-flight payload: nothing here
+        (MT-DSGDm drips its stale tracking delta through it)."""
+        return state
+
+    def overlap_apply(self, state, params, delta):
+        """Land the stale correction on the drifted params at the round's
+        end, then cut the next payload (:meth:`_snapshot_mix`)."""
+        params_new = tree_map(lambda x, d: (x.to(torch.float32) + d)
+                              .to(x.dtype), params, delta["dx"])
+        new_state = dict(state)
+        new_state["mix"] = self._snapshot_mix(new_state, params_new)
+        return params_new, new_state
+
+    def _snapshot_mix(self, state, params) -> dict:
+        """The next payload: the params in f32 (sharing their storage, as
+        the reference's arrays share it: nothing in the port writes params
+        in place), phase 1."""
+        return {"buf": tree_map(lambda x: x.to(torch.float32), params),
+                "phase": torch.ones((), dtype=torch.int32,
+                                    device=state["step"].device)}
+
+    # -- full iteration ---------------------------------------------------------
+    def step(self, state, params, grads):
+        """One iteration in the per-step form: the local step, then the
+        gossip if the step ends a round.  With ``overlap`` the correction
+        is formed from the in-flight payload at every step (it depends on
+        that payload alone, so each step's equals the fused round's) and
+        lands at the step that ends the round, so a run resumed mid-round
+        from a saved state continues it.  Each step reads the step counter
+        on the host (:meth:`maybe_communicate`)."""
+        if self.config.overlap:
+            delta = self.overlap_begin(state)
+            params, state = self.local_step(state, params, grads)
+            state = self.overlap_step_refresh(state, delta)
+            if bool(self.is_comm_step(state)):
+                params, state = self.overlap_apply(state, params, delta)
+            return params, state
+        params, state = self.local_step(state, params, grads)
+        return self.maybe_communicate(state, params)
+
     # -- fused round (the hot path) ---------------------------------------------
     def round(self, state, params, grads_fn, batches, *, gossip=True):
         """p local steps then exactly one unconditional gossip round.
@@ -137,18 +239,30 @@ class PDSGDM:
         whose values carry a leading dim of length p.  ``gossip=False`` runs
         a tail of local steps only (a run whose length is not a multiple of
         p).  With ``use_kernel`` the round runs on the flatten-once layout
-        (:meth:`kernel_round`).  Returns ``(params, state, losses)`` with
-        ``losses`` stacked over the local steps, on the device.
+        (:meth:`kernel_round`).  With ``overlap`` the in-flight payload is
+        exchanged at the start (:meth:`overlap_begin`; in a tail only if
+        the optimizer refreshes its state from it), the local steps run
+        without depending on it (MT's refresh excepted) and the stale
+        correction lands at the end (:meth:`overlap_apply`), which cuts the
+        next payload.  Returns ``(params, state, losses)`` with ``losses``
+        stacked over the local steps, on the device.
         """
         if self.config.use_kernel:
             return self.kernel_round(state, params, grads_fn, batches,
                                      gossip=gossip)
+        overlap = self.config.overlap
+        delta = (self.overlap_begin(state)
+                 if overlap and (gossip or self.overlap_refreshes) else None)
         losses = []
         for batch in _unstack(batches):
             loss, grads = grads_fn(params, batch)
             params, state = self.local_step(state, params, grads)
+            if delta is not None and self.overlap_refreshes:
+                state = self.overlap_step_refresh(state, delta)
             losses.append(loss)
-        if gossip:
+        if gossip and overlap:
+            params, state = self.overlap_apply(state, params, delta)
+        elif gossip:
             params, state = self.comm_round(state, params)
         return params, state, torch.stack(losses)
 
@@ -175,12 +289,19 @@ class PDSGDM:
 
     def mat_state(self, plan, state) -> dict:
         """Flatten the per-element optimizer state into kernel matrices."""
-        return {"m": plan.flatten(state["m"])}
+        mats = {"m": plan.flatten(state["m"])}
+        if self.config.overlap:
+            mats["mix_buf"] = plan.flatten(state["mix"]["buf"])
+        return mats
 
     def unmat_state(self, plan, mats, state, step) -> dict:
         new_state = dict(state)
         new_state["m"] = plan.unflatten(mats["m"], dtype=torch.float32)
         new_state["step"] = step
+        if self.config.overlap:
+            new_state["mix"] = {
+                **state["mix"],
+                "buf": plan.unflatten(mats["mix_buf"], dtype=torch.float32)}
         return new_state
 
     def local_step_mat(self, x_mat, mats, g_mat, step):
@@ -211,11 +332,14 @@ class PDSGDM:
         graph's 9 at K = 16 too); other graphs take ``comm.mix`` on the
         matrix with round ``r``'s W.  With a ``plan`` each neighbour view
         reads only the ``used_rows`` wire extent and zeros past it, so what
-        is exchanged is what is accounted."""
+        is exchanged is what is accounted.  On the bf16 wire the neighbour
+        views read the bf16 round trip of each axis's payload and the self
+        view the f32 matrix."""
         if not self._mat_wire_static():
             return self.comm.mix(x_mat, r=r)
         top = self.comm.topology
         lim = plan.used_rows if plan is not None else None
+        bf16 = self.comm.wire_dtype == "bfloat16"
         per_axis: dict = {}
         for (ax, sh, w) in top.shifts:
             per_axis.setdefault(ax, []).append((sh, w))
@@ -224,13 +348,44 @@ class PDSGDM:
             shifts, weights = zip(*per_axis[ax])
             y = kops.gossip_mix_shifted(y, grid=top.axis_sizes, axis=ax,
                                         shifts=shifts, weights=weights,
-                                        lim=lim)
+                                        lim=lim,
+                                        nbr=bf16_round_trip(y) if bf16
+                                        else None)
         return y
 
     def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
         """One gossip round on the kernel layout (``counts`` is unused here;
         the compressed wire of CPD-SGDM reads it)."""
         return self._gossip_mat(x_mat, r, plan=plan), mats
+
+    # -- overlapped rounds on the kernel layout ---------------------------------
+    def _stale_gossip_mat(self, x_mat, r, *, plan=None):
+        """The stale mix on the matrix: the shift-structured wire where it
+        runs (no membership there, so stale and regular coincide), else
+        ``comm.stale_mix``, whose membership mask keys on the delivery
+        round r+1."""
+        if self._mat_wire_static():
+            return self._gossip_mat(x_mat, r, plan=plan)
+        return self.comm.stale_mix(x_mat, r=r)
+
+    def overlap_begin_mat(self, mats, r, gate, *, plan=None) -> dict:
+        """:meth:`overlap_begin` on the matrix; ``gate`` is the 0-d f32
+        staleness gate, folded by a multiply (the kernel's weights are
+        static)."""
+        buf = mats["mix_buf"]
+        return {"dx": (self._stale_gossip_mat(buf, r, plan=plan) - buf)
+                * gate}
+
+    def overlap_refresh_mat(self, mats, delta):
+        """Per-local-step refresh on the matrix: nothing here (MT drips)."""
+        return mats
+
+    def overlap_apply_mat(self, x_mat, mats, delta, r):
+        """Land the stale correction (``ops.delayed_mix_mat``, one gossip
+        launch) and cut the next payload: the landed matrix itself.  ``r``
+        is the landing round (QG's normalizer keys on it)."""
+        x_new = kops.delayed_mix_mat(x_mat, delta["dx"])
+        return x_new, {**mats, "mix_buf": x_new}
 
     def kernel_round(self, state, params, grads_fn, batches, *, gossip=True):
         """The fused round on the flatten-once kernel layout.
@@ -239,25 +394,47 @@ class PDSGDM:
         each local step evaluates the grads on views of the param matrix,
         flattens them (one copy) and runs one momentum launch; the gossip
         runs on the same matrix; the trees are rebuilt once at the end.
+        With ``overlap`` the stale correction is formed at the start, in a
+        tail too (:meth:`overlap_begin_mat`), and lands at the end of a
+        round (:meth:`overlap_apply_mat`).
         """
         plan = kops.KernelPlan.for_tree(params, worker_dim=True)
         x_mat = plan.flatten(params)
         mats = self.mat_state(plan, state)
         step = state["step"]
+        overlap = self.config.overlap
+        delta = None
+        if overlap:
+            if not self.kernel_comm_supported:
+                raise ValueError(
+                    "overlap=True on the kernel path requires matrix-domain "
+                    "gossip (kernel_comm_supported)")
+            # round start: step = (r+1)·p, so r is the payload's round
+            gate = (state["mix"]["phase"] > 0).to(torch.float32)
+            delta = self.overlap_begin_mat(mats, step // self.config.p - 1,
+                                           gate, plan=plan)
         losses = []
         for batch in _unstack(batches):
             loss, grads = grads_fn(plan.unflatten(x_mat), batch)
             x_mat, mats = self.local_step_mat(x_mat, mats, plan.flatten(grads),
                                               step)
+            if overlap and self.overlap_refreshes:
+                mats = self.overlap_refresh_mat(mats, delta)
             step = step + 1
             losses.append(loss)
-        if gossip and self.kernel_comm_supported:
-            r = step // self.config.p - 1
+        r = step // self.config.p - 1
+        if gossip and overlap:
+            x_mat, mats = self.overlap_apply_mat(x_mat, mats, delta, r)
+        elif gossip and self.kernel_comm_supported:
             x_mat, mats = self.comm_round_mat(
                 x_mat, mats, self.row_counts(plan, x_mat), r, plan=plan)
         params = plan.unflatten(x_mat)
         state = self.unmat_state(plan, mats, state, step)
-        if gossip and not self.kernel_comm_supported:
+        if gossip and overlap:
+            state["mix"] = {**state["mix"],
+                            "phase": torch.ones((), dtype=torch.int32,
+                                                device=step.device)}
+        elif gossip and not self.kernel_comm_supported:
             # e.g. CPD-SGDM with a codec that has no kernel format: the tree
             # comm round at the boundary
             params, state = self.comm_round(state, params)
@@ -280,9 +457,19 @@ class PDSGDM:
         return (self.config.use_kernel and self.kernel_comm_supported
                 and self._mat_wire_static())
 
+    def hier_bytes_per_level(self, params, r: int = 0) -> dict:
+        """Per-level bytes of hierarchical round ``r``
+        (:func:`~repro_torch.core.gossip.hier_bytes_per_round`; the dense
+        backend ships the leaf tree on either layout)."""
+        return hier_bytes_per_round(params, self.comm, r=r)
+
     def bytes_per_comm_round(self, params, r: int = 0) -> int:
         """Per-worker bytes of gossip round ``r``; ``params`` is one
-        worker's tree (no worker dim)."""
+        worker's tree (no worker dim).  A hierarchical round without
+        membership is charged its slow-link level."""
+        if (self.comm.topology_at(r).name == "hierarchical"
+                and self.comm.membership is None):
+            return self.hier_bytes_per_level(params, r=r)["inter"]
         if self._kernel_wire_active():
             return self.comm.topology_at(r).degree * self._mat_wire_bytes(params)
         return gossip_bytes_per_round(params, self.comm, r=r)

@@ -13,9 +13,10 @@ product ``W_T ⋯ W_1`` (:attr:`TopologySchedule.cycle_rho`).  A
 :class:`MembershipSchedule` is elastic membership: per round, which workers
 hold state (``live``) and which exchange (``active``); :func:`masked_matrix`
 is a round's mixing matrix with only the active workers exchanging.
-
-Not in this module yet: hierarchical graphs and their schedule (ROADMAP
-queue A item 10).
+:func:`hierarchical` lifts an inter-node graph over a two-level worker
+grid ``(n_nodes, node_size)`` as ``W_inter ⊗ (1/m)11ᵀ`` (exact in-node
+average), and :func:`hierarchical_schedule` lifts the one-peer exponential
+schedule the same way.
 """
 from __future__ import annotations
 
@@ -32,13 +33,11 @@ __all__ = [
     "is_doubly_stochastic", "make_topology", "make_schedule",
     "static_schedule", "one_peer_exponential_schedule",
     "alternating_axes_schedule", "random_matching_schedule",
-    "hierarchical_schedule",
+    "hierarchical", "hierarchical_schedule", "hierarchical_inter_shifts",
+    "hierarchical_self_weight",
     "MembershipSchedule", "full_membership", "membership_from_events",
     "masked_matrix", "active_edge_count", "exchanges",
 ]
-
-_HIER = "hierarchical gossip is ROADMAP queue A item 10"
-
 
 def is_doubly_stochastic(W: np.ndarray, atol: float = 1e-8,
                          require_symmetric: bool = True) -> bool:
@@ -244,6 +243,55 @@ def disconnected(K: int) -> Topology:
     return Topology("disconnected", np.eye(K), ((0, 0, 1.0),), (K,))
 
 
+def _hier_compose(sub: Topology, n_nodes: int, node_size: int) -> Topology:
+    """Lift an inter-node graph ``sub`` over ``n_nodes`` to the two-level
+    worker grid ``(n_nodes, node_size)``: W = W_inter ⊗ W_intra with
+    W_intra = (1/m)11ᵀ (exact in-node average)."""
+    m = int(node_size)
+    C = np.full((m, m), 1.0 / m)
+    W = np.kron(sub.W, C)
+    shifts = (tuple((0, sh, w) for (_, sh, w) in sub.shifts)
+              + tuple((1, s, 1.0 / m) for s in range(m)))
+    return Topology("hierarchical", W, shifts, (int(n_nodes), m),
+                    symmetric=bool(np.allclose(W, W.T)))
+
+
+def hierarchical(n_nodes: int, node_size: int, *,
+                 inter: str = "ring") -> Topology:
+    """Two-level gossip graph: an exact average inside every node of
+    ``node_size`` workers (the fast links), then ``inter`` ("ring",
+    "exponential" or "complete") between the ``n_nodes`` nodes (the slow
+    links).  ``W = W_inter ⊗ (1/m)11ᵀ``: axis 1 (in-node) applies after
+    axis 0 in :meth:`Topology.structure_matrix`, as the sharded round
+    averages in-node first and then gossips between node leaders."""
+    n, m = int(n_nodes), int(node_size)
+    if n < 1 or m < 1:
+        raise ValueError(
+            f"hierarchical: need n_nodes ≥ 1 and node_size ≥ 1, got "
+            f"({n_nodes}, {node_size})")
+    sub = make_topology(inter, (n,))
+    if sub.perms:
+        raise ValueError(
+            f"hierarchical: inter graph {inter!r} must be shift-structured")
+    return _hier_compose(sub, n, m)
+
+
+def hierarchical_inter_shifts(top: Topology) -> tuple:
+    """Non-self inter-node exchanges of a hierarchical topology, as
+    ``(shift, weight)`` pairs on the node axis (axis 0)."""
+    n = int(top.axis_sizes[0])
+    return tuple((sh % n, w) for (ax, sh, w) in top.shifts
+                 if ax == 0 and sh % n != 0)
+
+
+def hierarchical_self_weight(top: Topology) -> float:
+    """Inter-level self weight of a hierarchical topology: the mass each
+    node keeps of its own post-average value."""
+    n = int(top.axis_sizes[0])
+    return float(sum(w for (ax, sh, w) in top.shifts
+                     if ax == 0 and sh % n == 0))
+
+
 def make_topology(name: str, worker_grid: Sequence[int]) -> Topology:
     """Build a topology by name for a worker grid (product = K)."""
     worker_grid = tuple(int(g) for g in worker_grid)
@@ -260,7 +308,11 @@ def make_topology(name: str, worker_grid: Sequence[int]) -> Topology:
     if name == "disconnected":
         return disconnected(K)
     if name == "hierarchical":
-        raise NotImplementedError(f"{name}: not ported yet — {_HIER}")
+        if len(worker_grid) != 2:
+            raise ValueError(
+                "hierarchical topology needs a (n_nodes, node_size) worker "
+                f"grid; got {worker_grid}")
+        return hierarchical(worker_grid[0], worker_grid[1])
     raise ValueError(f"unknown topology {name!r}")
 
 
@@ -360,9 +412,17 @@ def one_peer_exponential_schedule(K: int,
 
 def hierarchical_schedule(n_nodes: int, node_size: int,
                           self_weight: float = 0.5) -> TopologySchedule:
-    """The two-level one-peer schedule: not ported yet."""
-    raise NotImplementedError(f"hierarchical_schedule: not ported yet — "
-                              f"{_HIER}")
+    """Two-level schedule: one-peer exponential between nodes, an exact
+    average inside every node, every round.  Round ``j`` is the one-peer
+    round ``R_j`` over nodes lifted to ``R_j ⊗ (1/m)11ᵀ``: one inter-node
+    wire a node a round, and at a power-of-two ``n_nodes`` the cycle
+    product is the exact global average."""
+    n, m = int(n_nodes), int(node_size)
+    if n == 1:
+        return static_schedule(hierarchical(1, m))
+    base = one_peer_exponential_schedule(n, self_weight)
+    tops = tuple(_hier_compose(t, n, m) for t in base.topologies)
+    return TopologySchedule("hier_one_peer", tops)
 
 
 def alternating_axes_schedule(shape: Sequence[int],
@@ -432,7 +492,11 @@ def make_schedule(name: str, worker_grid: Sequence[int], *,
     if key in ("alt_axes", "alternating_axes"):
         return alternating_axes_schedule(grid if len(grid) > 1 else (K,))
     if key in ("hier_one_peer", "hierarchical_one_peer"):
-        raise NotImplementedError(f"{name}: not ported yet — {_HIER}")
+        if len(grid) != 2:
+            raise ValueError(
+                "hier_one_peer needs a (n_nodes, node_size) worker grid; "
+                f"got {grid}")
+        return hierarchical_schedule(grid[0], grid[1])
     if key in ("random_matching", "random_match"):
         if len(grid) > 1:
             raise ValueError(

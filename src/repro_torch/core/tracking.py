@@ -39,12 +39,19 @@ on the tree at the boundary; QG's straggler folds its own round
 displacement into m, and needs no code.  Bytes: the correction wire ×
 the round's active edges per worker.
 
-Not ported, and refused at construction: overlapped rounds and MT's
-drip refresh (ROADMAP queue A item 9, refused by
-:class:`~repro_torch.core.pdsgdm.PDSGDM`), the sharded backend with its
-per-neighbour correction payloads (item 12, refused there too) and
-hierarchical gossip's per-level bytes (item 10,
-:meth:`MTDSGDm.hier_bytes_per_level`).
+Overlapped rounds (``overlap=True``): MT forms the stale tracking delta
+``dc = gate·(W̃·c_buf − c_buf)`` beside ``dx`` at round start and drips
+``dc/p`` into c after every local step (on the kernel layout, the gossip
+kernel with weights (1, 1/p)), so c is refreshed within the round
+instead of aging; a codec on the correction refuses overlap, as in the
+reference.  QG lands the stale correction, then folds the realized round
+displacement into its buffer as in the synchronous form.  On a
+hierarchical graph MT's bytes double at every level (the ``(x, c)``
+pair).
+
+Not ported: the sharded backend with its per-neighbour correction
+payloads (ROADMAP queue A item 12, refused by
+:class:`~repro_torch.core.pdsgdm.PDSGDM`).
 """
 from __future__ import annotations
 
@@ -132,6 +139,42 @@ class MTDSGDm(PDSGDM):
         new_state["step"] = state["step"] + 1
         return {k: x for k, (x, _) in pairs.items()}, new_state
 
+    # -- overlapped rounds: staleness-refreshed tracking ------------------------
+    # c is re-synchronized only at round boundaries, so late in a long round
+    # every worker descends along a correction up to p steps old.  Under
+    # overlap the stale delta dc = W̃·c̃ − c̃, formed at round start, is
+    # dripped into c as dc/p after every local step; under a
+    # doubly-stochastic W̃ mean_k(dc) = 0, so each drip keeps the tracking
+    # invariant.
+    overlap_delta_keys: tuple = ("dx", "dc")
+    overlap_refreshes: bool = True
+
+    def _delayed_mix_init(self, params) -> dict:
+        mix = super()._delayed_mix_init(params)
+        mix["buf_c"] = _zeros_f32(params)     # c₀ = 0: the first payload too
+        return mix
+
+    def overlap_begin(self, state) -> dict:
+        delta = super().overlap_begin(state)
+        mix = state["mix"]
+        gate = (mix["phase"] > 0).to(torch.float32)
+        mixed_c = self.comm.stale_mix(mix["buf_c"], r=self.round_index(state))
+        delta["dc"] = tree_map(lambda mc, c: (mc - c) * gate, mixed_c,
+                               mix["buf_c"])
+        return delta
+
+    def overlap_step_refresh(self, state, delta):
+        inv_p = float(np.float32(1.0 / self.config.p))
+        new_state = dict(state)
+        new_state["c"] = tree_map(lambda c, d: c + inv_p * d, state["c"],
+                                  delta["dc"])
+        return new_state
+
+    def _snapshot_mix(self, state, params) -> dict:
+        mix = super()._snapshot_mix(state, params)
+        mix["buf_c"] = state["c"]
+        return mix
+
     # -- communication: gossip (x, c) ------------------------------------------
     def comm_round(self, state, params):
         r = self.round_index(state)
@@ -169,6 +212,8 @@ class MTDSGDm(PDSGDM):
         mats = super().mat_state(plan, state)
         mats["c"] = plan.flatten(state["c"])
         mats["g_prev"] = plan.flatten(state["g_prev"])
+        if self.config.overlap:
+            mats["mix_buf_c"] = plan.flatten(state["mix"]["buf_c"])
         return mats
 
     def unmat_state(self, plan, mats, state, step) -> dict:
@@ -176,7 +221,28 @@ class MTDSGDm(PDSGDM):
         new_state["c"] = plan.unflatten(mats["c"], dtype=torch.float32)
         new_state["g_prev"] = plan.unflatten(mats["g_prev"],
                                              dtype=torch.float32)
+        if self.config.overlap:
+            new_state["mix"] = {
+                **new_state["mix"],
+                "buf_c": plan.unflatten(mats["mix_buf_c"],
+                                        dtype=torch.float32)}
         return new_state
+
+    def overlap_begin_mat(self, mats, r, gate, *, plan=None) -> dict:
+        delta = super().overlap_begin_mat(mats, r, gate, plan=plan)
+        buf_c = mats["mix_buf_c"]
+        delta["dc"] = (self._stale_gossip_mat(buf_c, r, plan=plan) - buf_c) \
+            * gate
+        return delta
+
+    def overlap_refresh_mat(self, mats, delta):
+        """The drip: c + (1/p)·dc, one gossip launch with static weights."""
+        return {**mats, "c": kops.gossip_mix_mat(
+            (mats["c"], delta["dc"]), (1.0, 1.0 / self.config.p))}
+
+    def overlap_apply_mat(self, x_mat, mats, delta, r):
+        x_new, mats = super().overlap_apply_mat(x_mat, mats, delta, r)
+        return x_new, {**mats, "mix_buf_c": mats["c"]}
 
     def local_step_mat(self, x_mat, mats, g_mat, step):
         """The tracking update as two fused AXPYs, then the momentum
@@ -212,7 +278,8 @@ class MTDSGDm(PDSGDM):
         wire as x), both × round ``r``'s degree; under membership × the
         round's active edges per worker."""
         top = self.comm.topology_at(r)
-        if top.name == "hierarchical":
+        if top.name == "hierarchical" and self.comm.membership is None:
+            # x and c ship through the same two-level round
             return self.hier_bytes_per_level(params, r=r)["inter"]
         kernel_wire = self._kernel_wire_active()
         x_bytes = (top.degree * self._mat_wire_bytes(params) if kernel_wire
@@ -228,9 +295,10 @@ class MTDSGDm(PDSGDM):
         return x_bytes + self.comm.edges_per_worker(r) * c_payload
 
     def hier_bytes_per_level(self, params, r: int = 0) -> dict:
-        raise NotImplementedError(
-            "hierarchical gossip and its per-level bytes are ROADMAP queue "
-            "A item 10")
+        """MT gossips the ``(x, c)`` pair: every level of the two-level
+        round runs twice, so each entry doubles."""
+        levels = super().hier_bytes_per_level(params, r=r)
+        return {k: 2 * v for k, v in levels.items()}
 
 
 class QGDSGDm(PDSGDM):
@@ -291,6 +359,27 @@ class QGDSGDm(PDSGDM):
         new_state["xprev"] = tree_map(lambda x: x.to(torch.float32), mixed)
         return mixed, new_state
 
+    # -- overlapped rounds ------------------------------------------------------
+    # The stale correction lands on the drifted params at round end; the
+    # buffer then folds the realized round displacement (x_prev − x)/(ηp)
+    # as in the synchronous form.  On round 0 (gate 0) that is the local
+    # round displacement.
+    def overlap_apply(self, state, params, delta):
+        """The tree form, rounded as the reference's:
+        μm + ((1−μ)(x_prev − x))·(1/(ηp))."""
+        mu = self.config.mu
+        inv = self._round_inv(self.round_index(state))
+        x32 = tree_map(lambda x, d: x.to(torch.float32) + d, params,
+                       delta["dx"])
+        new_state = dict(state)
+        new_state["m"] = tree_map(
+            lambda m, xp, xn: mu * m + self._one_minus_mu * (xp - xn) * inv,
+            state["m"], state["xprev"], x32)
+        new_state["xprev"] = x32
+        params_new = tree_map(lambda x32_, x: x32_.to(x.dtype), x32, params)
+        new_state["mix"] = self._snapshot_mix(new_state, params_new)
+        return params_new, new_state
+
     # -- kernel round ----------------------------------------------------------
     def mat_state(self, plan, state) -> dict:
         mats = super().mat_state(plan, state)
@@ -317,3 +406,13 @@ class QGDSGDm(PDSGDM):
         m_new = self._fold(mats["m"], mats["xprev"], x_new,
                            self._round_inv(r))
         return x_new, {**mats, "m": m_new, "xprev": x_new}
+
+    def overlap_apply_mat(self, x_mat, mats, delta, r):
+        """Land the stale correction (``ops.delayed_mix_mat``), fold the
+        displacement into m as :meth:`comm_round_mat` does, and cut the
+        next payload."""
+        x_new = kops.delayed_mix_mat(x_mat, delta["dx"])
+        m_new = self._fold(mats["m"], mats["xprev"], x_new,
+                           self._round_inv(r))
+        return x_new, {**mats, "m": m_new, "xprev": x_new,
+                       "mix_buf": x_new}

@@ -41,7 +41,9 @@
 //    output is stored evict-first (__stcs): on the H100, at n = 2 on
 //    (4096, 1024), that took 0.45 us off a launch in MT's round and 3 %
 //    off a launch on cold inputs.  Taken for distinct matrices, one view,
-//    or a grid too wide for the tile.
+//    or a grid too wide for the tile; and for shifted views of two
+//    matrices (the bf16 wire: the self view reads the f32 matrix, the
+//    neighbour views its bf16 round trip), since each view reads its own x.
 // The n input descriptors travel by value as one __grid_constant__
 // parameter struct sized to n; the SM count is queried once per device.
 #include <cuda_runtime.h>

@@ -10,9 +10,11 @@ on CPU tensors:
 * :func:`gossip_mix` mixes n distinct matrices (MT-DSGDm's tracking AXPYs,
   ``ops.delayed_mix_mat``);
 * :func:`gossip_mix_shifted` mixes one topology axis of a static shift
-  graph: every view is the same ``(K, rows, 1024)`` matrix read at a
-  worker-grid shift, neighbour rows past the wire extent read as zero.
-  The kernel reads the views in place: no rolled or re-padded copy.
+  graph: every view is a ``(K, rows, 1024)`` matrix read at a worker-grid
+  shift, neighbour rows past the wire extent read as zero.  The self view
+  reads ``x``; the neighbour views read ``x`` too, or a second matrix of
+  the same shape (the bf16 wire's f32 round trip of the payload).  The
+  kernel reads the views in place: no rolled or re-padded copy.
 
 Weights are Python floats (the topology is fixed for a run), rounded to f32
 at the launch.  One launch takes at most :data:`LAUNCH_INPUTS` inputs.
@@ -110,14 +112,16 @@ def gossip_mix(tensors, *, weights):
 
 
 def gossip_mix_shifted(x, *, grid, axis: int, shifts, weights, lim=None,
-                       _force_stream: bool = False):
+                       nbr=None, _force_stream: bool = False):
     """One topology axis of a static shift graph on the kernel layout.
 
     x: (K, rows, LANE) f32, K = prod(grid) workers in a row-major grid;
     shifts and weights: one per view.  View j gives worker k the matrix of
     the worker ``shifts[j]`` further along ``axis`` (``DenseComm._roll``),
     its rows from ``lim`` on zero unless ``shifts[j] == 0`` (``lim``: the
-    wire extent, ``rows`` by default).  Returns the fresh (K, rows, LANE)
+    wire extent, ``rows`` by default).  The view of shift 0 reads ``x``,
+    every other view reads ``nbr`` (``x`` by default; an f32 matrix shaped
+    as ``x``, on its device).  Returns the fresh (K, rows, LANE)
     ``Σⱼ wⱼ·viewⱼ``, summed left to right.  ``_force_stream`` launches the
     stream design where the kernel would take the tile, to time the two."""
     grid = tuple(int(g) for g in grid)
@@ -130,15 +134,19 @@ def gossip_mix_shifted(x, *, grid, axis: int, shifts, weights, lim=None,
     check_operand(x, "x", torch.float32, (k, rows, LANE), x.device)
     if not 0 <= axis < len(grid):
         raise ValueError(f"axis {axis} is not an axis of the grid {grid}")
+    if nbr is None:
+        nbr = x
+    else:
+        check_operand(nbr, "nbr", torch.float32, (k, rows, LANE), x.device)
     lim = rows if lim is None else min(int(lim), rows)
     if lim < 0:
         raise ValueError(f"lim {lim} < 0")
     if x.device.type == "cpu":
         return gossip_shift_ref(x, shifts, weights, grid=grid, axis=axis,
-                                lim=lim)
+                                lim=lim, nbr=nbr)
     size = grid[axis]
     inner = math.prod(grid[axis + 1:])
-    views = tuple((x, w, sh % size, rows if sh == 0 else lim)
+    views = tuple((x, w, 0, rows) if sh == 0 else (nbr, w, sh % size, lim)
                   for sh, w in zip(shifts, weights))
     return _mix(views, k=k, rows=rows, inner=inner, size=size,
                 force_stream=_force_stream)

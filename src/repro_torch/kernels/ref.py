@@ -62,11 +62,15 @@ def _shift_view_ref(x, *, grid, axis: int, shift: int, lim: int):
     return F.pad(v, (0, 0, 0, rows - lim)) if lim < rows else v
 
 
-def gossip_shift_ref(x, shifts, weights, *, grid, axis: int, lim: int):
+def gossip_shift_ref(x, shifts, weights, *, grid, axis: int, lim: int,
+                     nbr=None):
     """One topology axis of a shift graph: the self view (shift 0) is
-    ``x`` itself, every other view is :func:`_shift_view_ref`, and the views
-    are summed by :func:`gossip_mix_ref` in ``shifts`` order."""
-    views = [x if sh == 0 else _shift_view_ref(x, grid=grid, axis=axis,
+    ``x`` itself, every other view is :func:`_shift_view_ref` of ``nbr``
+    (``x`` by default; the bf16 wire passes the payload's f32 round trip),
+    and the views are summed by :func:`gossip_mix_ref` in ``shifts``
+    order."""
+    src = x if nbr is None else nbr
+    views = [x if sh == 0 else _shift_view_ref(src, grid=grid, axis=axis,
                                                shift=sh, lim=lim)
              for sh in shifts]
     return gossip_mix_ref(views, weights)

@@ -435,17 +435,18 @@ def test_optimizer_factory_builds_the_baselines():
     # MT-DSGDm and QG-DSGDm: ported (tests/test_torch_tracking.py)
     assert isinstance(make_optimizer("mt_dsgdm", comm), MTDSGDm)
     assert isinstance(make_optimizer("qg", comm), QGDSGDm)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_topology("hierarchical", (2, 4))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_schedule("hier_one_peer", (2, 4))
-    # elastic membership is ported; the overlapped rounds' stale mix is not
+    assert make_topology("hierarchical", (2, 4)).name == "hierarchical"
+    assert make_schedule("hier_one_peer", (2, 4)).period == 1
     churn = DenseComm(ring(K), membership=full_membership(K), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        churn.stale_mix({}, r=0)
+    tree = {"w": torch.arange(3.0 * K).reshape(K, 3)}
+    assert torch.equal(churn.stale_mix(tree, r=0)["w"], churn.mix(tree)["w"])
+    # overlapped rounds (tests/test_torch_overlap.py): PD-SGD is PD-SGDM at
+    # μ = 0; CPD overlaps on the tree path only, as in the reference
     for name in ("cpd_sgdm", "pd_sgd", "mt_dsgdm", "qg"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make_optimizer(name, comm, overlap=True)
+        assert make_optimizer(name, comm, overlap=True).config.overlap
+    assert make_optimizer("pd_sgd", comm, overlap=True).config.mu == 0.0
+    with pytest.raises(ValueError, match="use_kernel"):
+        make_optimizer("cpd_sgdm", comm, overlap=True, use_kernel=True)
     for name in ("d_sgd", "choco"):
         with pytest.raises(ValueError):
             make_optimizer(name, comm, overlap=True)

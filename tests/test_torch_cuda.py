@@ -136,6 +136,74 @@ def test_gossip_mix_shifted_bit_exact_on_card(graph, rows, lim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("graph,rows,lim", [
+    ("ring", 512, 310), ("torus", 512, 310), ("ring", 333, 201)])
+def test_gossip_mix_shifted_nbr_bit_exact_on_card(graph, rows, lim):
+    """The bf16 wire's shifted mix: per axis the self view read from x and
+    the neighbour views from ``nbr``, the f32 round trip of the axis's bf16
+    payload (views of two matrices: the stream design), equals the plain
+    version bit for bit, signs of zero included, one launch per axis."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import ring, torus
+    from repro_torch.core.gossip import bf16_round_trip
+    top = {"ring": ring(8), "torus": torus((2, 4))}[graph]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(rows + lim + 1)
+    x = torch.from_numpy(rng.standard_normal(
+        (top.n_workers, rows, LANE), dtype=np.float32)).to(dev)
+    x[0, lim - 1, :8] = -0.0
+    per_axis = {}
+    for (ax, sh, w) in top.shifts:
+        per_axis.setdefault(ax, []).append((sh, w))
+    before = gossip_mix.launches
+    y = want = x
+    for ax in sorted(per_axis):
+        shifts, ws = zip(*per_axis[ax])
+        want = gossip_shift_ref(want, shifts, ws, grid=top.axis_sizes,
+                                axis=ax, lim=lim, nbr=bf16_round_trip(want))
+        y = gossip_mix_shifted(y, grid=top.axis_sizes, axis=ax,
+                               shifts=shifts, weights=ws, lim=lim,
+                               nbr=bf16_round_trip(y))
+    torch.cuda.synchronize()
+    assert gossip_mix.launches - before == len(per_axis)
+    assert _same_bits(y, want)
+    f32 = gossip_mix_shifted(x, grid=top.axis_sizes, axis=0,
+                             shifts=[sh for sh, _ in per_axis[0]],
+                             weights=[w for _, w in per_axis[0]], lim=lim)
+    assert not _same_bits(f32, gossip_mix_shifted(
+        x, grid=top.axis_sizes, axis=0,
+        shifts=[sh for sh, _ in per_axis[0]],
+        weights=[w for _, w in per_axis[0]], lim=lim,
+        nbr=bf16_round_trip(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512), (3, 333)])
+def test_delayed_mix_and_drip_bit_exact_on_card(shape):
+    """The overlapped round's landing ``ops.delayed_mix_mat`` (x + dx,
+    weights (1, 1)) and MT's drip (c + dc/p, weights (1, 1/p)) on the
+    kernel layout: one launch each, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    k, rows = shape
+    a, b = (torch.from_numpy(m.reshape(k, rows, LANE)).to(dev)
+            for m in _mats(k * rows, 2, k * rows))
+    b[0, 0, :4] = -0.0
+    for fn, ws in ((lambda: ops.delayed_mix_mat(a, b), (1.0, 1.0)),
+                   (lambda: ops.gossip_mix_mat((a, b), (1.0, 1.0 / 4)),
+                    (1.0, 1.0 / 4))):
+        before = gossip_mix.launches
+        y = fn()
+        torch.cuda.synchronize()
+        assert gossip_mix.launches == before + 1
+        want = gossip_mix_ref([a.reshape(-1, LANE), b.reshape(-1, LANE)], ws)
+        assert _same_bits(y, want.reshape(a.shape))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ws", [(1.0, 1e-4), (1.0, 1.0, -1.0)])
 @pytest.mark.parametrize("rows", [4096, 333])
 def test_gossip_mix_tracking_weights_bit_exact_on_card(ws, rows):

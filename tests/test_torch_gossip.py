@@ -106,16 +106,21 @@ def test_gossip_bytes_equal_reference(name):
 
 
 def test_dense_comm_refuses_what_this_slice_does_not_port():
-    # elastic membership is ported (tests/test_torch_membership.py); the
-    # overlapped rounds' stale mix is not
+    """A wire dtype other than f32 and bf16 is refused, as in the
+    reference; the bf16 wire and the stale mix are ported (held against
+    the reference in tests/test_torch_hierarchical.py and
+    tests/test_torch_overlap.py)."""
     churn = DenseComm(top.ring(8), membership=top.full_membership(8),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        churn.stale_mix({}, r=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        DenseComm(top.ring(8), wire_dtype="bfloat16", device="cpu")
-    with pytest.raises(ValueError):
+    tree = {"w": torch.arange(24.0).reshape(8, 3)}
+    assert torch.equal(churn.stale_mix(tree, r=0)["w"], churn.mix(tree)["w"])
+    bf16 = DenseComm(top.ring(8), wire_dtype="bfloat16", device="cpu")
+    assert bf16.wire_itemsize == 2
+    with pytest.raises(ValueError) as ours:
         DenseComm(top.ring(8), wire_dtype="float16", device="cpu")
+    with pytest.raises(ValueError) as ref:
+        r_gossip.DenseComm(r_top.ring(8), wire_dtype="float16")
+    assert str(ours.value) == str(ref.value)
 
 
 def test_cuda_device_without_a_card_raises():

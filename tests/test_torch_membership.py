@@ -254,8 +254,12 @@ def test_round_index_needed_past_one_round():
     with pytest.raises(ValueError):
         DenseComm(top.ring(4), membership=top.full_membership(K),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        comm.stale_mix(tree, r=0)
+    # the stale mix needs it too (tests/test_torch_overlap.py)
+    with pytest.raises(ValueError) as ours:
+        comm.stale_mix(tree)
+    with pytest.raises(ValueError) as ref:
+        rcomm.stale_mix({"w": jnp.ones((K, 3))})
+    assert str(ours.value) == str(ref.value)
 
 
 # ----------------------------------------------------------- warm starts

@@ -295,19 +295,22 @@ def test_schedules_match_reference(name, args):
 
 
 def test_optimizer_factory_refuses_what_this_slice_does_not_port():
+    """What the port refuses: an unknown optimizer and any backend but the
+    dense one (the sharded backend, ROADMAP queue A item 12).  Overlapped
+    rounds and hierarchical graphs are ported (tests/test_torch_overlap.py,
+    tests/test_torch_hierarchical.py) and build as the reference's do."""
     comm = DenseComm(ring(K), device="cpu")
-    # MT-DSGDm and QG-DSGDm are ported (tests/test_torch_tracking.py); their
-    # overlapped rounds are not
     for name in ("pd_sgdm", "mt_dsgdm", "qg_dsgdm"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make_optimizer(name, comm, overlap=True)
+        opt = make_optimizer(name, comm, overlap=True)
+        assert opt.config.overlap and "mix" in opt.init(
+            {"w": torch.zeros(K, 3)})
     with pytest.raises(ValueError):
         make_optimizer("adam", comm)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_topology("hierarchical", (2, 4))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_schedule("hier_one_peer", (2, 4))
-    # elastic membership is ported; the overlapped rounds' stale mix is not
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_optimizer("pd_sgdm", object())
+    assert make_topology("hierarchical", (2, 4)).axis_sizes == (2, 4)
+    assert make_schedule("hier_one_peer", (2, 4)).name == "hier_one_peer"
+    # the stale mix under membership: all active, it is the mix
     churn = DenseComm(ring(K), membership=full_membership(K), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        churn.stale_mix({}, r=0)
+    tree = {"w": torch.arange(3.0 * K).reshape(K, 3)}
+    assert torch.equal(churn.stale_mix(tree, r=0)["w"], churn.mix(tree)["w"])

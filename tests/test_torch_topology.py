@@ -147,12 +147,20 @@ def test_schedule_builders_refuse_what_the_reference_refuses():
 
 
 def test_hierarchical_graphs_raise_naming_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        top.make_topology("hierarchical", (2, 4))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        top.make_schedule("hier_one_peer", (2, 4))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        top.hierarchical_schedule(2, 4)
+    """Item 10 is ported: the hierarchical graphs build as the reference's,
+    bit for bit (tests/test_torch_hierarchical.py), and refuse what the
+    reference refuses."""
+    for ours, ref in ((top.make_topology("hierarchical", (2, 4)),
+                       r_top.make_topology("hierarchical", (2, 4))),
+                      (top.hierarchical_schedule(4, 2).at(1),
+                       r_top.hierarchical_schedule(4, 2).at(1))):
+        np.testing.assert_array_equal(ours.W, ref.W)
+        assert ours.shifts == ref.shifts
+    assert top.make_schedule("hier_one_peer", (4, 2)).period == 2
+    with pytest.raises(ValueError, match="grid"):
+        top.make_topology("hierarchical", (8,))
+    with pytest.raises(ValueError, match="grid"):
+        top.make_schedule("hier_one_peer", (8,))
 
 
 # ------------------------------------------------------------ DenseComm

@@ -39,7 +39,7 @@ from repro_torch.core import (DenseComm, MTDSGDMConfig,  # noqa: E402
                               RandKCompressor, SignCompressor,
                               TopKCompressor, exponential, full_membership,
                               make_optimizer, make_schedule, ring)
-from repro_torch.core.topology import Topology  # noqa: E402
+from repro_torch.core.topology import make_topology  # noqa: E402
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
 from repro_torch.kernels.sign_compress import sign_pack, sign_unpack  # noqa: E402
@@ -427,20 +427,26 @@ def test_factory_and_refusals():
         QGDSGDm(QGDSGDMConfig(nesterov=True), comm)
     with pytest.raises(ValueError, match="overlap"):
         MTDSGDm(MTDSGDMConfig(overlap=True), comm, SignCompressor())
+    # overlapped rounds (tests/test_torch_overlap.py): MT drips, QG folds
     for name in ("mt_dsgdm", "qg_dsgdm"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make_optimizer(name, comm, overlap=True)
-    # elastic membership is ported; the overlapped rounds' stale mix is not
+        opt = make_optimizer(name, comm, overlap=True)
+        assert opt.config.overlap
+        assert opt.overlap_refreshes == (name == "mt_dsgdm")
+    assert "buf_c" in make_optimizer("mt", comm, overlap=True).init(
+        {"w": torch.zeros(K, 3)})["mix"]
     churn = DenseComm(ring(K), membership=full_membership(K), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        churn.stale_mix({}, r=0)
-    hier = Topology("hierarchical", np.eye(4), ((0, 0, 1.0),), (2, 2))
-    opt = make_optimizer("mt", DenseComm(hier, device="cpu"))
+    tree = {"w": torch.arange(3.0 * K).reshape(K, 3)}
+    assert torch.equal(churn.stale_mix(tree, r=0)["w"], churn.mix(tree)["w"])
+    # MT's per-level bytes on a hierarchical graph double PD's (the (x, c)
+    # pair; tests/test_torch_hierarchical.py holds them against the
+    # reference)
+    hier = DenseComm(make_topology("hierarchical", (2, 2)), device="cpu")
+    opt = make_optimizer("mt", hier)
     w = {"w": torch.zeros(10)}
-    for call in (lambda: opt.hier_bytes_per_level(w),
-                 lambda: opt.bytes_per_comm_round(w)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    pd_levels = make_optimizer("pd_sgdm", hier).hier_bytes_per_level(w)
+    assert opt.hier_bytes_per_level(w) == {k: 2 * v
+                                           for k, v in pd_levels.items()}
+    assert opt.bytes_per_comm_round(w) == 2 * pd_levels["inter"] == 40.0
 
 
 # ------------------------------------------------------------ eval hook
