@@ -42,7 +42,11 @@ matmuls:
    the ring's and exp16's gossip steps beside ``W @ x`` (the uncut mix,
    same bytes and operations) and the plain version, the ring's bf16 step
    and its launch beside them, n = 2 beside ``torch.add``, and n = 3;
-2. drives twenty paths through the port's entry points, each once, with
+   and, at the full-width OLMo path's shape (8, 250368, 1024) f32 (8.2 GB
+   a matrix, past 2³² bytes), ``momentum_update`` and the ring's gossip
+   step, bit for bit worker by worker, timed over 5 launches beside the
+   plain version and ``torch._fused_sgd_`` / ``W @ x``;
+2. drives twenty-three paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
    ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
@@ -67,12 +71,23 @@ matmuls:
    ``SparseRowsCompressor(max_rows=64)`` through ``CPDSGDM.round`` on a
    (65,536 × 64) f32 embedding table per worker, K = 4 on a ring, Zipf
    lookups of batch 64, p = 4, η = 0.05, γ = 0.4 (the reference's
-   ``benchmarks/embedding_wire.py``), 3 rounds and a 2-step tail;
+   ``benchmarks/embedding_wire.py``), 3 rounds and a 2-step tail; and
+   three language-model paths through ``make_model`` →
+   ``make_optimizer`` → ``SimTrainer.train`` with ``lm_batch``:
+   PD-SGDM on OLMo-1B's published widths (d_model 2048, 16 heads, d_ff
+   8192, vocab 50,304, non-parametric LayerNorm, GELU) cut to one of its
+   16 layers and f32 params, K = 8 on a ring, η = 0.25, μ = 0.9, p = 4,
+   weight decay 1e-4, seq 256, batch 2 a worker
+   (``examples/pretrain_decentralized.py``'s lm-100m settings), its peak
+   memory printed; and the quickstart's tiny LM (2 layers, d_model 64)
+   at η = 0.3 with PD-SGDM on ``hierarchical(2, 4)`` and with CPD-SGDM's
+   sign wire (γ = 0.4) on the ring;
 3. holds one kernel-path round against one round of the plain path from
-   the same init on the same batches, for each of the twenty (the
+   the same init on the same batches, for each of the twenty-three (the
    one-peer path over its 3-round cycle, the churn and overlapped paths
    each round of theirs from the same start, 3 or 4 rounds so that every
-   stale matrix lands): for PD-SGDM,
+   stale matrix lands; OLMo's two rounds one after the other, the start
+   and the kernel round's result held on the host): for PD-SGDM,
    C-SGDM, MT-DSGDm and QG-DSGDm the tree round, for every CPD-SGDM wire
    the round through the per-leaf codec, which launches no codec kernel;
    the params, m, the tracking state and the in-flight payload; and
@@ -103,7 +118,8 @@ Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, the four
 figure phases' and the elastic and topology phases' rows, verdicts and
 wall seconds, one JSON line
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; so does a
+``{"kernels": [...]}`` (``momentum_update`` and ``gossip_mix`` with their
+``full_width`` rows too) and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; so does a
 machine without a CUDA device, and a copy of the script outside a checkout
 (it imports the port from ``src/`` beside itself).  Imports nothing of JAX
 or of the JAX package.
@@ -111,6 +127,8 @@ or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -155,6 +173,18 @@ FIG3_STEPS = 70                            # benchmarks/fig3_cpdsgdm.py
 FIG3_CPD_STEPS, FIG3_PD_STEPS = 150, 90
 # benchmarks/noniid_sweep.py at its claim's skew
 NONIID_ALPHA, NONIID_STEPS, NONIID_PS = 0.1, 64, (1, 2, 4)
+# the LM paths: the quickstart's tiny LM (examples/quickstart.py) at its
+# step, and OLMo-1B at its published widths (configs/olmo_1b.py) cut to
+# one of its 16 layers and f32 params (the kernel layout is f32), at
+# examples/pretrain_decentralized.py:86-88's PD-SGDM settings and its
+# lm-100m rows' sequence (256) and global batch (16 over 8 workers)
+TINY_LM = dict(name="tiny-lm", arch_type="dense", n_layers=2, d_model=64,
+               n_heads=4, n_kv_heads=2, d_ff=128, vocab=256)
+TINY_SEQ, TINY_BATCH = 32, 4
+TINY_HYPER = dict(eta=0.3, mu=0.9, p=P)
+OLMO_LAYERS, OLMO_SEQ, OLMO_BATCH = 1, 256, 2
+OLMO_HYPER = dict(eta=0.25, mu=0.9, p=P, weight_decay=1e-4)
+OLMO_ROWS = 250_368         # the plan's rows (all used) of one worker's tree
 # the churn paths' membership, period 3: round 0 kills worker 3, round 1
 # also stalls worker 6, round 2 revives worker 3 (everyone exchanges)
 CHURN_ROUNDS = 3
@@ -194,7 +224,14 @@ WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
               "pd_sgdm_bf16": (1_269_760,),
               # hierarchical(2, 4): the inter level, 1 × 272,282 × 4 B over
               # the node size 4
-              "pd_sgdm_hier": (272_282,)}
+              "pd_sgdm_hier": (272_282,),
+              # OLMo-1B, one layer: 2 × 250,368 rows × 4 KiB, every leaf
+              # filling whole rows (so the tree wire is the same)
+              "pd_sgdm_olmo1b": (2_051_014_656,),
+              # the tiny LM's 106,816 f32 × 4 B over the node size 4
+              "pd_sgdm_tinylm_hier": (106_816,),
+              # 2 × 107 used rows × (128 + 4) B
+              "cpd_sgdm_tinylm_sign": (28_248,)}
 # the lines of nvcc's -Xptxas -v output that are printed: each kernel's
 # name, then its registers, shared memory and spills
 PTXAS_WORDS = ("Function properties", "registers", "spill")
@@ -301,6 +338,94 @@ def kernel_phase(torch, ops, bw, f32_peak):
     del x, m, g, xs, ms, gs
     timings.update(gossip_kernel_phase(torch, ops, bw, f32_peak))
     return timings
+
+
+def olmo_kernel_phase(torch, ops, bw, f32_peak) -> dict:
+    """``momentum_update`` and the ring's gossip step at the full-width OLMo
+    path's shape, (8, 250368, 1024) f32 (2,051,014,656 elements, 8.2 GB a
+    matrix, past 2³² bytes): each held bit for bit against its plain
+    version worker by worker (one worker's rows at a time, so that the
+    plain version's temporaries fit beside the operands), then timed over 5
+    launches in the per-launch window beside the plain version on the whole
+    matrix and the library call (``torch._fused_sgd_``, in place, last;
+    ``W @ x.reshape(K, -1)``).  Returns each kernel's row for the JSON
+    line's ``full_width``."""
+    from repro_torch.kernels.momentum import momentum_update
+    from repro_torch.kernels.ref import gossip_mix_ref, momentum_update_ref
+    LANE = ops.LANE
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = "pd_sgdm_olmo1b"
+    opt = make_opt(path, use_kernel=True)
+    plan = ops.KernelPlan.for_tree(
+        {n: torch.empty((K,) + shape, device="meta")
+         for n, shape in lm_model(path).param_shapes().items()},
+        worker_dim=True)
+    rows = plan.rows
+    if (rows, plan.used_rows) != (OLMO_ROWS, OLMO_ROWS):
+        raise AssertionError(f"OLMo plan: {rows} rows, {plan.used_rows} "
+                             f"used, expected {OLMO_ROWS}")
+    shape = (K, rows, LANE)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    mu, wd = OLMO_HYPER["mu"], OLMO_HYPER["weight_decay"]
+    lr = torch.full((), OLMO_HYPER["eta"], dtype=torch.float32, device=dev)
+    x, m, g = (torch.randn((K * rows, LANE), generator=gen, device=dev)
+               for _ in range(3))
+    n = x.numel()
+    results, out = {}, {}
+    got = momentum_update(x, m, g, lr, mu=mu, wd=wd)
+    for w in range(K):
+        sl = slice(w * rows, (w + 1) * rows)
+        same_bits(torch, "momentum_update", (got[0][sl], got[1][sl]),
+                  momentum_update_ref(x[sl], m[sl], g[sl], lr, mu=mu, wd=wd),
+                  results, f"full width, worker {w}")
+    del got
+    timing = dict(
+        ms=time_ms(torch, lambda: momentum_update(x, m, g, lr, mu=mu, wd=wd),
+                   reps=5, warmup=1),
+        plain_ms=time_ms(torch, lambda: momentum_update_ref(
+            x, m, g, lr, mu=mu, wd=wd), reps=5, warmup=1),
+        library_ms=time_ms(torch, lambda: torch._fused_sgd_(
+            [x], [g], [m], weight_decay=wd, momentum=mu,
+            lr=OLMO_HYPER["eta"], dampening=0.0, nesterov=False,
+            maximize=False, is_first_step=False), reps=5, warmup=1),
+        bytes=5 * 4 * n, flops=6 * n)
+    finish_timings({"momentum_update": timing}, results, bw, f32_peak,
+                   ("full width",) + shape)
+    out["momentum_update"] = timing
+    del m, g
+    x = x.view(shape)
+    top = opt.comm.topology
+    before = counters()["gossip_mix"].launches
+    y = opt._gossip_mat(x, 0, plan=plan)
+    if counters()["gossip_mix"].launches - before != 1:
+        raise AssertionError("OLMo gossip step: not one launch")
+    for w in range(K):
+        views = [x[(w + sh) % K] for (_ax, sh, _wt) in top.shifts]
+        same_bits(torch, "gossip_mix", (y[w],), (gossip_mix_ref(
+            views, [wt for (_ax, _sh, wt) in top.shifts]),), results,
+            f"full width ring, worker {w}")
+    del y
+    W = opt.comm._W
+    timing = dict(
+        ms=time_ms(torch, lambda: opt._gossip_mat(x, 0, plan=plan), reps=5,
+                   warmup=1),
+        plain_ms=time_ms(torch, lambda: plain_gossip(top, x, rows), reps=5,
+                         warmup=1),
+        library_ms=time_ms(torch, lambda: W @ x.reshape(K, -1), reps=5,
+                           warmup=1),
+        bytes=2 * 4 * n, flops=(2 * len(top.shifts) - 1) * n)
+    finish_timings({"gossip_mix": timing}, results, bw, f32_peak,
+                   ("full width ring step",) + shape)
+    out["gossip_mix"] = timing
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: dict({k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by",
+                                           "max_abs_err")},
+                       shape=list(shape)) for name, t in out.items()}
 
 
 def turns(torch, fns: dict) -> dict:
@@ -1191,7 +1316,9 @@ PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
          "mt_dsgdm", "mt_dsgdm_sign", "qg_dsgdm", "pd_sgdm_churn",
          "cpd_sgdm_sign_churn", "mt_dsgdm_sign_churn", "pd_sgdm_overlap",
          "mt_dsgdm_overlap", "qg_dsgdm_overlap", "pd_sgdm_bf16",
-         "pd_sgdm_hier", "pd_sgdm_overlap_churn")
+         "pd_sgdm_hier", "pd_sgdm_overlap_churn", "pd_sgdm_olmo1b",
+         "pd_sgdm_tinylm_hier", "cpd_sgdm_tinylm_sign")
+LM_PATHS = ("pd_sgdm_olmo1b", "pd_sgdm_tinylm_hier", "cpd_sgdm_tinylm_sign")
 # MT: each step mixes ĝ = g + λx (n = 2) and c + ĝ − ĝ_prev (n = 3); each
 # round mixes x and c (or the decoded Q(c))
 MT_MIXES = 2 * STEPS + 2 * (STEPS // P)
@@ -1242,6 +1369,14 @@ EXPECTED = {
     # landing is the kernel
     "pd_sgdm_overlap_churn": {"momentum_update": STEPS,
                               "gossip_mix": STEPS // P},
+    # the LM paths: OLMo's ring mixes through the shifted kernel; the
+    # hierarchical round has no gossip launch; CPD's sign wire packs the
+    # LM tree's 107 ragged rows
+    "pd_sgdm_olmo1b": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
+    "pd_sgdm_tinylm_hier": {"momentum_update": STEPS},
+    "cpd_sgdm_tinylm_sign": {"momentum_update": STEPS,
+                             "sign_pack": STEPS // P,
+                             "sign_unpack": STEPS // P},
 }
 OWNER = {"momentum_update": "pd_sgdm", "gossip_mix": "pd_sgdm",
          "sign_pack": "cpd_sgdm_sign", "sign_unpack": "cpd_sgdm_sign",
@@ -1277,6 +1412,17 @@ def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
         return CPDSGDM(CPDSGDMConfig(use_kernel=use_kernel, **EMB_HYPER),
                        DenseComm(ring(EMB_K), device=DEVICE),
                        SparseRowsCompressor(max_rows=max_rows))
+    if path == "pd_sgdm_olmo1b":
+        return make_optimizer("pd_sgdm", DenseComm(ring(K), device=DEVICE),
+                              use_kernel=use_kernel, **OLMO_HYPER)
+    if path == "pd_sgdm_tinylm_hier":
+        return make_optimizer("pd_sgdm", DenseComm(
+            make_topology("hierarchical", HIER), device=DEVICE),
+            use_kernel=use_kernel, **TINY_HYPER)
+    if path == "cpd_sgdm_tinylm_sign":
+        return make_optimizer("cpd_sgdm", DenseComm(ring(K), device=DEVICE),
+                              gamma=GAMMA, compressor=SignCompressor(),
+                              use_kernel=use_kernel, **TINY_HYPER)
     graph = {"pd_sgdm_exp16": make_topology("exponential", (EXP_K,)),
              "pd_sgdm_onepeer": make_schedule(ONE_PEER, (K,)),
              "pd_sgdm_hier": make_topology("hierarchical", HIER)}.get(
@@ -1345,17 +1491,75 @@ def embedding_run(torch, opt, params, seed: int, steps: int):
     return params, state
 
 
+def lm_model(path: str):
+    """The model of an LM path, through ``make_model``."""
+    from repro_torch.configs.base import ModelCfg
+    from repro_torch.configs.olmo_1b import config as olmo_1b
+    from repro_torch.models import make_model
+    if path == "pd_sgdm_olmo1b":
+        return make_model(dataclasses.replace(
+            olmo_1b().model, n_layers=OLMO_LAYERS, param_dtype="float32",
+            compute_dtype="float32"))
+    return make_model(ModelCfg(**TINY_LM))
+
+
+def lm_stream(path: str, seed: int):
+    """Step t's LM batch of ``path``, K workers, from ``seed``."""
+    from repro_torch.data.synthetic import LMStreamCfg, lm_batch
+    seq, batch = ((OLMO_SEQ, OLMO_BATCH) if path == "pd_sgdm_olmo1b"
+                  else (TINY_SEQ, TINY_BATCH))
+    cfg = LMStreamCfg(vocab=lm_model(path).cfg.vocab, seq_len=seq,
+                      batch=batch, n_workers=K, seed=seed)
+    return lambda t: lm_batch(cfg, t, DEVICE)
+
+
+def lm_init(torch, path: str, seed: int) -> dict:
+    """K workers from the same x0 (Algorithm 1's input), drawn from
+    ``seed`` on the card."""
+    one = lm_model(path).init(torch.Generator(device=DEVICE).manual_seed(seed),
+                              device=DEVICE)
+    return {n: v.expand((K,) + v.shape).contiguous() for n, v in one.items()}
+
+
+def lm_grads_fn(torch, path: str):
+    """What ``SimTrainer`` hands the round: the mean loss and the
+    per-worker grads of ``vmap(grad_and_value(loss))``."""
+    model = lm_model(path)
+    grad = torch.func.vmap(torch.func.grad_and_value(
+        lambda prm, b: model.loss(prm, b)[0]))
+
+    def grads_fn(prm, b):
+        g, losses = grad(prm, b)
+        return losses.mean(), g
+    return grads_fn
+
+
 def drive(torch, opt, path: str, seed: int, steps: int):
     """``steps`` steps of ``path`` with ``opt`` from the init of ``seed``;
     returns ``(init, params, state, history)`` (history None on the
-    embedding path, which has no loss)."""
+    embedding path, which has no loss).  OLMo's init is handed to the
+    trainer and not kept (it would hold 8.2 GB through the run): its
+    ``init`` is the params' shapes on the meta device."""
+    from repro_torch.train.trainer import SimTrainer
+    if path in LM_PATHS:
+        model = lm_model(path)
+        trainer = SimTrainer(lambda prm, b: model.loss(prm, b), opt,
+                             device=DEVICE)
+        if path == "pd_sgdm_olmo1b":
+            out = trainer.train(lm_init(torch, path, seed),
+                                lm_stream(path, seed), steps, log_every=1)
+            init = {n: torch.empty((K,) + shape, device="meta")
+                    for n, shape in model.param_shapes().items()}
+            return (init,) + out
+        init = lm_init(torch, path, seed)
+        return (init,) + trainer.train(init, lm_stream(path, seed), steps,
+                                       log_every=1)
     if path == "cpd_sgdm_sparse":
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
         init = {"table": torch.randn((EMB_K, EMB_ROWS, EMB_DIM),
                                      generator=gen, device=DEVICE) * 0.1}
         return (init,) + embedding_run(torch, opt, init, seed, steps) + (None,)
     from repro_torch.models.resnet import resnet20_loss
-    from repro_torch.train.trainer import SimTrainer
     k = WORKERS.get(path, K)
     init = stacked_init(torch, seed, k)
     out = SimTrainer(resnet20_loss, opt, device=DEVICE).train(
@@ -1363,8 +1567,26 @@ def drive(torch, opt, path: str, seed: int, steps: int):
     return (init,) + out
 
 
+def describe(path: str) -> str:
+    """The model and batch of a path, as the training phase prints them."""
+    if path not in LM_PATHS:
+        return f"ResNet-20 width {WIDTH}, batch {BATCH}"
+    model = lm_model(path)
+    cfg = model.cfg
+    seq, batch = ((OLMO_SEQ, OLMO_BATCH) if path == "pd_sgdm_olmo1b"
+                  else (TINY_SEQ, TINY_BATCH))
+    n = sum(math.prod(s) for s in model.param_shapes().values())
+    return (f"{cfg.name} (n_layers {cfg.n_layers}, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}, {cfg.norm}, "
+            f"{'gated SiLU' if cfg.gated_mlp else 'GELU'}, {cfg.param_dtype}; "
+            f"{n:,} params a worker), seq {seq}, batch {batch}")
+
+
 def training_phase(torch, path: str) -> dict:
     """One path, once, with every launch counter set to 0 just before."""
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels = counters()
     opt = make_opt(path, use_kernel=True)
     drive(torch, opt, path, 0, P)                  # warm-up round, not timed
@@ -1394,8 +1616,8 @@ def training_phase(torch, path: str) -> dict:
               f"{STEPS} steps through CPDSGDM.round")
     else:
         comm_mb = hist.comm_mb[-1]
-        print(f"train: {path} kernel path, ResNet-20 width {WIDTH}, "
-              f"K={comm.topology.n_workers} {graph}, batch {BATCH}, "
+        print(f"train: {path} kernel path, {describe(path)}, "
+              f"K={comm.topology.n_workers} {graph}, "
               f"p={opt.config.p}, eta={opt.config.eta}, {STEPS} steps")
         print(f"train: {path} losses " + " ".join(f"{v:.4f}"
                                                    for v in hist.loss))
@@ -1440,6 +1662,8 @@ def parity_phase(torch, path: str):
     at most 2·max|drift|, in a handful of elements."""
     if path.endswith("_churn") or "_overlap" in path:
         return round_parity_phase(torch, path)
+    if path == "pd_sgdm_olmo1b":
+        return olmo_parity_phase(torch, path)
     kernels = counters()
     torch.backends.cudnn.deterministic = True
     opt = make_opt(path, True)
@@ -1461,6 +1685,60 @@ def parity_phase(torch, path: str):
     hold_parity(torch, path, f"{steps} steps, kernel path vs "
                 f"{'per-leaf codec' if cpd else 'tree'} path", init,
                 (got, sk), (want, st), losses)
+
+
+def olmo_parity_phase(torch, path: str):
+    """One kernel round of the full-width OLMo path against one tree round
+    from the same start on the same batches, at ``parity_phase``'s bars.
+    Both rounds cannot sit on the card at once (8.2 GB a copy of the
+    params), so the start and the kernel round's params and m go to the
+    host, the card is freed, and the tree round runs from the start copied
+    back; the two are compared leaf by leaf on the card."""
+    kernels = counters()
+    opt, plain = make_opt(path, True), make_opt(path, False)
+    grads_fn = lm_grads_fn(torch, path)
+    data = lm_stream(path, 1)
+    steps = [data(i) for i in range(opt.config.p)]
+    batches = {k: torch.stack([b[k] for b in steps]) for k in steps[0]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = lm_init(torch, path, 1)
+    host_start = {k: v.cpu() for k, v in start.items()}
+    got, sk, lk = opt.round(opt.init(start), start, grads_fn, batches)
+    host = {"params": {k: v.cpu() for k, v in got.items()},
+            "m": {k: v.cpu() for k, v in sk["m"].items()}}
+    lk = lk.tolist()
+    del start, got, sk
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = {k: v.to(DEVICE) for k, v in host_start.items()}
+    del host_start
+    before = {name: fn.launches for name, fn in kernels.items()}
+    want, st, lt = plain.round(plain.init(start), start, grads_fn, batches)
+    torch.cuda.synchronize()
+    stray = {name: fn.launches - before[name] for name, fn in kernels.items()
+             if fn.launches != before[name]}
+    if stray:
+        raise AssertionError(f"{path}: the plain round launched {stray}")
+    del start
+    gaps = {}
+    for what, plain_tree in (("params", want), ("m", st["m"])):
+        worst = 0.0
+        for k, ref in plain_tree.items():
+            a = host[what][k].to(DEVICE)
+            worst = max(worst, float((a - ref).abs().max()))
+            if not torch.allclose(a, ref, rtol=1e-3, atol=1e-4):
+                raise AssertionError(f"{path}: kernel round's {what} "
+                                     f"differs from the tree round's: {k}")
+            del a
+        gaps[what] = worst
+    print(f"parity: {path} round of {opt.config.p} steps, kernel path vs "
+          f"tree path, from the host copy of the start: max |Δparam| = "
+          f"{gaps['params']}, max |Δm| = {gaps['m']}, losses {lk} vs "
+          f"{lt.tolist()}")
+    del want, st, host
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def hold_parity(torch, path, what, start, kernel, plain, losses=""):
@@ -2198,6 +2476,7 @@ def main(argv=None) -> int:
     variants = [(label, build_variant(path)) for label, path in
                 (v.split("=", 1) for v in args.gather_variant)]
     timings.update(row_kernel_phase(torch, ops, bw, f32_peak, variants))
+    full_width = olmo_kernel_phase(torch, ops, bw, f32_peak)
     runs = {path: training_phase(torch, path) for path in PATHS}
     for path in PATHS:
         parity_phase(torch, path)
@@ -2225,6 +2504,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if name in full_width:
+            kernels[-1]["full_width"] = full_width[name]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -416,8 +416,13 @@ class PDSGDM:
         losses = []
         for batch in _unstack(batches):
             loss, grads = grads_fn(plan.unflatten(x_mat), batch)
-            x_mat, mats = self.local_step_mat(x_mat, mats, plan.flatten(grads),
-                                              step)
+            g_mat = plan.flatten(grads)
+            # free the grad tree before the update allocates its outputs,
+            # and the grad matrix before the next step's grads: at full
+            # width each is a copy of the params
+            del grads
+            x_mat, mats = self.local_step_mat(x_mat, mats, g_mat, step)
+            del g_mat
             if overlap and self.overlap_refreshes:
                 mats = self.overlap_refresh_mat(mats, delta)
             step = step + 1

@@ -1,9 +1,9 @@
-"""Synthetic streams: CIFAR-shaped mixture-of-Gaussians images, and Zipf
-embedding lookups.
+"""Synthetic streams: token sequences with a planted cluster chain,
+CIFAR-shaped mixture-of-Gaussians images, and Zipf embedding lookups.
 
-Port of ``ClassStreamCfg``/``class_batch`` and ``EmbedStreamCfg``/
-``embed_batch``/``touched_row_mask`` in
-``src/repro/data/synthetic.py:72-177``.  Every batch is a pure function of
+Port of ``LMStreamCfg``/``lm_batch``, ``ClassStreamCfg``/``class_batch``
+and ``EmbedStreamCfg``/``embed_batch``/``touched_row_mask`` in
+``src/repro/data/synthetic.py:34-177``.  Every batch is a pure function of
 ``(cfg, step)``: its ``torch.Generator`` is seeded from ``(seed, step)``
 and the fixed parts (class means, the planted table) from ``seed`` alone,
 so every run and every worker is reproducible; the draws run on the
@@ -20,8 +20,19 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["ClassStreamCfg", "class_batch", "worker_class_probs",
-           "EmbedStreamCfg", "embed_batch", "touched_row_mask"]
+__all__ = ["LMStreamCfg", "lm_batch", "ClassStreamCfg", "class_batch",
+           "worker_class_probs", "EmbedStreamCfg", "embed_batch",
+           "touched_row_mask"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMStreamCfg:
+    vocab: int
+    seq_len: int
+    batch: int           # per worker
+    n_workers: int
+    seed: int = 0
+    n_clusters: int = 64  # planted bigram clusters (learnable structure)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +51,29 @@ def _generator(device: torch.device, *key: int) -> torch.Generator:
     seed = int(np.random.SeedSequence(list(key)).generate_state(
         1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def lm_batch(cfg: LMStreamCfg, step: int, device="cuda") -> dict:
+    """``{"tokens", "labels"}``, each ``(n_workers, batch, seq_len)`` int32
+    on ``device``, the labels the tokens shifted by one.  Each sequence
+    walks a chain of clusters, ``(c₀ + t) mod n_clusters``, and keeps the
+    chain's cluster with probability 0.8 at each position (else a uniform
+    one); a token is its cluster's base ``c·span`` plus uniform noise below
+    ``span = max(vocab // n_clusters, 1)``, clipped at ``vocab − 1``."""
+    device = resolve_device(device)
+    g = _generator(device, cfg.seed, 2, int(step))
+    n_c = cfg.n_clusters
+    span = max(cfg.vocab // n_c, 1)
+    shape = (cfg.n_workers, cfg.batch, cfg.seq_len + 1)
+    clusters = torch.randint(0, n_c, shape, generator=g, device=device)
+    stay = torch.rand(shape, generator=g, device=device) < 0.8
+    idx = torch.arange(cfg.seq_len + 1, device=device)
+    chain = (clusters[..., :1] + idx) % n_c
+    clusters = torch.where(stay, chain, clusters)
+    noise = torch.randint(0, span, shape, generator=g, device=device)
+    toks = torch.clamp_max(clusters * span + noise, cfg.vocab - 1).to(
+        torch.int32)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
 
 
 def worker_class_probs(cfg: ClassStreamCfg, device="cuda") -> torch.Tensor:

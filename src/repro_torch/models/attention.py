@@ -1,0 +1,146 @@
+"""Attention: GQA (+bias), sliding window, blockwise long sequences.
+
+Port of the GQA part of ``src/repro/models/attention.py:31-165``: plain
+PyTorch matmuls and a softmax, the reference's formula step by step (the
+reference has no Pallas kernel here).  Two execution paths:
+
+* :func:`attend_full` — O(s²) scores under the causal (and window) mask;
+* :func:`attend_blockwise` — a loop over query chunks, memory O(s·chunk);
+  with a window each chunk reads a static KV band left-padded with
+  positions −1, so the work drops to O(s·window).  Taken at
+  ``s ≥ blockwise_threshold``, or forced.
+
+GQA layout: q (b, s, n_heads, hd); k/v (b, s, n_kv, hd); the q heads are
+grouped as (n_kv, group), so head h reads kv head ``h // group``.  Scores
+are f32, scaled by ``head_dim ** -0.5``, masked entries filled with
+:data:`NEG_INF` (a finite f32, not −inf), softmaxed in f32, and the
+probabilities cast to v's dtype.
+
+Prefill, decode and KV caches (reference ``:168-244``) wait for the port's
+serving (ROADMAP queue A item 13); MLA (``:246-353``) for item 11 step 3.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import apply_rope, dense
+
+__all__ = ["AttnCfg", "attention_apply", "attend_full", "attend_blockwise",
+           "NEG_INF"]
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False          # qwen2
+    window: Optional[int] = None    # sliding-window size (None = full causal)
+    q_chunk: int = 1024      # blockwise query-chunk length  # lint: allow
+    blockwise_threshold: int = 8192  # use blockwise when seq >= this
+    rope_theta: float = 10000.0
+    # MLA dims (minicpm3 / deepseek-v2 style); read by the MLA path only
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
+
+
+def _qkv(params, x, cfg: AttnCfg, cos, sin, positions):
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = dense(params["wq"], x).reshape(b, s, h, hd)
+    k = dense(params["wk"], x).reshape(b, s, kvh, hd)
+    v = dense(params["wv"], x).reshape(b, s, kvh, hd)
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+    return q, k, v
+
+
+def _scores_to_out(q, k, v, mask, scale):
+    """q: (b,sq,kv,g,hd); k/v: (b,sk,kv,hd); mask: (b|1,sq,sk) bool."""
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd",
+                       probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.to(v.dtype)
+
+
+def _group(q, cfg: AttnCfg):
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, cfg.n_kv_heads, h // cfg.n_kv_heads, hd)
+
+
+def attend_full(q, k, v, cfg: AttnCfg, q_positions, k_positions):
+    """Materialized causal (+ optional sliding-window) attention."""
+    scale = cfg.head_dim ** -0.5
+    qg = _group(q, cfg)
+    delta = q_positions[:, :, None] - k_positions[:, None, :]
+    mask = delta >= 0
+    if cfg.window is not None:
+        mask = mask & (delta < cfg.window)
+    out = _scores_to_out(qg, k, v, mask, scale)
+    b, s = q.shape[0], q.shape[1]
+    return out.reshape(b, s, cfg.n_heads, v.shape[-1])
+
+
+def attend_blockwise(q, k, v, cfg: AttnCfg, q_positions, k_positions):
+    """Query chunks of ``q_chunk``; with a window each chunk reads a static
+    KV band of ``cq + ceil(window/cq)·cq`` positions, left-padded with
+    positions −1 (masked)."""
+    b, s, h, hd = q.shape
+    cq = min(cfg.q_chunk, s)
+    if s % cq:
+        raise ValueError(f"seq {s} not divisible by q_chunk {cq}")
+    scale = hd ** -0.5
+    qg = _group(q, cfg)
+    outs = []
+    if cfg.window is not None:
+        band = cq + ((cfg.window + cq - 1) // cq) * cq
+        pad = band - cq
+        kp = F.pad(k, (0, 0, 0, 0, pad, 0))
+        vp = F.pad(v, (0, 0, 0, 0, pad, 0))
+        posp = F.pad(k_positions, (pad, 0), value=-1)
+        for i in range(s // cq):
+            qpos = q_positions[:, i * cq:(i + 1) * cq]
+            kpos = posp[:, i * cq:i * cq + band]
+            delta = qpos[:, :, None] - kpos[:, None, :]
+            mask = ((delta >= 0) & (kpos[:, None, :] >= 0)
+                    & (delta < cfg.window))
+            outs.append(_scores_to_out(qg[:, i * cq:(i + 1) * cq],
+                                       kp[:, i * cq:i * cq + band],
+                                       vp[:, i * cq:i * cq + band], mask,
+                                       scale))
+    else:
+        for i in range(s // cq):
+            qpos = q_positions[:, i * cq:(i + 1) * cq]
+            mask = qpos[:, :, None] >= k_positions[:, None, :]
+            outs.append(_scores_to_out(qg[:, i * cq:(i + 1) * cq], k, v,
+                                       mask, scale))
+    return torch.cat(outs, dim=1).reshape(b, s, cfg.n_heads, v.shape[-1])
+
+
+def attention_apply(params, x, cfg: AttnCfg, cos, sin, positions=None,
+                    force_blockwise: Optional[bool] = None):
+    """Self-attention of ``x`` (b, s, d) with params ``{"wq", "wk", "wv",
+    "wo"}`` (each ``{"w"}``, q/k/v with ``"b"`` under ``qkv_bias``)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(params, x, cfg, cos, sin, positions)
+    blockwise = (s >= cfg.blockwise_threshold if force_blockwise is None
+                 else force_blockwise)
+    attend = attend_blockwise if blockwise else attend_full
+    out = attend(q, k, v, cfg, positions, positions)
+    return dense(params["wo"], out.reshape(b, s, -1))

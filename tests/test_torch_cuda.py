@@ -764,3 +764,77 @@ def test_churn_rounds_on_card_match_cpu_rounds(name):
             far = ~torch.isclose(got, want, rtol=1e-3, atol=1e-4)
             assert int(far.sum()) <= 8, n
             assert bool(((got - want).abs()[far] <= 2 * drift).all()), n
+
+
+@pytest.mark.cuda
+def test_tiny_lm_loss_and_grads_on_card_match_cpu():
+    """The quickstart's tiny LM: loss and gradients on the card, TF32 off,
+    against the same on the CPU from the same params and batch (the
+    matmuls and reductions sum in other orders: rtol 1e-5 on the loss,
+    each gradient leaf within 1e-4 of the largest gradient's max norm)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.configs.base import ModelCfg
+    from repro_torch.data.synthetic import LMStreamCfg, lm_batch
+    from repro_torch.models import make_model
+    model = make_model(ModelCfg(name="tiny-lm", arch_type="dense",
+                                n_layers=2, d_model=64, n_heads=4,
+                                n_kv_heads=2, d_ff=128, vocab=256))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: v[0] for k, v in lm_batch(
+        LMStreamCfg(vocab=256, seq_len=32, batch=4, n_workers=1), 0,
+        device="cpu").items()}
+    fn = torch.func.grad_and_value(lambda p, b: model.loss(p, b)[0])
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g_cpu, l_cpu = fn(params, batch)
+        g_gpu, l_gpu = fn({k: v.cuda() for k, v in params.items()},
+                          {k: v.cuda() for k, v in batch.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    np.testing.assert_allclose(float(l_gpu), float(l_cpu), rtol=1e-5)
+    scale = max(float(v.abs().max()) for v in g_cpu.values())
+    for k, v in g_cpu.items():
+        np.testing.assert_allclose(g_gpu[k].cpu().numpy(), v.numpy(),
+                                   atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernels_bit_exact_past_two_to_the_31_elements():
+    """``momentum_update`` and ``gossip_mix`` (distinct matrices, and the
+    shifted views of an 8-worker ring) on (2,150,400, 1024) f32 operands:
+    2.2e9 elements, 8.8 GB a matrix, past 2³² bytes and past 2³¹
+    elements, held bit for bit against their plain versions row block by
+    row block (about 45 GB on the card at the peak)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rows, block, k = 2_150_400, 1 << 17, 8
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x, m, g = (torch.randn((rows, LANE), generator=gen, device="cuda")
+               for _ in range(3))
+    assert x.numel() > 2 ** 31 and x.numel() * 4 > 2 ** 32
+    lr = torch.tensor(0.25, device="cuda")
+    xo, mo = momentum_update(x, m, g, lr, mu=0.9, wd=1e-4)
+    for r in range(0, rows, block):
+        sl = slice(r, r + block)
+        wx, wm = momentum_update_ref(x[sl], m[sl], g[sl], lr, mu=0.9,
+                                     wd=1e-4)
+        assert torch.equal(xo[sl], wx) and torch.equal(mo[sl], wm), r
+    del xo, mo
+    ws = (1 / 3, 1 / 3, 1 / 3)
+    y = gossip_mix([x, m, g], weights=ws)
+    for r in range(0, rows, block):
+        sl = slice(r, r + block)
+        assert torch.equal(y[sl], gossip_mix_ref([x[sl], m[sl], g[sl]],
+                                                 ws)), r
+    del y, m, g
+    x3 = x.view(k, rows // k, LANE)
+    shifts = (0, 1, -1)
+    y = gossip_mix_shifted(x3, grid=(k,), axis=0, shifts=shifts, weights=ws)
+    per = rows // k
+    for w in range(k):
+        for r in range(0, per, block):
+            sl = slice(r, r + block)
+            views = [x3[(w + sh) % k, sl] for sh in shifts]
+            assert torch.equal(y[w, sl], gossip_mix_ref(views, ws)), (w, r)

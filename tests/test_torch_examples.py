@@ -1,0 +1,116 @@
+"""The port-side examples (``examples/torch_*.py``) run on the CPU at a
+trimmed step count, as CI runs the reference's with ``ABLATION_STEPS=8``:
+every row's losses are finite and its comm-MB equal the reference's
+formula, the bytes per round that the reference's optimizer of the same
+configuration charges (kernel layout on both sides), through the rounds
+run."""
+import importlib.util
+import math
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs.base import ModelCfg as RModelCfg  # noqa: E402
+from repro.core import (CPDSGDM, PDSGDM, CPDSGDMConfig,  # noqa: E402
+                        IdentityCompressor, PDSGDMConfig, QSGDCompressor,
+                        RandKCompressor, SignCompressor, TopKCompressor,
+                        make_optimizer)
+from repro.core.gossip import DenseComm  # noqa: E402
+from repro.core.topology import (exponential,  # noqa: E402
+                                 one_peer_exponential_schedule, ring)
+from repro.models import make_model  # noqa: E402
+from repro.models.resnet import resnet20_init  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS, K = 8, 8
+TINY = dict(arch_type="dense", n_layers=2, d_model=64, n_heads=4,
+            n_kv_heads=2, d_ff=128, vocab=256)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _run(name):
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(["--device", "cpu", "--steps", str(STEPS)])
+
+
+def _want_mb(opt, one_worker):
+    """MB through the rounds of a ``STEPS``-step run, round r charged
+    ``cycle[r % T]``."""
+    cycle = opt.bytes_per_round_cycle(one_worker)
+    rounds = STEPS // opt.config.p
+    return sum(cycle[r % len(cycle)] for r in range(rounds)) / 2 ** 20
+
+
+def _tiny_params(name="tiny-lm"):
+    return make_model(RModelCfg(name=name, **TINY)).init(
+        jax.random.PRNGKey(0))
+
+
+def _check(rows, refs, one_worker):
+    assert len(rows) == len(refs)
+    for row, ref in zip(rows, refs):
+        assert len(row["loss"]) >= 2
+        assert all(math.isfinite(v) for v in row["loss"]), row
+        assert row["comm_mb"] == _want_mb(ref, one_worker), row
+
+
+def test_torch_quickstart():
+    rows = _run("torch_quickstart")
+    refs = [PDSGDM(PDSGDMConfig(eta=0.3, mu=0.9, p=4, use_kernel=True),
+                   DenseComm(ring(K))),
+            CPDSGDM(CPDSGDMConfig(eta=0.3, mu=0.9, p=4, gamma=0.4,
+                                  use_kernel=True),
+                    DenseComm(ring(K)), SignCompressor()),
+            PDSGDM(PDSGDMConfig(eta=0.3, mu=0.9, p=4, use_kernel=True),
+                   DenseComm(one_peer_exponential_schedule(K)))]
+    _check(rows, refs, _tiny_params())
+    # the kernel wire of 107 rows, the sign wire, one neighbour's tree
+    assert [r["comm_mb"] for r in rows] == [
+        2 * 876_544 / 2 ** 20, 2 * 28_248 / 2 ** 20, 2 * 427_264 / 2 ** 20]
+
+
+def test_torch_compression_ablation():
+    rows = _run("torch_compression_ablation")
+    grid = [(IdentityCompressor(), 0.4), (SignCompressor(), 0.4),
+            (QSGDCompressor(levels=7), 0.4),
+            (TopKCompressor(fraction=0.1), 0.15),
+            (RandKCompressor(fraction=0.1), 0.1)]
+    refs = [CPDSGDM(CPDSGDMConfig(eta=0.3, mu=0.9, p=4, gamma=gamma,
+                                  use_kernel=True), DenseComm(topo), comp)
+            for comp, gamma in grid for topo in (ring(K), exponential(K))]
+    assert [(r["compressor"], r["topology"], r["gamma"]) for r in rows] == \
+        [(c.name, t, g) for c, g in grid for t in ("ring", "exponential")]
+    _check(rows, refs, _tiny_params("t"))
+
+
+def test_torch_noniid_ablation():
+    rows = _run("torch_noniid_ablation")
+    eta = {"pd_sgdm": 0.1, "mt_dsgdm": 0.05}
+    grid = [(alpha, name, p) for alpha in (None, 0.1)
+            for name, ps in (("pd_sgdm", (1, 4)), ("mt_dsgdm", (2,)))
+            for p in ps]
+    assert [(r["alpha"], r["optimizer"], r["p"]) for r in rows] == grid
+    refs = [make_optimizer(name, DenseComm(ring(K)), eta=eta[name], mu=0.9,
+                           p=p, weight_decay=1e-4, use_kernel=True)
+            for _, name, p in grid]
+    _check(rows, refs, jax.tree_util.tree_map(
+        np.asarray, resnet20_init(jax.random.PRNGKey(0), width=4)))

@@ -117,6 +117,12 @@ def test_unflatten_returns_views():
         assert torch.equal(views[name], tree[name] + 1.0)
 
 
+def _examples():
+    root = os.path.join(REPO, "examples")
+    return [os.path.join(root, fn) for fn in sorted(os.listdir(root))
+            if fn.startswith("torch_") and fn.endswith(".py")]
+
+
 def _port_sources():
     root = os.path.join(REPO, "src", "repro_torch")
     for dirpath, _dirs, files in os.walk(root):
@@ -124,6 +130,7 @@ def _port_sources():
             if fn.endswith(".py"):
                 yield os.path.join(dirpath, fn)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield from _examples()
 
 
 def _imported_modules(path):
@@ -142,8 +149,14 @@ def test_port_imports_no_jax_and_no_reference():
     for module in ("core/cpdsgdm.py", "core/wire.py", "core/compression.py",
                    "kernels/sign_compress.py", "kernels/qsgd_quant.py",
                    "kernels/topk_select.py", "kernels/row_gather.py",
-                   "data/synthetic.py"):
+                   "data/synthetic.py", "configs/base.py",
+                   "configs/registry.py", "configs/shapes.py",
+                   "configs/olmo_1b.py", "models/layers.py",
+                   "models/attention.py", "models/transformer.py"):
         assert os.path.join("src", "repro_torch", module) in scanned
+    for example in ("torch_quickstart.py", "torch_compression_ablation.py",
+                    "torch_noniid_ablation.py"):
+        assert os.path.join("examples", example) in scanned
     forbidden = []
     for path in _port_sources():
         for mod in _imported_modules(path):
@@ -151,5 +164,6 @@ def test_port_imports_no_jax_and_no_reference():
             if top in ("jax", "jaxlib", "repro"):
                 forbidden.append(f"{os.path.relpath(path, REPO)}: {mod}")
     assert forbidden == []
-    errors = lint_paths([os.path.join(REPO, "src", "repro_torch")], base=REPO)
+    errors = lint_paths([os.path.join(REPO, "src", "repro_torch")]
+                        + _examples(), base=REPO)
     assert errors == [], "\n".join(str(e) for e in errors)

@@ -1,0 +1,289 @@
+"""The port's transformer layers, attention and model against the
+reference's, from the same params and inputs.
+
+Inputs are numpy draws from a seed; params come from the reference's own
+``init`` through ``params_from_reference`` (an exact copy).  The
+transformer is smooth (no ReLU), so the bars are tight f32 bars: XLA:CPU
+and PyTorch sum the matmuls and reductions in different orders, which
+moves results by a few ulps.
+
+* layers and attention outputs: atol 1e-5, rtol 1e-5;
+* logits: atol 1e-5 (measured on the three smoke configs: at most
+  1.9e-6 apart); the loss: rtol 1e-5 (measured: 6.9e-8 at most);
+* gradients: each leaf within 1e-4 of the largest gradient's max norm
+  (measured: 5.2e-7 of it at most).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import ModelCfg as RModelCfg  # noqa: E402
+from repro.configs.registry import get_smoke_config as r_smoke  # noqa: E402
+from repro.models import attention as r_attn  # noqa: E402
+from repro.models import layers as r_layers  # noqa: E402
+from repro.models import make_model as r_make_model  # noqa: E402
+from repro_torch.configs.base import ModelCfg  # noqa: E402
+from repro_torch.configs.registry import get_smoke_config  # noqa: E402
+from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.models import attention, layers, make_model  # noqa: E402
+from repro_torch.tree import leaf_order  # noqa: E402
+
+ATOL = RTOL = 1e-5
+GRAD_FRAC = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _t(a):
+    return {k: _t(v) for k, v in a.items()} if isinstance(a, dict) else \
+        torch.from_numpy(np.array(a))
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=atol, rtol=rtol)
+
+
+# ---------------------------------------------------------------- layers
+@pytest.mark.parametrize("bias", [False, True])
+def test_dense(bias):
+    rng = _rng(0)
+    p = {"w": rng.standard_normal((48, 24), dtype=np.float32)}
+    if bias:
+        p["b"] = rng.standard_normal((24,), dtype=np.float32)
+    x = rng.standard_normal((3, 5, 48), dtype=np.float32)
+    _close(layers.dense(_t(p), _t(x)), r_layers.dense(p, x))
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm", "layernorm_nobias",
+                                  "nonparametric"])
+def test_norms(kind):
+    rng = _rng(1)
+    x = 3.0 * rng.standard_normal((2, 7, 64), dtype=np.float32) + 0.5
+    p = {"scale": rng.standard_normal((64,), dtype=np.float32),
+         "bias": rng.standard_normal((64,), dtype=np.float32)}
+    if kind == "rmsnorm":
+        got, want = layers.rmsnorm(_t(p), _t(x)), r_layers.rmsnorm(p, x)
+    elif kind == "nonparametric":
+        got = layers.nonparametric_layernorm(_t(x))
+        want = r_layers.nonparametric_layernorm(x)
+    else:
+        if kind == "layernorm_nobias":
+            del p["bias"]
+        got, want = layers.layernorm(_t(p), _t(x)), r_layers.layernorm(p, x)
+    _close(got, want)
+
+
+def test_embed_and_rope():
+    rng = _rng(2)
+    table = rng.standard_normal((50, 16), dtype=np.float32)
+    tok = rng.integers(0, 50, (3, 9)).astype(np.int32)
+    _close(layers.embed({"table": _t(table)}, _t(tok)),
+           r_layers.embed({"table": table}, tok), atol=0, rtol=0)
+    for theta in (10000.0, 1e6):               # Qwen2 uses θ = 1e6
+        cos, sin = layers.rope_freqs(32, 40, theta)
+        rcos, rsin = r_layers.rope_freqs(32, 40, theta)
+        _close(cos, rcos)
+        _close(sin, rsin)
+        x = rng.standard_normal((3, 9, 4, 32), dtype=np.float32)
+        pos = np.stack([np.arange(9) + o for o in (0, 5, 30)]).astype(
+            np.int32)
+        _close(layers.apply_rope(_t(x), cos, sin, _t(pos).long()),
+               r_layers.apply_rope(x, rcos, rsin, pos))
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_mlp(gated):
+    """Gated SiLU, and OLMo's non-gated GELU in its tanh form (the port
+    must not take ``F.gelu``'s exact default)."""
+    rng = _rng(3)
+    p = {"wi": {"w": rng.standard_normal((32, 64), dtype=np.float32)},
+         "wo": {"w": rng.standard_normal((64, 32), dtype=np.float32)}}
+    if gated:
+        p["wg"] = {"w": rng.standard_normal((32, 64), dtype=np.float32)}
+    x = rng.standard_normal((2, 5, 32), dtype=np.float32)
+    _close(layers.mlp(_t(p), _t(x)), r_layers.mlp(p, x), atol=1e-4)
+
+
+# ---------------------------------------------------------------- attention
+ATTN_CASES = {
+    "mha": dict(n_heads=4, n_kv_heads=4),
+    "gqa": dict(n_heads=4, n_kv_heads=1),
+    "gqa_bias": dict(n_heads=4, n_kv_heads=2, qkv_bias=True),
+    "window": dict(n_heads=4, n_kv_heads=2, window=5),
+    "blockwise": dict(n_heads=4, n_kv_heads=2, q_chunk=4),
+    "blockwise_window": dict(n_heads=4, n_kv_heads=1, window=6, q_chunk=4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_apply(case):
+    kw = dict(ATTN_CASES[case])
+    force = "blockwise" in case
+    rcfg = r_attn.AttnCfg(d_model=32, head_dim=8, **kw)
+    cfg = attention.AttnCfg(**dataclasses.asdict(rcfg))
+    params = jax.tree_util.tree_map(
+        np.array, r_attn.attention_init(jax.random.PRNGKey(4), rcfg,
+                                        jnp.float32))
+    if cfg.qkv_bias:    # non-zero biases, so that the bias path is held
+        rng = _rng(5)
+        for k in ("wq", "wk", "wv"):
+            params[k]["b"] = rng.standard_normal(
+                params[k]["b"].shape, dtype=np.float32)
+    x = _rng(6).standard_normal((2, 16, 32), dtype=np.float32)
+    rcos, rsin = r_layers.rope_freqs(8, 16)
+    cos, sin = layers.rope_freqs(8, 16)
+    want = r_attn.attention_apply(params, x, rcfg, rcos, rsin,
+                                  force_blockwise=force)
+    got = attention.attention_apply(_t(params), _t(x), cfg, cos, sin,
+                                    force_blockwise=force)
+    _close(got, want)
+    if force:       # the blockwise path equals the full one
+        full = attention.attention_apply(_t(params), _t(x), cfg, cos, sin,
+                                         force_blockwise=False)
+        _close(got, full.detach().numpy())
+
+
+# ---------------------------------------------------------------- the model
+SMOKE = ("olmo-1b", "qwen2-72b", "stablelm-12b")
+
+
+def _ref_model(name):
+    mcfg = r_smoke(name).model
+    model = r_make_model(mcfg)
+    params = jax.tree_util.tree_map(
+        np.array, model.init(jax.random.PRNGKey(7)))
+    return mcfg, model, params
+
+
+def _batch(vocab, b=2, s=16, seed=8):
+    rng = _rng(seed)
+    labels = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    labels[0, :3] = -1                       # masked labels
+    return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
+            "labels": labels}
+
+
+@pytest.mark.parametrize("name", SMOKE)
+def test_model_apply_loss_and_grads(name):
+    mcfg, rmodel, rparams = _ref_model(name)
+    model = make_model(get_smoke_config(name).model)
+    params = params_from_reference(rparams, "cpu")
+    assert list(params) == leaf_order(model.param_shapes())
+    assert {k: tuple(v.shape) for k, v in params.items()} == \
+        model.param_shapes()
+    batch = _batch(mcfg.vocab)
+    tbatch = _t(batch)
+
+    rlogits, _ = rmodel.apply(rparams, batch)
+    logits, aux = model.apply(params, tbatch)
+    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    _close(logits, rlogits)
+
+    (rloss, rmet), rgrads = jax.value_and_grad(rmodel.loss, has_aux=True)(
+        rparams, batch)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    loss, met = model.loss(params, tbatch)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    np.testing.assert_allclose(float(loss.detach()), float(rloss), rtol=1e-5)
+    np.testing.assert_allclose(float(met["ce"].detach()), float(rmet["ce"]),
+                               rtol=1e-5)
+    rflat = params_from_reference(jax.tree_util.tree_map(np.array, rgrads),
+                                  "cpu")
+    assert list(rflat) == list(grads)
+    scale = max(float(v.abs().max()) for v in rflat.values())
+    for k, g in grads.items():
+        _close(g, rflat[k].numpy(), atol=GRAD_FRAC * scale, rtol=0)
+
+
+def test_model_loss_under_vmap_matches_per_worker():
+    """K stacked workers through ``torch.func.vmap(grad_and_value)`` (what
+    ``SimTrainer`` runs) give each worker's own loss and gradients."""
+    _, _, rparams = _ref_model("olmo-1b")
+    model = make_model(get_smoke_config("olmo-1b").model)
+    one = params_from_reference(rparams, "cpu")
+    stacked = {k: torch.stack([v, v * 1.01]) for k, v in one.items()}
+    b0 = _t(_batch(model.cfg.vocab, seed=9))
+    b1 = _t(_batch(model.cfg.vocab, seed=10))
+    batch = {k: torch.stack([b0[k], b1[k]]) for k in b0}
+    grads, losses = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: model.loss(p, b)[0]))(stacked, batch)
+    for w, b in enumerate((b0, b1)):
+        pw = {k: v[w] for k, v in stacked.items()}
+        gw, lw = torch.func.grad_and_value(
+            lambda p: model.loss(p, b)[0])(pw)
+        np.testing.assert_allclose(float(losses[w]), float(lw), rtol=1e-6)
+        for k in gw:
+            _close(grads[k][w], gw[k].numpy(), atol=1e-6, rtol=1e-5)
+
+
+def test_leaf_counts_and_tied_head():
+    """The quickstart's tiny LM has 12 leaves, OLMo 8 (its non-parametric
+    norms have none), Qwen2's smoke config 15; a tied head has no
+    ``lm_head`` leaf and reads ``embed.table.T``."""
+    tiny = ModelCfg(name="tiny-lm", arch_type="dense", n_layers=2,
+                    d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=256)
+    assert len(make_model(tiny).param_shapes()) == 12
+    from repro_torch.configs.olmo_1b import config as olmo
+    assert len(make_model(olmo().model).param_shapes()) == 8
+    assert len(make_model(get_smoke_config("qwen2-72b").model)
+               .param_shapes()) == 15
+    rcfg = RModelCfg(name="tied", arch_type="dense", n_layers=2, d_model=32,
+                     n_heads=4, n_kv_heads=2, d_ff=64, vocab=40,
+                     tie_embeddings=True, norm="layernorm")
+    rmodel = r_make_model(rcfg)
+    rparams = jax.tree_util.tree_map(np.array,
+                                     rmodel.init(jax.random.PRNGKey(1)))
+    model = make_model(ModelCfg(**{f.name: getattr(rcfg, f.name)
+                                   for f in dataclasses.fields(rcfg)}))
+    params = params_from_reference(rparams, "cpu")
+    assert "lm_head.w" not in params and list(params) == list(
+        model.param_shapes())
+    batch = _batch(40, s=8, seed=11)
+    _close(model.apply(params, _t(batch))[0], rmodel.apply(rparams, batch)[0])
+
+
+def test_init_distribution_and_refusals():
+    """``init`` draws the reference's distributions (a truncated normal on
+    [−2, 2] times ``in_dim ** -0.5``; the embedding times 1.0; norm scales
+    1, biases 0) from an explicit generator; the branches of later slices
+    raise, naming their ROADMAP item."""
+    cfg = get_smoke_config("stablelm-12b").model
+    model = make_model(cfg)
+    g = torch.Generator().manual_seed(0)
+    p = model.init(g, device="cpu")
+    again = model.init(torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(p[k], again[k]) for k in p)
+    w = p["blocks.pos0.mlp.wi.w"]
+    assert float(w.abs().max()) <= 2.0 * cfg.d_model ** -0.5
+    assert abs(float(w.std()) * cfg.d_model ** 0.5 - 0.8796) < 0.02
+    assert float(p["embed.table"].abs().max()) <= 2.0
+    assert torch.equal(p["final_norm.scale"], torch.ones(cfg.d_model))
+    assert torch.equal(p["final_norm.bias"], torch.zeros(cfg.d_model))
+    for name, item in (("mixtral-8x7b", "step 2"), ("minicpm3-4b", "step 3"),
+                       ("mamba2-1.3b", "step 4"), ("musicgen-medium",
+                                                   "step 5")):
+        with pytest.raises(NotImplementedError, match=item):
+            make_model(get_smoke_config(name).model)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        model.decode_step(p, None, None, 0)
