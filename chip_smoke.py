@@ -42,11 +42,15 @@ matmuls:
    the ring's and exp16's gossip steps beside ``W @ x`` (the uncut mix,
    same bytes and operations) and the plain version, the ring's bf16 step
    and its launch beside them, n = 2 beside ``torch.add``, and n = 3;
-   and, at the full-width OLMo path's shape (8, 250368, 1024) f32 (8.2 GB
-   a matrix, past 2³² bytes), ``momentum_update`` and the ring's gossip
-   step, bit for bit worker by worker, timed over 5 launches beside the
-   plain version and ``torch._fused_sgd_`` / ``W @ x``;
-2. drives twenty-three paths through the port's entry points, each once, with
+   ``momentum_update`` in place (x' and m' written over x and m, the form
+   PD-SGDM's round launches) bit for bit against the out-of-place launch
+   and timed beside it; and, at the full-width paths' shapes, OLMo's
+   (8, 250368, 1024) and Mixtral's (2, 1449472, 1024) f32 (8.2 and 11.9
+   GB a matrix, past 2³² bytes), ``momentum_update`` in both forms and the
+   ring's gossip step, bit for bit in row blocks of each worker, timed
+   over 5 launches beside the plain version and ``torch._fused_sgd_`` /
+   ``W @ x``;
+2. drives twenty-four paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
    ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
@@ -72,28 +76,36 @@ matmuls:
    (65,536 × 64) f32 embedding table per worker, K = 4 on a ring, Zipf
    lookups of batch 64, p = 4, η = 0.05, γ = 0.4 (the reference's
    ``benchmarks/embedding_wire.py``), 3 rounds and a 2-step tail; and
-   three language-model paths through ``make_model`` →
+   four language-model paths through ``make_model`` →
    ``make_optimizer`` → ``SimTrainer.train`` with ``lm_batch``:
    PD-SGDM on OLMo-1B's published widths (d_model 2048, 16 heads, d_ff
    8192, vocab 50,304, non-parametric LayerNorm, GELU) cut to one of its
    16 layers and f32 params, K = 8 on a ring, η = 0.25, μ = 0.9, p = 4,
    weight decay 1e-4, seq 256, batch 2 a worker
-   (``examples/pretrain_decentralized.py``'s lm-100m settings), its peak
-   memory printed; and the quickstart's tiny LM (2 layers, d_model 64)
-   at η = 0.3 with PD-SGDM on ``hierarchical(2, 4)`` and with CPD-SGDM's
-   sign wire (γ = 0.4) on the ring;
+   (``examples/pretrain_decentralized.py``'s lm-100m settings); PD-SGDM
+   at the same step on Mixtral-8x7B's expert block at its published
+   widths (d_model 4096, 32 heads / 8 KV, d_ff 14336, 8 experts top-2,
+   capacity factor 1.25), one of its 32 layers, vocab cut to 4,000, f32,
+   K = 2 on ``ring(2)`` (the cuts and their reasons at ``FULL_WIDTH``);
+   each with its peak memory printed; and the quickstart's tiny LM (2
+   layers, d_model 64) at η = 0.3 with PD-SGDM on ``hierarchical(2, 4)``
+   and with CPD-SGDM's sign wire (γ = 0.4) on the ring;
 3. holds one kernel-path round against one round of the plain path from
-   the same init on the same batches, for each of the twenty-three (the
+   the same init on the same batches, for each of the twenty-four (the
    one-peer path over its 3-round cycle, the churn and overlapped paths
    each round of theirs from the same start, 3 or 4 rounds so that every
-   stale matrix lands; OLMo's two rounds one after the other, the start
-   and the kernel round's result held on the host): for PD-SGDM,
-   C-SGDM, MT-DSGDm and QG-DSGDm the tree round, for every CPD-SGDM wire
-   the round through the per-leaf codec, which launches no codec kernel;
+   stale matrix lands; OLMo's and Mixtral's two rounds one after the
+   other, the start and the kernel round's result held on the host): for
+   PD-SGDM, C-SGDM, MT-DSGDm and QG-DSGDm the tree round, for every
+   CPD-SGDM wire the round through the per-leaf codec, which launches no
+   codec kernel;
    the params, m, the tracking state and the in-flight payload; and
    profiles one kernel round of PD on the ring, on ``exp16`` and on the
    bf16 wire, MT and QG, and overlapped PD and MT: their gossip dispatches
-   no ``aten::roll`` and no ``aten::constant_pad_nd``;
+   no ``aten::roll`` and no ``aten::constant_pad_nd``; and holds
+   Mixtral's MoE layer at full width on one worker's 512 tokens against a
+   plain per-expert formulation (``moe_layer_phase``: routing and drops
+   exact, outputs at an f32 bar that bf16 misses);
 4. runs Fig. 1, Fig. 2, Fig. 3 and the non-IID sweep's α = 0.1 claim at
    the reference's settings (ResNet-20 width 4, K = 8 ring, batch 16, the
    kernel layout, cuDNN deterministic): ``fig1_phase`` (C-SGDM and PD at
@@ -115,14 +127,14 @@ matmuls:
    at 96 steps against the one-peer schedule at 192, K = 16).
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
-time, the kernel phase, the training phase, the round parity, the four
-figure phases' and the elastic and topology phases' rows, verdicts and
-wall seconds, one JSON line
-``{"kernels": [...]}`` (``momentum_update`` and ``gossip_mix`` with their
-``full_width`` rows too) and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; so does a
-machine without a CUDA device, and a copy of the script outside a checkout
-(it imports the port from ``src/`` beside itself).  Imports nothing of JAX
-or of the JAX package.
+time, the kernel phase, the training phase, the round parity, the MoE
+layer, the four figure phases' and the elastic and topology phases' rows,
+verdicts and wall seconds, one JSON line ``{"kernels": [...]}`` (``momentum_update`` with its in-place time, and
+with ``gossip_mix`` a ``full_width`` row for each full-width path) and,
+last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero; so does a machine without a CUDA device, and a copy of the
+script outside a checkout (it imports the port from ``src/`` beside
+itself).  Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -174,17 +186,42 @@ FIG3_CPD_STEPS, FIG3_PD_STEPS = 150, 90
 # benchmarks/noniid_sweep.py at its claim's skew
 NONIID_ALPHA, NONIID_STEPS, NONIID_PS = 0.1, 64, (1, 2, 4)
 # the LM paths: the quickstart's tiny LM (examples/quickstart.py) at its
-# step, and OLMo-1B at its published widths (configs/olmo_1b.py) cut to
-# one of its 16 layers and f32 params (the kernel layout is f32), at
-# examples/pretrain_decentralized.py:86-88's PD-SGDM settings and its
-# lm-100m rows' sequence (256) and global batch (16 over 8 workers)
+# step, and two models at their published widths, f32 params and compute
+# (the kernel layout is f32), at examples/pretrain_decentralized.py:86-88's
+# PD-SGDM settings and its lm-100m rows' sequence (256) and batch (2 a
+# worker) (FULL_*): OLMo-1B (configs/olmo_1b.py) cut to one of its 16 layers,
+# K = 8; and Mixtral-8x7B (configs/mixtral_8x7b.py: d_model 4096, 32 heads /
+# 8 KV, d_ff 14336, 8 experts top-2 at capacity factor 1.25 in one global
+# sort, window 4096, inert at seq 256, RMSNorm, untied head, gated SiLU),
+# cut so that it fits one card: K = 2 workers on ring(2), a pair average,
+# instead of 8, since the round's peak holds six copies of the K workers'
+# params, 11.06 GiB a copy at K = 2 (44 GiB at K = 8); 1 of its 32 layers,
+# one whole period of its (attn, moe) pattern (1.41 B params a layer a
+# worker); the vocabulary cut to 4,000, an eighth of its 32,000, the share
+# of one chip of a vocabulary split over 8 (the token ids are drawn from
+# that slice); f32 instead of its bf16
 TINY_LM = dict(name="tiny-lm", arch_type="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab=256)
 TINY_SEQ, TINY_BATCH = 32, 4
 TINY_HYPER = dict(eta=0.3, mu=0.9, p=P)
-OLMO_LAYERS, OLMO_SEQ, OLMO_BATCH = 1, 256, 2
-OLMO_HYPER = dict(eta=0.25, mu=0.9, p=P, weight_decay=1e-4)
-OLMO_ROWS = 250_368         # the plan's rows (all used) of one worker's tree
+FULL_SEQ, FULL_BATCH = 256, 2
+FULL_HYPER = dict(eta=0.25, mu=0.9, p=P, weight_decay=1e-4)
+MIXTRAL_K = 2
+# each full-width path: its architecture, the cuts, the plan's rows and
+# used rows of one worker's tree, and how many workers' rows the plain
+# momentum update is timed on (its four temporaries and two outputs beside
+# x, m and g must fit the card: all 8 of OLMo's, one of Mixtral's two)
+FULL_WIDTH = {
+    "pd_sgdm_olmo1b": dict(arch="olmo-1b", cuts=dict(n_layers=1),
+                           rows=250_368, used=250_368, plain_workers=8),
+    "pd_sgdm_mixtral": dict(arch="mixtral-8x7b",
+                            cuts=dict(n_layers=1, vocab=4000),
+                            rows=1_449_472, used=1_449_260, plain_workers=1),
+}
+# the row blocks of the full-width checks: an eighth of a Mixtral worker,
+# so that the plain versions' temporaries and the int64 copies of
+# ``max_ulp`` fit beside the operands
+CHECK_ROWS = 181_184
 # the churn paths' membership, period 3: round 0 kills worker 3, round 1
 # also stalls worker 6, round 2 revives worker 3 (everyone exchanges)
 CHURN_ROUNDS = 3
@@ -228,6 +265,10 @@ WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
               # OLMo-1B, one layer: 2 × 250,368 rows × 4 KiB, every leaf
               # filling whole rows (so the tree wire is the same)
               "pd_sgdm_olmo1b": (2_051_014_656,),
+              # Mixtral-8x7B, one layer, K = 2 (one neighbour): 1 × 1,449,260
+              # used rows × 4 KiB, every leaf a multiple of 1,024 elements
+              # (1,484,042,240 params × 4 B, the tree wire too)
+              "pd_sgdm_mixtral": (5_936_168_960,),
               # the tiny LM's 106,816 f32 × 4 B over the node size 4
               "pd_sgdm_tinylm_hier": (106_816,),
               # 2 × 107 used rows × (128 + 4) B
@@ -315,16 +356,28 @@ def kernel_phase(torch, ops, bw, f32_peak):
                                      f"version at rows={rows}")
             r = results.setdefault("momentum_update", [0.0, 0])
             r[0], r[1] = max(r[0], err), max(r[1], ulp)
+            # the in-place launch, on copies, against the out-of-place one
+            xi, mi = x.clone(), m.clone()
+            momentum_update(xi, mi, g, lr, mu=mu, wd=wd, nesterov=nesterov,
+                            inplace=True)
+            same_bits(torch, "momentum_update", (xi, mi), got, results,
+                      f"in place, rows={rows} nesterov={nesterov}")
+            print(f"kernel momentum_update rows={rows} nesterov={nesterov} "
+                  f"in place: bit for bit the out-of-place launch")
 
     # times at the main path's shape and configuration
     x, m, g = (torch.randn((main_rows, LANE), generator=gen, device=dev)
                for _ in range(3))
     n = x.numel()
     xs, ms, gs = x.clone(), m.clone(), g.clone()
+    xi, mi = x.clone(), m.clone()
     timings = {
         "momentum_update": dict(
             ms=time_ms(torch, lambda: momentum_update(x, m, g, lr, mu=mu,
                                                       wd=wd)),
+            # the form PD-SGDM's round launches: x' and m' over x and m
+            inplace_ms=time_ms(torch, lambda: momentum_update(
+                xi, mi, g, lr, mu=mu, wd=wd, inplace=True)),
             plain_ms=time_ms(torch, lambda: momentum_update_ref(x, m, g, lr,
                                                                 mu=mu, wd=wd)),
             # the op behind torch.optim.SGD(fused=True): same update, in place
@@ -335,97 +388,129 @@ def kernel_phase(torch, ops, bw, f32_peak):
             bytes=5 * 4 * n, flops=6 * n),
     }
     finish_timings(timings, results, bw, f32_peak, (main_rows, LANE))
-    del x, m, g, xs, ms, gs
+    print(f"kernel momentum_update ({main_rows}, {LANE}) in place: "
+          f"{timings['momentum_update']['inplace_ms']:.5f} ms")
+    del x, m, g, xs, ms, gs, xi, mi
     timings.update(gossip_kernel_phase(torch, ops, bw, f32_peak))
     return timings
 
 
-def olmo_kernel_phase(torch, ops, bw, f32_peak) -> dict:
-    """``momentum_update`` and the ring's gossip step at the full-width OLMo
-    path's shape, (8, 250368, 1024) f32 (2,051,014,656 elements, 8.2 GB a
-    matrix, past 2³² bytes): each held bit for bit against its plain
-    version worker by worker (one worker's rows at a time, so that the
-    plain version's temporaries fit beside the operands), then timed over 5
-    launches in the per-launch window beside the plain version on the whole
-    matrix and the library call (``torch._fused_sgd_``, in place, last;
-    ``W @ x.reshape(K, -1)``).  Returns each kernel's row for the JSON
+def full_width_kernel_phase(torch, ops, bw, f32_peak, path: str) -> dict:
+    """``momentum_update`` in both forms and the ring's gossip step at a
+    full-width path's shape, (K, rows, 1024) f32: OLMo's (8, 250368, 1024),
+    8.2 GB a matrix, and Mixtral's (2, 1449472, 1024), 11.9 GB, both past
+    2³² bytes.  The out-of-place launch is held bit for bit against its
+    plain version and the in-place launch against the out-of-place one,
+    and the gossip step against its plain version, in row blocks of each
+    worker (``CHECK_ROWS``); then both forms are timed over 5
+    launches in the per-launch window beside the plain version (on
+    ``plain_workers`` workers' rows) and the library call
+    (``torch._fused_sgd_``, in place, last); the gossip step beside
+    ``W @ x.reshape(K, -1)``.  Returns each kernel's row for the JSON
     line's ``full_width``."""
     from repro_torch.kernels.momentum import momentum_update
     from repro_torch.kernels.ref import gossip_mix_ref, momentum_update_ref
     LANE = ops.LANE
     gc.collect()
     torch.cuda.empty_cache()
-    path = "pd_sgdm_olmo1b"
     opt = make_opt(path, use_kernel=True)
+    k = WORKERS.get(path, K)
     plan = ops.KernelPlan.for_tree(
-        {n: torch.empty((K,) + shape, device="meta")
+        {n: torch.empty((k,) + shape, device="meta")
          for n, shape in lm_model(path).param_shapes().items()},
         worker_dim=True)
     rows = plan.rows
-    if (rows, plan.used_rows) != (OLMO_ROWS, OLMO_ROWS):
-        raise AssertionError(f"OLMo plan: {rows} rows, {plan.used_rows} "
-                             f"used, expected {OLMO_ROWS}")
-    shape = (K, rows, LANE)
+    want = (FULL_WIDTH[path]["rows"], FULL_WIDTH[path]["used"])
+    if (rows, plan.used_rows) != want:
+        raise AssertionError(f"{path} plan: {rows} rows, {plan.used_rows} "
+                             f"used, expected {want}")
+    shape = (k, rows, LANE)
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(4321)
-    mu, wd = OLMO_HYPER["mu"], OLMO_HYPER["weight_decay"]
-    lr = torch.full((), OLMO_HYPER["eta"], dtype=torch.float32, device=dev)
-    x, m, g = (torch.randn((K * rows, LANE), generator=gen, device=dev)
+    mu, wd = FULL_HYPER["mu"], FULL_HYPER["weight_decay"]
+    lr = torch.full((), FULL_HYPER["eta"], dtype=torch.float32, device=dev)
+    x, m, g = (torch.randn((k * rows, LANE), generator=gen, device=dev)
                for _ in range(3))
     n = x.numel()
+    blocks = [(w, slice(r, min(r + CHECK_ROWS, rows)))
+              for w in range(k) for r in range(0, rows, CHECK_ROWS)]
+
+    def rows_of(w, sl):
+        return slice(w * rows + sl.start, w * rows + sl.stop)
+
     results, out = {}, {}
-    got = momentum_update(x, m, g, lr, mu=mu, wd=wd)
-    for w in range(K):
-        sl = slice(w * rows, (w + 1) * rows)
-        same_bits(torch, "momentum_update", (got[0][sl], got[1][sl]),
-                  momentum_update_ref(x[sl], m[sl], g[sl], lr, mu=mu, wd=wd),
-                  results, f"full width, worker {w}")
-    del got
+    xo, mo = momentum_update(x, m, g, lr, mu=mu, wd=wd)
+    for w, sl in blocks:
+        r = rows_of(w, sl)
+        same_bits(torch, "momentum_update", (xo[r], mo[r]),
+                  momentum_update_ref(x[r], m[r], g[r], lr, mu=mu, wd=wd),
+                  results, f"{path} full width, worker {w} rows {sl.start}:"
+                  f"{sl.stop}")
+    momentum_update(x, m, g, lr, mu=mu, wd=wd, inplace=True)
+    for w, sl in blocks:
+        r = rows_of(w, sl)
+        same_bits(torch, "momentum_update", (x[r], m[r]), (xo[r], mo[r]),
+                  results, f"{path} full width in place, worker {w} rows "
+                  f"{sl.start}:{sl.stop}")
+    print(f"kernel momentum_update {path} {shape}: in place and out of "
+          f"place bit for bit equal, and to the plain version, in "
+          f"{len(blocks)} row blocks")
+    del xo, mo
+    pw = FULL_WIDTH[path]["plain_workers"] * rows
     timing = dict(
         ms=time_ms(torch, lambda: momentum_update(x, m, g, lr, mu=mu, wd=wd),
                    reps=5, warmup=1),
+        inplace_ms=time_ms(torch, lambda: momentum_update(
+            x, m, g, lr, mu=mu, wd=wd, inplace=True), reps=5, warmup=1),
         plain_ms=time_ms(torch, lambda: momentum_update_ref(
-            x, m, g, lr, mu=mu, wd=wd), reps=5, warmup=1),
+            x[:pw], m[:pw], g[:pw], lr, mu=mu, wd=wd), reps=5, warmup=1),
+        plain_rows=pw,
         library_ms=time_ms(torch, lambda: torch._fused_sgd_(
             [x], [g], [m], weight_decay=wd, momentum=mu,
-            lr=OLMO_HYPER["eta"], dampening=0.0, nesterov=False,
+            lr=FULL_HYPER["eta"], dampening=0.0, nesterov=False,
             maximize=False, is_first_step=False), reps=5, warmup=1),
         bytes=5 * 4 * n, flops=6 * n)
     finish_timings({"momentum_update": timing}, results, bw, f32_peak,
-                   ("full width",) + shape)
+                   (path, "full width") + shape)
+    print(f"kernel momentum_update {path} in place: {timing['inplace_ms']:.5f}"
+          f" ms against {timing['ms']:.5f} out of place (bound "
+          f"{timing['bound_ms']:.5f}); plain version on {pw} rows")
     out["momentum_update"] = timing
     del m, g
     x = x.view(shape)
+    x[:, plan.used_rows:] = 0.0     # the plan's zero tail past the wire
     top = opt.comm.topology
     before = counters()["gossip_mix"].launches
     y = opt._gossip_mat(x, 0, plan=plan)
     if counters()["gossip_mix"].launches - before != 1:
-        raise AssertionError("OLMo gossip step: not one launch")
-    for w in range(K):
-        views = [x[(w + sh) % K] for (_ax, sh, _wt) in top.shifts]
-        same_bits(torch, "gossip_mix", (y[w],), (gossip_mix_ref(
+        raise AssertionError(f"{path} gossip step: not one launch")
+    for w, sl in blocks:
+        views = [x[(w + sh) % k, sl] for (_ax, sh, _wt) in top.shifts]
+        same_bits(torch, "gossip_mix", (y[w, sl],), (gossip_mix_ref(
             views, [wt for (_ax, _sh, wt) in top.shifts]),), results,
-            f"full width ring, worker {w}")
+            f"{path} full width ring, worker {w} rows {sl.start}:{sl.stop}")
     del y
     W = opt.comm._W
     timing = dict(
         ms=time_ms(torch, lambda: opt._gossip_mat(x, 0, plan=plan), reps=5,
                    warmup=1),
-        plain_ms=time_ms(torch, lambda: plain_gossip(top, x, rows), reps=5,
-                         warmup=1),
-        library_ms=time_ms(torch, lambda: W @ x.reshape(K, -1), reps=5,
+        plain_ms=time_ms(torch, lambda: plain_gossip(top, x,
+                                                     plan.used_rows),
+                         reps=5, warmup=1),
+        library_ms=time_ms(torch, lambda: W @ x.reshape(k, -1), reps=5,
                            warmup=1),
         bytes=2 * 4 * n, flops=(2 * len(top.shifts) - 1) * n)
     finish_timings({"gossip_mix": timing}, results, bw, f32_peak,
-                   ("full width ring step",) + shape)
+                   (path, "full width ring step") + shape)
     out["gossip_mix"] = timing
     del x
     gc.collect()
     torch.cuda.empty_cache()
-    return {name: dict({k: t[k] for k in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by",
-                                           "max_abs_err")},
-                       shape=list(shape)) for name, t in out.items()}
+    keys = ("ms", "inplace_ms", "plain_ms", "plain_rows", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")
+    return {name: dict({key: t[key] for key in keys if key in t},
+                       path=path, shape=list(shape))
+            for name, t in out.items()}
 
 
 def turns(torch, fns: dict) -> dict:
@@ -1309,7 +1394,7 @@ def batch_fn(seed: int, k: int = K, batch: int = BATCH, alpha=None):
     return lambda t: class_batch(cfg, t, DEVICE)
 
 
-# the twenty paths, the kernels each must launch in a 14-step run, and
+# the paths, the kernels each must launch in a 14-step run, and
 # the path whose run each kernel's reported launches come from
 PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
          "cpd_sgdm_sparse", "c_sgdm", "pd_sgdm_exp16", "pd_sgdm_onepeer",
@@ -1317,8 +1402,9 @@ PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
          "cpd_sgdm_sign_churn", "mt_dsgdm_sign_churn", "pd_sgdm_overlap",
          "mt_dsgdm_overlap", "qg_dsgdm_overlap", "pd_sgdm_bf16",
          "pd_sgdm_hier", "pd_sgdm_overlap_churn", "pd_sgdm_olmo1b",
-         "pd_sgdm_tinylm_hier", "cpd_sgdm_tinylm_sign")
-LM_PATHS = ("pd_sgdm_olmo1b", "pd_sgdm_tinylm_hier", "cpd_sgdm_tinylm_sign")
+         "pd_sgdm_mixtral", "pd_sgdm_tinylm_hier", "cpd_sgdm_tinylm_sign")
+LM_PATHS = ("pd_sgdm_olmo1b", "pd_sgdm_mixtral", "pd_sgdm_tinylm_hier",
+            "cpd_sgdm_tinylm_sign")
 # MT: each step mixes ĝ = g + λx (n = 2) and c + ĝ − ĝ_prev (n = 3); each
 # round mixes x and c (or the decoded Q(c))
 MT_MIXES = 2 * STEPS + 2 * (STEPS // P)
@@ -1328,7 +1414,8 @@ OV_MIXES = (STEPS // P + 1) + STEPS // P
 # overlapped MT: the tracking mixes, a drip after every step, the stale
 # mixes of x and c, the landings
 MT_OV_MIXES = 2 * STEPS + STEPS + 2 * (STEPS // P + 1) + STEPS // P
-WORKERS = {"cpd_sgdm_sparse": EMB_K, "pd_sgdm_exp16": EXP_K}
+WORKERS = {"cpd_sgdm_sparse": EMB_K, "pd_sgdm_exp16": EXP_K,
+           "pd_sgdm_mixtral": MIXTRAL_K}
 EXPECTED = {
     "pd_sgdm": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
     # C-SGDM: p = 1, the gradient mean is a matmul, no gossip
@@ -1369,10 +1456,12 @@ EXPECTED = {
     # landing is the kernel
     "pd_sgdm_overlap_churn": {"momentum_update": STEPS,
                               "gossip_mix": STEPS // P},
-    # the LM paths: OLMo's ring mixes through the shifted kernel; the
-    # hierarchical round has no gossip launch; CPD's sign wire packs the
-    # LM tree's 107 ragged rows
+    # the LM paths: OLMo's and Mixtral's rings mix through the shifted
+    # kernel (Mixtral's ring(2): 2 views, one launch); the hierarchical
+    # round has no gossip launch; CPD's sign wire packs the LM tree's 107
+    # ragged rows
     "pd_sgdm_olmo1b": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
+    "pd_sgdm_mixtral": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
     "pd_sgdm_tinylm_hier": {"momentum_update": STEPS},
     "cpd_sgdm_tinylm_sign": {"momentum_update": STEPS,
                              "sign_pack": STEPS // P,
@@ -1412,9 +1501,10 @@ def make_opt(path: str, use_kernel: bool, max_rows: int = EMB_MAX_ROWS):
         return CPDSGDM(CPDSGDMConfig(use_kernel=use_kernel, **EMB_HYPER),
                        DenseComm(ring(EMB_K), device=DEVICE),
                        SparseRowsCompressor(max_rows=max_rows))
-    if path == "pd_sgdm_olmo1b":
-        return make_optimizer("pd_sgdm", DenseComm(ring(K), device=DEVICE),
-                              use_kernel=use_kernel, **OLMO_HYPER)
+    if path in FULL_WIDTH:
+        return make_optimizer(
+            "pd_sgdm", DenseComm(ring(WORKERS.get(path, K)), device=DEVICE),
+            use_kernel=use_kernel, **FULL_HYPER)
     if path == "pd_sgdm_tinylm_hier":
         return make_optimizer("pd_sgdm", DenseComm(
             make_topology("hierarchical", HIER), device=DEVICE),
@@ -1494,22 +1584,23 @@ def embedding_run(torch, opt, params, seed: int, steps: int):
 def lm_model(path: str):
     """The model of an LM path, through ``make_model``."""
     from repro_torch.configs.base import ModelCfg
-    from repro_torch.configs.olmo_1b import config as olmo_1b
+    from repro_torch.configs.registry import get_config
     from repro_torch.models import make_model
-    if path == "pd_sgdm_olmo1b":
+    if path in FULL_WIDTH:
+        full = FULL_WIDTH[path]
         return make_model(dataclasses.replace(
-            olmo_1b().model, n_layers=OLMO_LAYERS, param_dtype="float32",
-            compute_dtype="float32"))
+            get_config(full["arch"]).model, param_dtype="float32",
+            compute_dtype="float32", **full["cuts"]))
     return make_model(ModelCfg(**TINY_LM))
 
 
 def lm_stream(path: str, seed: int):
-    """Step t's LM batch of ``path``, K workers, from ``seed``."""
+    """Step t's LM batch of ``path``, its K workers, from ``seed``."""
     from repro_torch.data.synthetic import LMStreamCfg, lm_batch
-    seq, batch = ((OLMO_SEQ, OLMO_BATCH) if path == "pd_sgdm_olmo1b"
+    seq, batch = ((FULL_SEQ, FULL_BATCH) if path in FULL_WIDTH
                   else (TINY_SEQ, TINY_BATCH))
     cfg = LMStreamCfg(vocab=lm_model(path).cfg.vocab, seq_len=seq,
-                      batch=batch, n_workers=K, seed=seed)
+                      batch=batch, n_workers=WORKERS.get(path, K), seed=seed)
     return lambda t: lm_batch(cfg, t, DEVICE)
 
 
@@ -1518,7 +1609,8 @@ def lm_init(torch, path: str, seed: int) -> dict:
     ``seed`` on the card."""
     one = lm_model(path).init(torch.Generator(device=DEVICE).manual_seed(seed),
                               device=DEVICE)
-    return {n: v.expand((K,) + v.shape).contiguous() for n, v in one.items()}
+    k = WORKERS.get(path, K)
+    return {n: v.expand((k,) + v.shape).contiguous() for n, v in one.items()}
 
 
 def lm_grads_fn(torch, path: str):
@@ -1537,18 +1629,20 @@ def lm_grads_fn(torch, path: str):
 def drive(torch, opt, path: str, seed: int, steps: int):
     """``steps`` steps of ``path`` with ``opt`` from the init of ``seed``;
     returns ``(init, params, state, history)`` (history None on the
-    embedding path, which has no loss).  OLMo's init is handed to the
-    trainer and not kept (it would hold 8.2 GB through the run): its
-    ``init`` is the params' shapes on the meta device."""
+    embedding path, which has no loss).  A full-width path's init is
+    handed to the trainer and not kept (it would hold a copy of the params
+    through the run, 8.2 GB of OLMo's, 11.9 GB of Mixtral's): its ``init``
+    is the params' shapes on the meta device."""
     from repro_torch.train.trainer import SimTrainer
     if path in LM_PATHS:
         model = lm_model(path)
         trainer = SimTrainer(lambda prm, b: model.loss(prm, b), opt,
                              device=DEVICE)
-        if path == "pd_sgdm_olmo1b":
+        if path in FULL_WIDTH:
             out = trainer.train(lm_init(torch, path, seed),
                                 lm_stream(path, seed), steps, log_every=1)
-            init = {n: torch.empty((K,) + shape, device="meta")
+            k = WORKERS.get(path, K)
+            init = {n: torch.empty((k,) + shape, device="meta")
                     for n, shape in model.param_shapes().items()}
             return (init,) + out
         init = lm_init(torch, path, seed)
@@ -1573,12 +1667,15 @@ def describe(path: str) -> str:
         return f"ResNet-20 width {WIDTH}, batch {BATCH}"
     model = lm_model(path)
     cfg = model.cfg
-    seq, batch = ((OLMO_SEQ, OLMO_BATCH) if path == "pd_sgdm_olmo1b"
+    seq, batch = ((FULL_SEQ, FULL_BATCH) if path in FULL_WIDTH
                   else (TINY_SEQ, TINY_BATCH))
     n = sum(math.prod(s) for s in model.param_shapes().values())
+    experts = (f"{cfg.n_experts} experts top-{cfg.top_k} at capacity factor "
+               f"{cfg.capacity_factor}, {cfg.moe_groups} dispatch group(s), "
+               if cfg.n_experts else "")
     return (f"{cfg.name} (n_layers {cfg.n_layers}, d_model {cfg.d_model}, "
             f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, "
-            f"vocab {cfg.vocab}, {cfg.norm}, "
+            f"{experts}window {cfg.window}, vocab {cfg.vocab}, {cfg.norm}, "
             f"{'gated SiLU' if cfg.gated_mlp else 'GELU'}, {cfg.param_dtype}; "
             f"{n:,} params a worker), seq {seq}, batch {batch}")
 
@@ -1662,8 +1759,8 @@ def parity_phase(torch, path: str):
     at most 2·max|drift|, in a handful of elements."""
     if path.endswith("_churn") or "_overlap" in path:
         return round_parity_phase(torch, path)
-    if path == "pd_sgdm_olmo1b":
-        return olmo_parity_phase(torch, path)
+    if path in FULL_WIDTH:
+        return full_width_parity_phase(torch, path)
     kernels = counters()
     torch.backends.cudnn.deterministic = True
     opt = make_opt(path, True)
@@ -1687,19 +1784,40 @@ def parity_phase(torch, path: str):
                 (got, sk), (want, st), losses)
 
 
-def olmo_parity_phase(torch, path: str):
-    """One kernel round of the full-width OLMo path against one tree round
-    from the same start on the same batches, at ``parity_phase``'s bars.
-    Both rounds cannot sit on the card at once (8.2 GB a copy of the
-    params), so the start and the kernel round's params and m go to the
-    host, the card is freed, and the tree round runs from the start copied
-    back; the two are compared leaf by leaf on the card."""
+def host_available_gib() -> float:
+    """The host's available memory (``MemAvailable``), in GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def full_width_parity_phase(torch, path: str):
+    """One kernel round of a full-width path against one tree round from
+    the same start on the same batches, at ``parity_phase``'s bars.  Both
+    rounds cannot sit on the card at once (8.2 GB a copy of OLMo's params,
+    11.9 GB of Mixtral's), so the start and the kernel round's params and m
+    go to the host (three copies: the host's available memory is checked
+    first), the card is freed, and the tree round runs from the start
+    copied back, handed to it with no other reference so that it frees
+    the start after its first step, as a trainer does; the two are compared
+    leaf by leaf on the card."""
     kernels = counters()
     opt, plain = make_opt(path, True), make_opt(path, False)
     grads_fn = lm_grads_fn(torch, path)
     data = lm_stream(path, 1)
     steps = [data(i) for i in range(opt.config.p)]
     batches = {k: torch.stack([b[k] for b in steps]) for k in steps[0]}
+    copy_gib = sum(4 * WORKERS.get(path, K) * math.prod(s) for s in
+                   lm_model(path).param_shapes().values()) / 2 ** 30
+    free_gib = host_available_gib()
+    print(f"parity: {path} host memory available {free_gib:.1f} GiB for 3 "
+          f"copies of {copy_gib:.2f} GiB")
+    if free_gib < 3 * copy_gib + 4:
+        raise RuntimeError(f"{path}: the host has {free_gib:.1f} GiB "
+                           f"available, the parity round needs "
+                           f"{3 * copy_gib + 4:.1f}")
     gc.collect()
     torch.cuda.empty_cache()
     start = lm_init(torch, path, 1)
@@ -1711,16 +1829,16 @@ def olmo_parity_phase(torch, path: str):
     del start, got, sk
     gc.collect()
     torch.cuda.empty_cache()
-    start = {k: v.to(DEVICE) for k, v in host_start.items()}
+    start = [{k: v.to(DEVICE) for k, v in host_start.items()}]
     del host_start
     before = {name: fn.launches for name, fn in kernels.items()}
-    want, st, lt = plain.round(plain.init(start), start, grads_fn, batches)
+    want, st, lt = plain.round(plain.init(start[0]), start.pop(), grads_fn,
+                               batches)
     torch.cuda.synchronize()
     stray = {name: fn.launches - before[name] for name, fn in kernels.items()
              if fn.launches != before[name]}
     if stray:
         raise AssertionError(f"{path}: the plain round launched {stray}")
-    del start
     gaps = {}
     for what, plain_tree in (("params", want), ("m", st["m"])):
         worst = 0.0
@@ -1737,6 +1855,122 @@ def olmo_parity_phase(torch, path: str):
           f"{gaps['params']}, max |Δm| = {gaps['m']}, losses {lk} vs "
           f"{lt.tolist()}")
     del want, st, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the full-width MoE layer's bar: max |Δy| over max |y|.  The port and
+# the plain formulation sum their f32 matmuls (TF32 off) in other orders,
+# a few ulps of each output; inputs rounded to bf16 alone move y by about
+# 2^-9 of its size, far past the bar (the phase shows it)
+MOE_BAR = 2e-5
+
+
+def plain_moe(torch, p, xf, C: int, k: int, dtype):
+    """Mixtral's MoE layer written out expert by expert, apart from the
+    port's dispatch: the f32 router and its top-k, renormalised; for each
+    expert the tokens routed to it in token order, the first ``C`` kept,
+    through the gated SiLU FFN with the matmuls' inputs in ``dtype``; each
+    output times its gate, added to its token.  Returns (y, top-k ids,
+    kept (N, E) mask, aux loss without its weight)."""
+    import torch.nn.functional as F
+    N, E = xf.shape[0], p["wi"].shape[0]
+    gates = torch.softmax(xf @ p["router"]["w"], dim=-1)
+    top_w, top_e = torch.topk(gates, k, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    kept = torch.zeros((N, E), dtype=torch.bool, device=xf.device)
+    y = torch.zeros_like(xf)
+    for e in range(E):
+        hit = top_e == e                      # (N, k), one slot at most
+        rows = hit.any(-1).nonzero()[:, 0][:C]
+        kept[rows, e] = True
+        xe = xf[rows].to(dtype)
+        h = (F.silu((xe @ p["wg"][e].to(dtype)).float())
+             * (xe @ p["wi"][e].to(dtype)).float())
+        out = (h.to(dtype) @ p["wo"][e].to(dtype)).float()
+        y.index_add_(0, rows, out * (top_w * hit)[rows].sum(-1, keepdim=True))
+    f_e = (top_e[..., None] == torch.arange(E, device=xf.device)).float()
+    aux = E * torch.sum(gates.mean(0) * f_e.sum(1).mean(0) / k)
+    return y, top_e, kept, aux
+
+
+def moe_layer_phase(torch):
+    """Mixtral's MoE layer at its published widths (d 4096, d_ff 14336, 8
+    experts top-2, capacity factor 1.25: C = 160 slots an expert) on one
+    worker's 512 tokens, through the port's ``moe_apply`` against
+    :func:`plain_moe`, on two inputs: standard normal tokens, which the
+    random router spreads about evenly (no expert past C), and the same
+    tokens plus one shared random row, which biases every token towards
+    the same experts so that slots overflow (it must drop some).  On each:
+    the top-2 expert ids, the kept-slot mask and the count of dropped
+    slots exactly equal, the aux loss within rtol 1e-6, and y within
+    ``MOE_BAR`` of max |y|; the plain formulation with bf16 matmul inputs
+    must miss that bar."""
+    from repro_torch.models import moe
+    path = "pd_sgdm_mixtral"
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = lm_model(path)
+    cfg = model.moe_cfg
+    one = model.init(torch.Generator(device=DEVICE).manual_seed(5),
+                     device=DEVICE)
+    pre = "blocks.pos0.moe."
+    p = {"router": {"w": one[pre + "router.w"][0]},
+         **{n: one[pre + n][0] for n in ("wi", "wg", "wo")}}
+    del one
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    x = torch.randn((FULL_BATCH, FULL_SEQ, cfg.d_model), device=DEVICE,
+                    generator=gen)
+    shared = torch.randn((cfg.d_model,), device=DEVICE, generator=gen)
+    N, E, k = FULL_BATCH * FULL_SEQ, cfg.n_experts, cfg.top_k
+    C = moe.capacity(N, cfg)
+    for label, xs in (("even", x), ("skewed", x + shared)):
+        y, aux = moe.moe_apply(p, xs, cfg)
+        xf = xs.reshape(N, cfg.d_model)
+        _, top_w, top_e = moe.route(p, xf, cfg)
+        _, (sorted_e, _, tok, _, keep) = moe.dispatch(
+            xf[None], top_w[None], top_e[None], C, cfg)
+        kept = torch.zeros((N, E), dtype=torch.bool, device=DEVICE)
+        kept[tok[0], sorted_e[0]] = keep[0]
+        want, want_e, want_kept, want_aux = plain_moe(torch, p, xf, C, k,
+                                                      torch.float32)
+        torch.cuda.synchronize()
+        drops = N * k - int(kept.sum())
+        want_drops = N * k - int(want_kept.sum())
+        load = torch.bincount(want_e.reshape(-1), minlength=E).tolist()
+        scale = float(want.abs().max())
+        gap = float((y.reshape(N, -1) - want).abs().max()) / scale
+        print(f"moe: {path} layer at full width, {label} tokens, {N} "
+              f"tokens, C = {C}, slots an expert {load}: dropped {drops} "
+              f"(plain {want_drops}) of {N * k}; top-{k} ids and kept mask "
+              f"equal: {torch.equal(top_e, want_e)}, "
+              f"{torch.equal(kept, want_kept)}; max |Δy| / max |y| = "
+              f"{gap:.3e} (bar {MOE_BAR}, max |y| {scale:.4f}); aux "
+              f"{float(aux)} vs {cfg.router_aux_weight * float(want_aux)}")
+        if not (torch.equal(top_e, want_e) and torch.equal(kept, want_kept)
+                and drops == want_drops):
+            raise AssertionError(f"{path}: the MoE layer's routing differs "
+                                 f"from the plain formulation's ({label})")
+        if label == "skewed" and drops == 0:
+            raise AssertionError(f"{path}: the skewed tokens dropped no slot")
+        if gap > MOE_BAR:
+            raise AssertionError(f"{path}: the MoE layer's output is "
+                                 f"{gap:.3e} of max |y| from the plain one "
+                                 f"({label})")
+        if not math.isclose(float(aux),
+                            cfg.router_aux_weight * float(want_aux),
+                            rel_tol=1e-6):
+            raise AssertionError(f"{path}: the MoE layer's aux loss differs "
+                                 f"({label})")
+    low = plain_moe(torch, p, xf, C, k, torch.bfloat16)[0]
+    low_gap = float((low - want).abs().max()) / scale
+    print(f"moe: {path} the plain formulation with bf16 matmul inputs: "
+          f"max |Δy| / max |y| = {low_gap:.3e}, past the bar: "
+          f"{low_gap > MOE_BAR}")
+    if not low_gap > MOE_BAR:
+        raise AssertionError(f"{path}: the bar {MOE_BAR} does not tell f32 "
+                             "from bf16")
+    del p, x, xs, y, want, low
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2412,7 +2646,8 @@ def profile_round(torch, path: str):
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         print(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
-    for name in ("momentum_kernel", "gossip_mix_kernel",
+    for name in ("momentum_kernel", "momentum_inplace_kernel",
+                 "gossip_mix_kernel",
                  "gossip_mix_tile_kernel", "sign_pack_kernel",
                  "sign_unpack_kernel", "qsgd_quant_kernel",
                  "qsgd_dequant_kernel", "topk_select_kernel",
@@ -2476,10 +2711,15 @@ def main(argv=None) -> int:
     variants = [(label, build_variant(path)) for label, path in
                 (v.split("=", 1) for v in args.gather_variant)]
     timings.update(row_kernel_phase(torch, ops, bw, f32_peak, variants))
-    full_width = olmo_kernel_phase(torch, ops, bw, f32_peak)
+    full_width = {}
+    for path in FULL_WIDTH:
+        for name, row in full_width_kernel_phase(torch, ops, bw, f32_peak,
+                                                 path).items():
+            full_width.setdefault(name, []).append(row)
     runs = {path: training_phase(torch, path) for path in PATHS}
     for path in PATHS:
         parity_phase(torch, path)
+    moe_layer_phase(torch)
     gossip_dispatch_phase(torch)
     fig1_phase(torch)
     fig2_phase(torch)
@@ -2501,7 +2741,9 @@ def main(argv=None) -> int:
             "replaces": f"src/repro/kernels/{tpu}",
             "launches": runs[OWNER[name]][name],
             "max_abs_err": t["max_abs_err"], "max_ulp": t["max_ulp"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], **({"inplace_ms": t["inplace_ms"]}
+                              if "inplace_ms" in t else {}),
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
         if name in full_width:

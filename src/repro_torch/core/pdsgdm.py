@@ -305,11 +305,16 @@ class PDSGDM:
         return new_state
 
     def local_step_mat(self, x_mat, mats, g_mat, step):
-        """One fused momentum update on the kernel layout (one launch)."""
+        """One fused momentum update on the kernel layout (one launch),
+        written over ``x_mat`` and ``mats["m"]``: both belong to the round
+        (fresh from :meth:`KernelPlan.flatten` or from this launch), so no
+        one else sees them change, and the round holds no copy of x' and
+        m' beside x and m."""
         cfg = self.config
         x_new, m_new = kops.momentum_update_mat(
             x_mat, mats["m"], g_mat, mu=cfg.mu, lr=cfg.lr(step),
-            weight_decay=cfg.weight_decay, nesterov=cfg.nesterov)
+            weight_decay=cfg.weight_decay, nesterov=cfg.nesterov,
+            inplace=True)
         return x_new, {**mats, "m": m_new}
 
     def _mat_wire_static(self) -> bool:

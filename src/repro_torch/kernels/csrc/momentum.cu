@@ -22,6 +22,16 @@
 // at most 8 blocks of 256 threads per SM, with the ragged last sweep masked
 // by the loop bound.  lr is read from a device pointer, so a learning-rate
 // schedule needs no host sync and no new launch arguments per step.
+//
+// Two entries share that arithmetic (step4) and that grid, so they round
+// alike: momentum_update_f32 writes x' and m' to fresh buffers (every
+// pointer __restrict__), momentum_update_inplace_f32 writes them over x
+// and m.  The in-place entry reads and writes x and m through one pointer
+// each, without __restrict__ on them; each thread reads its float4 of x
+// and m before it writes the same float4, and no two threads touch one
+// element, so the result is the out-of-place one.  It moves the same 20
+// bytes an element and saves the two output buffers, a copy of the params
+// each, at full width.
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,6 +51,16 @@ __device__ __forceinline__ void sgdm(float x, float m, float g, float lr,
 }
 
 template <bool kNesterov>
+__device__ __forceinline__ void step4(const float4& xv, const float4& mv,
+                                      const float4& gv, float lr, float mu,
+                                      float wd, float4& xo, float4& mo) {
+  sgdm<kNesterov>(xv.x, mv.x, gv.x, lr, mu, wd, xo.x, mo.x);
+  sgdm<kNesterov>(xv.y, mv.y, gv.y, lr, mu, wd, xo.y, mo.y);
+  sgdm<kNesterov>(xv.z, mv.z, gv.z, lr, mu, wd, xo.z, mo.z);
+  sgdm<kNesterov>(xv.w, mv.w, gv.w, lr, mu, wd, xo.w, mo.w);
+}
+
+template <bool kNesterov>
 __global__ void __launch_bounds__(kThreads)
 momentum_kernel(const float4* __restrict__ x, const float4* __restrict__ m,
                 const float4* __restrict__ g, const float* __restrict__ lr_ptr,
@@ -51,17 +71,46 @@ momentum_kernel(const float4* __restrict__ x, const float4* __restrict__ m,
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n4; i += stride) {
-    const float4 xv = x[i];
-    const float4 mv = m[i];
-    const float4 gv = g[i];
     float4 xo, mo;
-    sgdm<kNesterov>(xv.x, mv.x, gv.x, lr, mu, wd, xo.x, mo.x);
-    sgdm<kNesterov>(xv.y, mv.y, gv.y, lr, mu, wd, xo.y, mo.y);
-    sgdm<kNesterov>(xv.z, mv.z, gv.z, lr, mu, wd, xo.z, mo.z);
-    sgdm<kNesterov>(xv.w, mv.w, gv.w, lr, mu, wd, xo.w, mo.w);
+    step4<kNesterov>(x[i], m[i], g[i], lr, mu, wd, xo, mo);
     x_out[i] = xo;
     m_out[i] = mo;
   }
+}
+
+// x and m are read and written in place: no __restrict__ on them.
+template <bool kNesterov>
+__global__ void __launch_bounds__(kThreads)
+momentum_inplace_kernel(float4* x, float4* m, const float4* __restrict__ g,
+                        const float* __restrict__ lr_ptr, long long n4,
+                        float mu, float wd) {
+  const float lr = __ldg(lr_ptr);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n4; i += stride) {
+    const float4 xv = x[i];
+    const float4 mv = m[i];
+    float4 xo, mo;
+    step4<kNesterov>(xv, mv, g[i], lr, mu, wd, xo, mo);
+    x[i] = xo;
+    m[i] = mo;
+  }
+}
+
+// The grid of both entries: one thread per float4, at most kBlocksPerSm
+// blocks per SM.  Returns 0 or the CUDA error of the device query.
+int grid_for(long long n4, unsigned* blocks_out) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long blocks = (n4 + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  *blocks_out = static_cast<unsigned>(blocks);
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace
@@ -77,14 +126,9 @@ extern "C" int momentum_update_f32(const void* x, const void* m,
   if (n % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n4 = n / 4;
   if (n4 == 0) return static_cast<int>(cudaSuccess);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long blocks = (n4 + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
+  unsigned blocks = 0;
+  const int err = grid_for(n4, &blocks);
+  if (err) return err;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* x4 = static_cast<const float4*>(x);
   const auto* m4 = static_cast<const float4*>(m);
@@ -93,11 +137,39 @@ extern "C" int momentum_update_f32(const void* x, const void* m,
   auto* xo4 = static_cast<float4*>(x_out);
   auto* mo4 = static_cast<float4*>(m_out);
   if (nesterov) {
-    momentum_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        x4, m4, g4, lrp, xo4, mo4, n4, mu, wd);
+    momentum_kernel<true><<<blocks, kThreads, 0, s>>>(x4, m4, g4, lrp, xo4,
+                                                      mo4, n4, mu, wd);
   } else {
-    momentum_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        x4, m4, g4, lrp, xo4, mo4, n4, mu, wd);
+    momentum_kernel<false><<<blocks, kThreads, 0, s>>>(x4, m4, g4, lrp, xo4,
+                                                       mo4, n4, mu, wd);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same update written over x and m (n contiguous f32 each, 16-byte
+// aligned, n % 4 == 0, neither overlapping the other or g).  Launches on
+// `stream` and returns cudaGetLastError(); never synchronises.
+extern "C" int momentum_update_inplace_f32(void* x, void* m, const void* g,
+                                           const void* lr, long long n,
+                                           float mu, float wd, int nesterov,
+                                           void* stream) {
+  if (n % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n4 = n / 4;
+  if (n4 == 0) return static_cast<int>(cudaSuccess);
+  unsigned blocks = 0;
+  const int err = grid_for(n4, &blocks);
+  if (err) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* x4 = static_cast<float4*>(x);
+  auto* m4 = static_cast<float4*>(m);
+  const auto* g4 = static_cast<const float4*>(g);
+  const auto* lrp = static_cast<const float*>(lr);
+  if (nesterov) {
+    momentum_inplace_kernel<true><<<blocks, kThreads, 0, s>>>(
+        x4, m4, g4, lrp, n4, mu, wd);
+  } else {
+    momentum_inplace_kernel<false><<<blocks, kThreads, 0, s>>>(
+        x4, m4, g4, lrp, n4, mu, wd);
   }
   return static_cast<int>(cudaGetLastError());
 }

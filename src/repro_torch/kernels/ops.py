@@ -164,8 +164,16 @@ def _rows2d(mat: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------------- mat ops
 def momentum_update_mat(x_mat, m_mat, g_mat, *, mu: float, lr,
-                        weight_decay: float = 0.0, nesterov: bool = False):
-    """Fused SGDM on the kernel layout; accepts (..., rows, 1024)."""
+                        weight_decay: float = 0.0, nesterov: bool = False,
+                        inplace: bool = False):
+    """Fused SGDM on the kernel layout; accepts (..., rows, 1024).  With
+    ``inplace`` the update is written over ``x_mat`` and ``m_mat`` (folded
+    onto rows as views), which are returned."""
+    if inplace:
+        momentum_update(x_mat.view(-1, LANE), m_mat.view(-1, LANE),
+                        _rows2d(g_mat), lr, mu=mu, wd=weight_decay,
+                        nesterov=nesterov, inplace=True)
+        return x_mat, m_mat
     shape = x_mat.shape
     x_new, m_new = momentum_update(
         _rows2d(x_mat), _rows2d(m_mat), _rows2d(g_mat), lr, mu=mu,

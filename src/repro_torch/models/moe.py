@@ -1,0 +1,169 @@
+"""Mixture-of-Experts layer: top-k router and sort-based capacity dispatch.
+
+Port of ``src/repro/models/moe.py``.  The dispatch is sort-based, as in
+the reference: the N·k (token, expert) slots are sorted by expert, each
+slot's rank within its expert comes from the expert counts' exclusive
+cumsum, and slots at rank ≥ C are dropped (Switch semantics).  The
+``(E, C, d)`` capacity buffer then feeds the expert FFN, three batched
+matmuls over the experts (``torch.matmul``, as the reference leaves them
+to ``jnp.einsum``), and each kept slot's output is added back to its
+token, weighted by its renormalised gate.
+
+The functions run under ``torch.func.vmap(grad_and_value)`` over stacked
+workers, which shapes how they are written: the capacity C is a Python
+int from the shapes; the counts are a one-hot sum, not ``bincount``; the
+buffer is a gather of the sorted slots (``buf[e, c]`` is the token of
+sorted slot ``start[e] + c`` where ``c < count[e]``, else zero), which
+writes what the reference's ``.at[].set(mode="drop")`` writes; the
+combine reads a dropped slot at rank C − 1, as the reference's clipped
+gather does, and masks it with ``where``, so no gradient reaches it; the
+token sum is an out-of-place ``index_add``.  Nothing reads a tensor on
+the host.
+
+Ties: ``lax.top_k`` breaks a tie in the gates by the lower expert index;
+``torch.topk`` promises no order for ties.  Gates tie only where router
+logits tie, so the two pick the same experts on any input whose logits
+differ (the tests draw such inputs).
+
+The grouped dispatch (``n_groups`` G > 1) sorts each group of N/G tokens
+on its own at capacity ``C(N/G)`` and runs the experts on the groups'
+buffers side by side, ``(E, G·C, d)``; with G = 1 it is the global sort.
+``N % G ≠ 0`` falls back to one group, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense
+
+__all__ = ["MoECfg", "moe_apply", "capacity", "route", "dispatch"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    d_model: int
+    d_ff: int
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    gated: bool = True
+    n_groups: int = 1           # 1: one global sort; G: per-group sorts
+
+
+def capacity(n_tokens: int, cfg: MoECfg) -> int:
+    """Slots an expert takes: ceil(k·N/E·cf) rounded up to 8, at least 8."""
+    c = math.ceil(cfg.top_k * n_tokens / cfg.n_experts * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)
+
+
+def dispatch(xg, top_w, top_e, C: int, cfg: MoECfg):
+    """Sort-based dispatch of G groups at once.
+
+    xg: (G, n, d); top_w, top_e: (G, n, k), the gates' top-k.  Returns the
+    (G, E, C, d) buffer and the combine metadata ``(sorted_e, rank,
+    token_of_slot, w_of_slot, keep)``, each (G, n·k) in the sorted slot
+    order; ``keep`` is False on the dropped slots.
+    """
+    G, n, d = xg.shape
+    k, E = cfg.top_k, cfg.n_experts
+    dev = xg.device
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    flat_e = top_e.reshape(G, n * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)          # (G, n·k)
+    sorted_e = torch.gather(flat_e, -1, order)
+    token_of_slot = order // k
+    w_of_slot = torch.gather(top_w.reshape(G, n * k), -1, order)
+    experts = torch.arange(E, device=dev)
+    counts = (flat_e[..., None] == experts).to(torch.int64).sum(-2)  # (G, E)
+    starts = torch.cumsum(counts, -1) - counts
+    rank = (torch.arange(n * k, device=dev)
+            - torch.gather(starts, -1, sorted_e))
+    keep = rank < C
+    # buf[g, e, c] is sorted slot starts[e] + c where c < counts[e]
+    slots = torch.arange(C, device=dev)
+    valid = slots < counts[..., None]                            # (G, E, C)
+    pos = torch.where(valid, starts[..., None] + slots, 0).reshape(G, E * C)
+    tok = torch.gather(token_of_slot, -1, pos)
+    base = (torch.arange(G, device=dev) * n)[:, None]
+    rows = torch.index_select(xg.reshape(G * n, d), 0,
+                              (tok + base).reshape(-1))
+    buf = torch.where(valid.reshape(G * E * C, 1), rows,
+                      torch.zeros((), dtype=xg.dtype, device=dev))
+    meta = (sorted_e, rank, token_of_slot, w_of_slot, keep)
+    return buf.reshape(G, E, C, d), meta
+
+
+def _combine(out_buf, meta, n: int):
+    """out_buf: (G, E, C, d) → (G, n, d) f32: each kept slot's output
+    times its gate, added to its token."""
+    sorted_e, rank, token_of_slot, w_of_slot, keep = meta
+    G, E, C, d = out_buf.shape
+    dev = out_buf.device
+    rank_c = torch.where(keep, rank, C - 1)      # the reference's clip
+    base = (torch.arange(G, device=dev) * (E * C))[:, None]
+    slot_out = torch.index_select(out_buf.reshape(G * E * C, d), 0,
+                                  (sorted_e * C + rank_c + base).reshape(-1))
+    slot_out = torch.where(keep.reshape(-1, 1), slot_out,
+                           torch.zeros((), dtype=out_buf.dtype, device=dev))
+    slot_out = slot_out.to(torch.float32) * w_of_slot.reshape(-1, 1)
+    tbase = (torch.arange(G, device=dev) * n)[:, None]
+    y = torch.zeros((G * n, d), dtype=torch.float32, device=dev).index_add(
+        0, (token_of_slot + tbase).reshape(-1), slot_out)
+    return y.reshape(G, n, d)
+
+
+def _expert_ffn(params, buf):
+    """buf: (E, T, d) → (E, T, d); gated SiLU (GELU's tanh form when
+    ungated), accumulated in f32."""
+    x32 = buf.to(torch.float32)
+    h = torch.matmul(x32, params["wi"].to(torch.float32))
+    if "wg" in params:
+        h = F.silu(torch.matmul(x32, params["wg"].to(torch.float32))) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    h = h.to(buf.dtype)
+    out = torch.matmul(h.to(torch.float32), params["wo"].to(torch.float32))
+    return out.to(buf.dtype)
+
+
+def route(params, xf, cfg: MoECfg):
+    """The router on tokens ``xf`` (N, d), in f32 throughout: the gates
+    (N, E) and their top-k values and expert ids (N, k), before the
+    renormalisation."""
+    logits = dense(params["router"], xf.to(torch.float32))
+    gates = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_w, top_e = torch.topk(gates, cfg.top_k, dim=-1)
+    return gates, top_w, top_e
+
+
+def moe_apply(params, x, cfg: MoECfg):
+    """x: (b, s, d) → (y, aux_loss); ``params`` as the reference's
+    ``{"router": {"w"}, "wi", "wg", "wo"}``."""
+    b, s, d = x.shape
+    N = b * s
+    E, k = cfg.n_experts, cfg.top_k
+    G = cfg.n_groups if N % max(cfg.n_groups, 1) == 0 else 1
+    xf = x.reshape(N, d)
+
+    gates, top_w, top_e = route(params, xf, cfg)
+
+    # the Switch load-balance loss: w · E · Σ_e P_e f_e
+    P_e = gates.mean(0)
+    ones = (top_e[..., None] == torch.arange(E, device=x.device)).to(
+        torch.float32).sum(-2)
+    f_e = ones.mean(0) / k
+    aux = cfg.router_aux_weight * E * torch.sum(P_e * f_e)
+
+    n = N // G
+    C = capacity(n, cfg)
+    buf, meta = dispatch(xf.reshape(G, n, d), top_w.reshape(G, n, k),
+                         top_e.reshape(G, n, k), C, cfg)
+    ebuf = buf.transpose(0, 1).reshape(E, G * C, d)       # expert-major
+    out = _expert_ffn(params, ebuf).reshape(E, G, C, d).transpose(0, 1)
+    y = _combine(out, meta, n).reshape(N, d)
+    return y.reshape(b, s, d).to(x.dtype), aux

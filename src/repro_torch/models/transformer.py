@@ -4,10 +4,10 @@ Port of ``src/repro/models/transformer.py:38-232`` and ``make_model``
 (``:431``).  A model is a repeating block pattern (``ModelCfg.pattern``)
 of ``LayerSpec(mixer, ffn)`` layers, repeated ``n_repeats`` times with
 params stacked over the repeats.  This slice runs the ``attn`` mixer with
-a ``dense`` or no FFN on token inputs; the other branches raise:
+a ``dense``, ``moe`` (:mod:`repro_torch.models.moe`), ``dense+moe`` (their
+sum) or no FFN on token inputs; the other branches raise:
 
-* ``moe`` and ``dense+moe`` FFNs — ROADMAP queue A item 11 step 2;
-* the ``mla`` mixer (``use_mla``) — item 11 step 3;
+* the ``mla`` mixer (``use_mla``) — ROADMAP queue A item 11 step 3;
 * the ``mamba`` mixer — item 11 step 4;
 * the ``embeds`` and ``vlm`` input modes — item 11 step 5;
 * the serving methods (KV caches, prefill, decode; reference
@@ -17,11 +17,14 @@ a ``dense`` or no FFN on token inputs; the other branches raise:
 Params are a flat dict named by the reference's key paths
 (``embed.table``, ``blocks.pos0.attn.wq.w`` with a leading ``n_repeats``
 dim, ``final_norm.scale``, ``lm_head.w``; a non-parametric norm has no
-leaf).  :class:`_Net` registers exactly those names on the meta device and
+leaf; an MoE FFN adds ``blocks.posN.moe.{router.w, wg, wi, wo}``).
+:class:`_Net` registers exactly those names on the meta device and
 :meth:`Model.apply` runs it through ``torch.func.functional_call``, so one
 function serves one worker and, under ``torch.func.vmap``, K stacked
 workers.  The repeats are a Python loop over the stack's index (the
-reference's ``lax.scan``), with no in-place op.
+reference's ``lax.scan``), with no in-place op; the MoE layers' aux
+losses are summed over the pattern and then over the repeats, as the
+reference's scan carries them.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelCfg
 from repro_torch.configs.shapes import torch_dtype
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnCfg
 from repro_torch.models.layers import (embed, layernorm, mlp,
                                        nonparametric_layernorm, rmsnorm,
@@ -45,8 +49,7 @@ __all__ = ["Model", "make_model"]
 
 # the steps of ROADMAP queue A item 11 (and item 13) that port what this
 # slice refuses
-_LATER = {"moe": "item 11 step 2 (MoE)", "dense+moe": "item 11 step 2 (MoE)",
-          "mla": "item 11 step 3 (MLA)",
+_LATER = {"mla": "item 11 step 3 (MLA)",
           "mamba": "item 11 step 4 (the SSM and hybrid blocks)",
           "embeds": "item 11 step 5 (the audio and VLM input modes)",
           "vlm": "item 11 step 5 (the audio and VLM input modes)"}
@@ -109,16 +112,17 @@ def _dense(d_in: int, d_out: int, lead: tuple, device,
 
 class _Layer(nn.Module):
     """One pattern position: ``norm_mix``, ``attn``, and unless the FFN is
-    ``none`` ``norm_ffn`` and ``mlp``, stacked over the repeats."""
+    ``none`` ``norm_ffn`` with ``mlp`` and/or ``moe``, stacked over the
+    repeats."""
 
-    def __init__(self, cfg: ModelCfg, a: AttnCfg, spec: LayerSpec,
-                 device=None):
+    def __init__(self, cfg: ModelCfg, a: AttnCfg, m: moe_lib.MoECfg,
+                 spec: LayerSpec, device=None):
         super().__init__()
         if spec.mixer != "attn":
             _refuse(cfg, spec.mixer)
-        if spec.ffn not in ("dense", "none"):
-            _refuse(cfg, spec.ffn)
-        self.cfg, self.attn_cfg, self.spec = cfg, a, spec
+        if spec.ffn not in ("dense", "moe", "dense+moe", "none"):
+            raise ValueError(spec.ffn)
+        self.cfg, self.attn_cfg, self.moe_cfg, self.spec = cfg, a, m, spec
         lead = (cfg.n_repeats,)
         self.norm_mix = _norm(cfg, lead, device)
         self.attn = nn.Module()
@@ -127,33 +131,48 @@ class _Layer(nn.Module):
         self.attn.wk = _dense(d, kvh * hd, lead, device, a.qkv_bias)
         self.attn.wv = _dense(d, kvh * hd, lead, device, a.qkv_bias)
         self.attn.wo = _dense(h * hd, d, lead, device)
-        if spec.ffn == "dense":
+        if spec.ffn != "none":
             self.norm_ffn = _norm(cfg, lead, device)
+        if spec.ffn in ("dense", "dense+moe"):
             self.mlp = nn.Module()
             self.mlp.wi = _dense(d, cfg.d_ff, lead, device)
             self.mlp.wo = _dense(cfg.d_ff, d, lead, device)
             if cfg.gated_mlp:
                 self.mlp.wg = _dense(d, cfg.d_ff, lead, device)
+        if spec.ffn in ("moe", "dense+moe"):
+            E, f = m.n_experts, m.d_ff
+            shapes = {"wi": (E, d, f), "wo": (E, f, d)}
+            if m.gated:
+                shapes["wg"] = (E, d, f)
+            self.moe = _Params(shapes, lead, device)
+            self.moe.router = _dense(d, E, lead, device)
 
     def forward(self, x, i: int, cos, sin, positions):
-        """Repeat ``i`` of this position (reference ``_apply_layer``)."""
+        """Repeat ``i`` of this position (reference ``_apply_layer``):
+        ``(x, aux)``, aux zero without an MoE FFN."""
         nap = _norm_apply(self.cfg)
         lp = _tree(self, i)
         h = nap(lp["norm_mix"], x)
         x = x + attn_lib.attention_apply(lp["attn"], h, self.attn_cfg,
                                          cos, sin, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.spec.ffn == "none":
-            return x
+            return x, aux
         h = nap(lp["norm_ffn"], x)
-        return x + mlp(lp["mlp"], h)
+        if self.spec.ffn == "dense":
+            return x + mlp(lp["mlp"], h), aux
+        out, aux = moe_lib.moe_apply(lp["moe"], h, self.moe_cfg)
+        if self.spec.ffn == "dense+moe":
+            out = mlp(lp["mlp"], h) + out
+        return x + out, aux
 
 
 class _Net(nn.Module):
     """The parameter tree of a :class:`Model` and its forward pass:
     ``batch`` → ``(logits f32, aux)``."""
 
-    def __init__(self, cfg: ModelCfg, a: AttnCfg, compute_dtype: torch.dtype,
-                 device=None):
+    def __init__(self, cfg: ModelCfg, a: AttnCfg, m: moe_lib.MoECfg,
+                 compute_dtype: torch.dtype, device=None):
         super().__init__()
         if cfg.input_mode != "tokens":
             _refuse(cfg, cfg.input_mode)
@@ -163,7 +182,8 @@ class _Net(nn.Module):
         self.embed = _Params({"table": (cfg.vocab, cfg.d_model)}, (), device)
         self.blocks = nn.Module()
         for pos, spec in enumerate(cfg.pattern):
-            self.blocks.add_module(f"pos{pos}", _Layer(cfg, a, spec, device))
+            self.blocks.add_module(f"pos{pos}",
+                                   _Layer(cfg, a, m, spec, device))
         self.final_norm = _norm(cfg, (), device)
         if not cfg.tie_embeddings:
             self.lm_head = _dense(cfg.d_model, cfg.vocab, (), device)
@@ -175,15 +195,19 @@ class _Net(nn.Module):
         cos, sin = rope_freqs(self.attn_cfg.head_dim, s, cfg.rope_theta,
                               device=x.device)
         positions = torch.arange(s, device=x.device).expand(b, s)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_repeats):
+            block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for pos in range(len(cfg.pattern)):
-                x = getattr(self.blocks, f"pos{pos}")(x, i, cos, sin,
-                                                      positions)
+                x, a = getattr(self.blocks, f"pos{pos}")(x, i, cos, sin,
+                                                         positions)
+                block_aux = block_aux + a
+            aux = aux + block_aux
         x = _norm_apply(cfg)(_tree(self.final_norm), x)
         head = (self.embed.table.T if cfg.tie_embeddings
                 else self.lm_head.w)
         logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
 
 
 class Model:
@@ -202,7 +226,12 @@ class Model:
             q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
             qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
             v_head_dim=cfg.v_head_dim)
-        self.net = _Net(cfg, self.attn_cfg, self.compute_dtype,
+        self.moe_cfg = moe_lib.MoECfg(
+            d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            router_aux_weight=cfg.router_aux_weight, gated=cfg.gated_mlp,
+            n_groups=cfg.moe_groups)
+        self.net = _Net(cfg, self.attn_cfg, self.moe_cfg, self.compute_dtype,
                         device="meta")
 
     # ------------------------------------------------------------------ init
@@ -214,20 +243,24 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         """Fresh params drawn from ``generator`` on its own device, in leaf
         order, and moved to ``device``: dense weights a truncated normal
-        times ``in_dim ** -0.5``, the embedding times 1.0, norm scales 1
-        and biases 0, in ``param_dtype``."""
+        times ``in_dim ** -0.5`` (the experts' ``wi``/``wg`` (E, d, f) at
+        d^-0.5, ``wo`` (E, f, d) at f^-0.5: ``shape[-2]`` in each case),
+        the embedding times 1.0, norm scales 1 and biases 0, in
+        ``param_dtype``; the MoE router in f32 whatever ``param_dtype``
+        is, as the reference's ``moe_init`` draws it."""
         device = resolve_device(device)
         params = {}
         for name, shape in self.param_shapes().items():
             leaf = name.rsplit(".", 1)[-1]
+            dtype = (torch.float32 if name.endswith(".moe.router.w")
+                     else self.param_dtype)
             if leaf == "scale":
-                t = torch.ones(shape, dtype=self.param_dtype)
+                t = torch.ones(shape, dtype=dtype)
             elif leaf in ("bias", "b"):
-                t = torch.zeros(shape, dtype=self.param_dtype)
+                t = torch.zeros(shape, dtype=dtype)
             else:
                 scale = 1.0 if leaf == "table" else shape[-2] ** -0.5
-                t = truncated_normal(shape, self.param_dtype, scale,
-                                     generator)
+                t = truncated_normal(shape, dtype, scale, generator)
             params[name] = t.to(device)
         return params
 

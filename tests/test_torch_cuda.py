@@ -838,3 +838,42 @@ def test_kernels_bit_exact_past_two_to_the_31_elements():
             sl = slice(r, r + block)
             views = [x3[(w + sh) % k, sl] for sh in shifts]
             assert torch.equal(y[w, sl], gossip_mix_ref(views, ws)), (w, r)
+
+
+@pytest.mark.cuda
+def test_momentum_update_inplace_bit_exact_past_two_to_the_31_elements():
+    """``momentum_update(..., inplace=True)`` (the C entry
+    ``momentum_update_inplace_f32``, which PD-SGDM's round launches)
+    writes over x and m exactly what the out-of-place launch returns, and
+    so its plain version: at the main path's (4096, 1024) and a ragged 333
+    rows, plain and Nesterov, and on (2,150,400, 1024) f32 operands, past
+    2³¹ elements and 2³² bytes, row block by row block (about 45 GB on the
+    card at the peak).  Each form counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    lr = torch.tensor(0.25, device=dev)
+    for rows in (4096, 333):
+        x, m, g = (torch.from_numpy(a).to(dev) for a in _mats(rows, 3, rows))
+        for nesterov in (False, True):
+            want = momentum_update_ref(x, m, g, lr, mu=0.9, wd=1e-4,
+                                       nesterov=nesterov)
+            xi, mi = x.clone(), m.clone()
+            before = momentum_update.launches
+            got = momentum_update(xi, mi, g, lr, mu=0.9, wd=1e-4,
+                                  nesterov=nesterov, inplace=True)
+            torch.cuda.synchronize()
+            assert momentum_update.launches == before + 1
+            assert got[0] is xi and got[1] is mi
+            assert torch.equal(xi, want[0]) and torch.equal(mi, want[1])
+    rows, block = 2_150_400, 1 << 17
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x, m, g = (torch.randn((rows, LANE), generator=gen, device="cuda")
+               for _ in range(3))
+    assert x.numel() > 2 ** 31 and x.numel() * 4 > 2 ** 32
+    xo, mo = momentum_update(x, m, g, lr, mu=0.9, wd=1e-4)
+    momentum_update(x, m, g, lr, mu=0.9, wd=1e-4, inplace=True)
+    torch.cuda.synchronize()
+    for r in range(0, rows, block):
+        sl = slice(r, r + block)
+        assert torch.equal(x[sl], xo[sl]) and torch.equal(m[sl], mo[sl]), r

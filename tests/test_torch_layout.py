@@ -152,7 +152,8 @@ def test_port_imports_no_jax_and_no_reference():
                    "data/synthetic.py", "configs/base.py",
                    "configs/registry.py", "configs/shapes.py",
                    "configs/olmo_1b.py", "models/layers.py",
-                   "models/attention.py", "models/transformer.py"):
+                   "models/attention.py", "models/moe.py",
+                   "models/transformer.py"):
         assert os.path.join("src", "repro_torch", module) in scanned
     for example in ("torch_quickstart.py", "torch_compression_ablation.py",
                     "torch_noniid_ablation.py"):

@@ -289,17 +289,19 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("path", ["pd_sgdm_olmo1b", "pd_sgdm_tinylm_hier",
+@pytest.mark.parametrize("path", ["pd_sgdm_olmo1b", "pd_sgdm_mixtral",
+                                  "pd_sgdm_tinylm_hier",
                                   "cpd_sgdm_tinylm_sign"])
 def test_chip_smoke_lm_paths_on_the_cpu(path, monkeypatch):
     """Each LM path of ``chip_smoke.py`` through the script's own
-    ``make_opt`` and ``drive`` on the CPU (OLMo at its smoke widths, one
-    layer: launches do not depend on the widths): the kernel launches of
-    its 14-step run, counted by the calls of the kernel wrappers, equal
-    the script's ``EXPECTED``; the losses are finite; and its bytes per
-    round, at the path's real widths (OLMo-1B's one layer as meta
-    tensors, never allocated), equal the script's ``WIRE_BYTES`` and the
-    reference's on the same shapes."""
+    ``make_opt`` and ``drive`` on the CPU (OLMo and Mixtral at their smoke
+    widths, one layer: launches do not depend on the widths): the kernel
+    launches of its 14-step run, counted by the calls of the kernel
+    wrappers, equal the script's ``EXPECTED``; the losses are finite; and
+    its bytes per round, at the path's real widths (one layer of OLMo-1B
+    or of Mixtral-8x7B as meta tensors, never allocated), equal the
+    script's ``WIRE_BYTES`` and the reference's on the same shapes, on the
+    path's ring (K = 2 for Mixtral)."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import ops as kops
@@ -325,9 +327,9 @@ def test_chip_smoke_lm_paths_on_the_cpu(path, monkeypatch):
     for key, mod in (("sign_pack", kops.sc), ("sign_unpack", kops.sc)):
         monkeypatch.setattr(mod, key, counted(getattr(mod, key), key, one))
     full = cs.lm_model(path)
-    if path == "pd_sgdm_olmo1b":
+    if path in cs.FULL_WIDTH:
         small = make_model(dataclasses.replace(
-            get_smoke_config("olmo-1b").model, n_layers=1))
+            get_smoke_config(full.cfg.name).model, n_layers=1))
         monkeypatch.setattr(cs, "lm_model", lambda _path: small)
     opt = cs.make_opt(path, use_kernel=True)
     _, params, state, hist = cs.drive(torch, opt, path, 0, cs.STEPS)
@@ -344,8 +346,13 @@ def test_chip_smoke_lm_paths_on_the_cpu(path, monkeypatch):
         for q in p:
             d = d.setdefault(q, {})
         d[leaf] = jax.ShapeDtypeStruct(s, jnp.float32)
-    graph = "hier" if path == "pd_sgdm_tinylm_hier" else "ring"
     name = "cpd_sgdm" if path.startswith("cpd") else "pd_sgdm"
-    theirs = _ref_opt(name, graph, use_kernel=True).bytes_per_round_cycle(
-        rtree)
+    if path == "pd_sgdm_tinylm_hier":
+        ref = _ref_opt(name, "hier", use_kernel=True)
+    else:
+        comp = RSign() if name == "cpd_sgdm" else None
+        ref = r_make_optimizer(name, RDenseComm(r_top.ring(
+            cs.WORKERS.get(path, K))), compressor=comp, use_kernel=True,
+            **HYPER)
+    theirs = ref.bytes_per_round_cycle(rtree)
     assert ours == theirs == cs.WIRE_BYTES[path]

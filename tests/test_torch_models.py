@@ -165,7 +165,8 @@ def test_attention_apply(case):
 
 
 # ---------------------------------------------------------------- the model
-SMOKE = ("olmo-1b", "qwen2-72b", "stablelm-12b")
+SMOKE = ("olmo-1b", "qwen2-72b", "stablelm-12b", "mixtral-8x7b",
+         "arctic-480b")
 
 
 def _ref_model(name):
@@ -195,10 +196,12 @@ def test_model_apply_loss_and_grads(name):
     batch = _batch(mcfg.vocab)
     tbatch = _t(batch)
 
-    rlogits, _ = rmodel.apply(rparams, batch)
+    rlogits, raux = rmodel.apply(rparams, batch)
     logits, aux = model.apply(params, tbatch)
-    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    assert logits.dtype == torch.float32
     _close(logits, rlogits)
+    # the MoE configs' summed router loss; exactly 0 without an MoE FFN
+    np.testing.assert_allclose(float(aux), float(raux), rtol=1e-5, atol=0)
 
     (rloss, rmet), rgrads = jax.value_and_grad(rmodel.loss, has_aux=True)(
         rparams, batch)
@@ -266,8 +269,9 @@ def test_leaf_counts_and_tied_head():
 def test_init_distribution_and_refusals():
     """``init`` draws the reference's distributions (a truncated normal on
     [−2, 2] times ``in_dim ** -0.5``; the embedding times 1.0; norm scales
-    1, biases 0) from an explicit generator; the branches of later slices
-    raise, naming their ROADMAP item."""
+    1, biases 0) from an explicit generator, the MoE leaves too (the
+    router in f32 under bf16 params, ``wi`` at d^-0.5, ``wo`` at f^-0.5);
+    the branches of later slices raise, naming their ROADMAP item."""
     cfg = get_smoke_config("stablelm-12b").model
     model = make_model(cfg)
     g = torch.Generator().manual_seed(0)
@@ -280,9 +284,20 @@ def test_init_distribution_and_refusals():
     assert float(p["embed.table"].abs().max()) <= 2.0
     assert torch.equal(p["final_norm.scale"], torch.ones(cfg.d_model))
     assert torch.equal(p["final_norm.bias"], torch.zeros(cfg.d_model))
-    for name, item in (("mixtral-8x7b", "step 2"), ("minicpm3-4b", "step 3"),
-                       ("mamba2-1.3b", "step 4"), ("musicgen-medium",
-                                                   "step 5")):
+    mcfg = dataclasses.replace(get_smoke_config("mixtral-8x7b").model,
+                               param_dtype="bfloat16")
+    mp = make_model(mcfg).init(torch.Generator().manual_seed(1),
+                               device="cpu")
+    assert mp["blocks.pos0.moe.router.w"].dtype == torch.float32
+    assert mp["blocks.pos0.moe.wi"].dtype == torch.bfloat16
+    for leaf, fan_in in (("router.w", mcfg.d_model), ("wi", mcfg.d_model),
+                         ("wg", mcfg.d_model), ("wo", mcfg.d_ff)):
+        t = mp[f"blocks.pos0.moe.{leaf}"].float()
+        assert float(t.abs().max()) <= 2.0 * fan_in ** -0.5
+        assert abs(float(t.std()) * fan_in ** 0.5 - 0.8796) < 0.02, leaf
+    for name, item in (("minicpm3-4b", "step 3"), ("mamba2-1.3b", "step 4"),
+                       ("jamba-1.5-large-398b", "step 4"),
+                       ("musicgen-medium", "step 5")):
         with pytest.raises(NotImplementedError, match=item):
             make_model(get_smoke_config(name).model)
     with pytest.raises(NotImplementedError, match="item 13"):
