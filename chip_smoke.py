@@ -45,12 +45,13 @@ matmuls:
    ``momentum_update`` in place (x' and m' written over x and m, the form
    PD-SGDM's round launches) bit for bit against the out-of-place launch
    and timed beside it; and, at the full-width paths' shapes, OLMo's
-   (8, 250368, 1024) and Mixtral's (2, 1449472, 1024) f32 (8.2 and 11.9
-   GB a matrix, past 2³² bytes), ``momentum_update`` in both forms and the
+   (8, 250368, 1024), Mixtral's (2, 1449472, 1024), MiniCPM3's
+   (8, 244992, 1024) and Mamba2's (8, 226560, 1024) f32 (7.4 to 11.9 GB a
+   matrix, past 2³² bytes), ``momentum_update`` in both forms and the
    ring's gossip step, bit for bit in row blocks of each worker, timed
    over 5 launches beside the plain version and ``torch._fused_sgd_`` /
    ``W @ x``;
-2. drives twenty-four paths through the port's entry points, each once, with
+2. drives twenty-six paths through the port's entry points, each once, with
    every launch counter set to 0 just before and read just after:
    PD-SGDM, CPD-SGDM with the default sign compressor, with
    ``QSGDCompressor(levels=7)`` (γ = 0.4) and with Fig. 3's
@@ -76,7 +77,7 @@ matmuls:
    (65,536 × 64) f32 embedding table per worker, K = 4 on a ring, Zipf
    lookups of batch 64, p = 4, η = 0.05, γ = 0.4 (the reference's
    ``benchmarks/embedding_wire.py``), 3 rounds and a 2-step tail; and
-   four language-model paths through ``make_model`` →
+   six language-model paths through ``make_model`` →
    ``make_optimizer`` → ``SimTrainer.train`` with ``lm_batch``:
    PD-SGDM on OLMo-1B's published widths (d_model 2048, 16 heads, d_ff
    8192, vocab 50,304, non-parametric LayerNorm, GELU) cut to one of its
@@ -86,15 +87,22 @@ matmuls:
    at the same step on Mixtral-8x7B's expert block at its published
    widths (d_model 4096, 32 heads / 8 KV, d_ff 14336, 8 experts top-2,
    capacity factor 1.25), one of its 32 layers, vocab cut to 4,000, f32,
-   K = 2 on ``ring(2)`` (the cuts and their reasons at ``FULL_WIDTH``);
-   each with its peak memory printed; and the quickstart's tiny LM (2
+   K = 2 on ``ring(2)``; PD-SGDM at the same step on MiniCPM3-4B's MLA
+   layer at its published widths (d_model 2560, 40 heads, q_lora 768,
+   kv_lora 256, nope/rope 64/32, v_head 64, d_ff 6400), one of its 62
+   layers, vocab cut to 36,724 of 73,448, f32, K = 8, seq 256, batch 2;
+   and on Mamba2-1.3B's SSD mixer at its published widths (d_model 2048,
+   d_inner 4096, 64 heads of headdim 64, d_state 128, chunk 256, vocab
+   50,280), one of its 48 layers, f32, K = 8, seq 1,024 (four chunks),
+   batch 1 (the cuts and their reasons at ``FULL_WIDTH``); each with its
+   peak memory printed; and the quickstart's tiny LM (2
    layers, d_model 64) at η = 0.3 with PD-SGDM on ``hierarchical(2, 4)``
    and with CPD-SGDM's sign wire (γ = 0.4) on the ring;
 3. holds one kernel-path round against one round of the plain path from
-   the same init on the same batches, for each of the twenty-four (the
+   the same init on the same batches, for each of the twenty-six (the
    one-peer path over its 3-round cycle, the churn and overlapped paths
    each round of theirs from the same start, 3 or 4 rounds so that every
-   stale matrix lands; OLMo's and Mixtral's two rounds one after the
+   stale matrix lands; the full-width paths' two rounds one after the
    other, the start and the kernel round's result held on the host): for
    PD-SGDM, C-SGDM, MT-DSGDm and QG-DSGDm the tree round, for every
    CPD-SGDM wire the round through the per-leaf codec, which launches no
@@ -105,7 +113,11 @@ matmuls:
    no ``aten::roll`` and no ``aten::constant_pad_nd``; and holds
    Mixtral's MoE layer at full width on one worker's 512 tokens against a
    plain per-expert formulation (``moe_layer_phase``: routing and drops
-   exact, outputs at an f32 bar that bf16 misses);
+   exact, outputs at an f32 bar that bf16 misses); MiniCPM3's MLA layer on
+   512 tokens against per-head K and V and
+   ``F.scaled_dot_product_attention`` (``mla_layer_phase``) and Mamba2's
+   mixer on 1,024 positions against the sequential scan
+   (``ssd_layer_phase``), each at an f32 bar that bf16 misses;
 4. runs Fig. 1, Fig. 2, Fig. 3 and the non-IID sweep's α = 0.1 claim at
    the reference's settings (ResNet-20 width 4, K = 8 ring, batch 16, the
    kernel layout, cuDNN deterministic): ``fig1_phase`` (C-SGDM and PD at
@@ -127,11 +139,12 @@ matmuls:
    at 96 steps against the one-peer schedule at 192, K = 16).
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
-time, the kernel phase, the training phase, the round parity, the MoE
-layer, the four figure phases' and the elastic and topology phases' rows,
-verdicts and wall seconds, one JSON line ``{"kernels": [...]}`` (``momentum_update`` with its in-place time, and
-with ``gossip_mix`` a ``full_width`` row for each full-width path) and,
-last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+time, the kernel phase, the training phase, the round parity, the MoE,
+MLA and SSD layers, the four figure phases' and the elastic and topology
+phases' rows, verdicts and wall seconds, one JSON line ``{"kernels":
+[...]}`` (``momentum_update`` with its in-place time, and with
+``gossip_mix`` a ``full_width`` row for each path of ``FULL_WIDTH``)
+and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; so does a machine without a CUDA device, and a copy of the
 script outside a checkout (it imports the port from ``src/`` beside
 itself).  Imports nothing of JAX or of the JAX package.
@@ -186,37 +199,64 @@ FIG3_CPD_STEPS, FIG3_PD_STEPS = 150, 90
 # benchmarks/noniid_sweep.py at its claim's skew
 NONIID_ALPHA, NONIID_STEPS, NONIID_PS = 0.1, 64, (1, 2, 4)
 # the LM paths: the quickstart's tiny LM (examples/quickstart.py) at its
-# step, and two models at their published widths, f32 params and compute
+# step, and four models at their published widths, f32 params and compute
 # (the kernel layout is f32), at examples/pretrain_decentralized.py:86-88's
-# PD-SGDM settings and its lm-100m rows' sequence (256) and batch (2 a
-# worker) (FULL_*): OLMo-1B (configs/olmo_1b.py) cut to one of its 16 layers,
-# K = 8; and Mixtral-8x7B (configs/mixtral_8x7b.py: d_model 4096, 32 heads /
-# 8 KV, d_ff 14336, 8 experts top-2 at capacity factor 1.25 in one global
-# sort, window 4096, inert at seq 256, RMSNorm, untied head, gated SiLU),
-# cut so that it fits one card: K = 2 workers on ring(2), a pair average,
-# instead of 8, since the round's peak holds six copies of the K workers'
-# params, 11.06 GiB a copy at K = 2 (44 GiB at K = 8); 1 of its 32 layers,
-# one whole period of its (attn, moe) pattern (1.41 B params a layer a
-# worker); the vocabulary cut to 4,000, an eighth of its 32,000, the share
-# of one chip of a vocabulary split over 8 (the token ids are drawn from
-# that slice); f32 instead of its bf16
+# PD-SGDM settings (FULL_HYPER), with the sequence and batch a worker of
+# each path in its FULL_WIDTH entry:
+# - OLMo-1B (configs/olmo_1b.py) cut to one of its 16 layers, K = 8, at the
+#   example's lm-100m rows' sequence (256) and batch (2 a worker);
+# - Mixtral-8x7B (configs/mixtral_8x7b.py: d_model 4096, 32 heads / 8 KV,
+#   d_ff 14336, 8 experts top-2 at capacity factor 1.25 in one global sort,
+#   window 4096, inert at seq 256, RMSNorm, untied head, gated SiLU), cut so
+#   that it fits one card: K = 2 workers on ring(2), a pair average,
+#   instead of 8, since the round's peak holds six copies of the K workers'
+#   params, 11.06 GiB a copy at K = 2 (44 GiB at K = 8); 1 of its 32 layers,
+#   one whole period of its (attn, moe) pattern (1.41 B params a layer a
+#   worker); the vocabulary cut to 4,000, an eighth of its 32,000, the
+#   share of one chip of a vocabulary split over 8 (the token ids are drawn
+#   from that slice); f32 instead of its bf16; seq 256, batch 2;
+# - MiniCPM3-4B (configs/minicpm3_4b.py: d_model 2560, 40 heads of MLA,
+#   q_lora 768, kv_lora 256, nope/rope 64/32, v_head 64, d_ff 6400, gated
+#   SiLU, RMSNorm), K = 8, seq 256, batch 2: 1 of its 62 layers, one whole
+#   period of its (mla, dense) pattern; f32 instead of bf16; the vocabulary
+#   cut to 36,724 of 73,448, the share of one chip of a vocabulary split
+#   over two (ids drawn from it): the full one makes 438,731,264 params a
+#   worker, 13.07 GiB a copy at K = 8, and six copies live at the grad
+#   flatten would be 78.4 GiB before activations; cut, 250,704,384 params,
+#   7.47 GiB a copy;
+# - Mamba2-1.3B (configs/mamba2_1_3b.py: d_model 2048, d_inner 4096, 64 SSD
+#   heads of headdim 64, d_state 128, conv 4, chunk 256, vocab 50,280), K = 8:
+#   1 of its 48 layers; f32 instead of bf16; 231,798,208 params a worker,
+#   6.91 GiB a copy; seq 1,024 at batch 1 a worker, so that the chunk
+#   recurrence runs over four chunks of the published 256 (at seq 256 there
+#   is one chunk, and the recurrence never runs)
 TINY_LM = dict(name="tiny-lm", arch_type="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab=256)
 TINY_SEQ, TINY_BATCH = 32, 4
 TINY_HYPER = dict(eta=0.3, mu=0.9, p=P)
-FULL_SEQ, FULL_BATCH = 256, 2
 FULL_HYPER = dict(eta=0.25, mu=0.9, p=P, weight_decay=1e-4)
 MIXTRAL_K = 2
-# each full-width path: its architecture, the cuts, the plan's rows and
-# used rows of one worker's tree, and how many workers' rows the plain
-# momentum update is timed on (its four temporaries and two outputs beside
-# x, m and g must fit the card: all 8 of OLMo's, one of Mixtral's two)
+# each full-width path: its architecture, the cuts, its sequence and batch
+# a worker, the plan's rows and used rows of one worker's tree (the shape
+# at which the full-width kernel phase holds the kernels), and how many
+# workers' rows the plain momentum update is timed on (its four
+# temporaries and two outputs beside x, m and g must fit the card: all 8
+# of OLMo's, MiniCPM3's and Mamba2's, one of Mixtral's two)
 FULL_WIDTH = {
-    "pd_sgdm_olmo1b": dict(arch="olmo-1b", cuts=dict(n_layers=1),
-                           rows=250_368, used=250_368, plain_workers=8),
+    "pd_sgdm_olmo1b": dict(arch="olmo-1b", cuts=dict(n_layers=1), seq=256,
+                           batch=2, rows=250_368, used=250_368,
+                           plain_workers=8),
     "pd_sgdm_mixtral": dict(arch="mixtral-8x7b",
-                            cuts=dict(n_layers=1, vocab=4000),
-                            rows=1_449_472, used=1_449_260, plain_workers=1),
+                            cuts=dict(n_layers=1, vocab=4000), seq=256,
+                            batch=2, rows=1_449_472, used=1_449_260,
+                            plain_workers=1),
+    "pd_sgdm_minicpm3": dict(arch="minicpm3-4b",
+                             cuts=dict(n_layers=1, vocab=36_724), seq=256,
+                             batch=2, rows=244_992, used=244_831,
+                             plain_workers=8),
+    "pd_sgdm_mamba2": dict(arch="mamba2-1.3b", cuts=dict(n_layers=1),
+                           seq=1024, batch=1, rows=226_560,  # lint: allow
+                           used=226_369, plain_workers=8),
 }
 # the row blocks of the full-width checks: an eighth of a Mixtral worker,
 # so that the plain versions' temporaries and the int64 copies of
@@ -269,6 +309,12 @@ WIRE_BYTES = {"pd_sgdm": (2_539_520,),         # 2 × 310 × 1024 × 4 B
               # used rows × 4 KiB, every leaf a multiple of 1,024 elements
               # (1,484,042,240 params × 4 B, the tree wire too)
               "pd_sgdm_mixtral": (5_936_168_960,),
+              # MiniCPM3-4B, one layer, vocab 36,724: 2 × 244,831 used rows
+              # × 4 KiB (the norm scales fill part rows)
+              "pd_sgdm_minicpm3": (2_005_655_552,),
+              # Mamba2-1.3B, one layer: 2 × 226,369 used rows × 4 KiB
+              # (conv_b, A_log, dt_bias and D fill part rows)
+              "pd_sgdm_mamba2": (1_854_414_848,),
               # the tiny LM's 106,816 f32 × 4 B over the node size 4
               "pd_sgdm_tinylm_hier": (106_816,),
               # 2 × 107 used rows × (128 + 4) B
@@ -398,8 +444,8 @@ def kernel_phase(torch, ops, bw, f32_peak):
 def full_width_kernel_phase(torch, ops, bw, f32_peak, path: str) -> dict:
     """``momentum_update`` in both forms and the ring's gossip step at a
     full-width path's shape, (K, rows, 1024) f32: OLMo's (8, 250368, 1024),
-    8.2 GB a matrix, and Mixtral's (2, 1449472, 1024), 11.9 GB, both past
-    2³² bytes.  The out-of-place launch is held bit for bit against its
+    8.2 GB a matrix, Mixtral's (2, 1449472, 1024), 11.9 GB, MiniCPM3's
+    (8, 244992, 1024) and Mamba2's (8, 226560, 1024), all past 2³² bytes.  The out-of-place launch is held bit for bit against its
     plain version and the in-place launch against the out-of-place one,
     and the gossip step against its plain version, in row blocks of each
     worker (``CHECK_ROWS``); then both forms are timed over 5
@@ -1402,9 +1448,10 @@ PATHS = ("pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
          "cpd_sgdm_sign_churn", "mt_dsgdm_sign_churn", "pd_sgdm_overlap",
          "mt_dsgdm_overlap", "qg_dsgdm_overlap", "pd_sgdm_bf16",
          "pd_sgdm_hier", "pd_sgdm_overlap_churn", "pd_sgdm_olmo1b",
-         "pd_sgdm_mixtral", "pd_sgdm_tinylm_hier", "cpd_sgdm_tinylm_sign")
-LM_PATHS = ("pd_sgdm_olmo1b", "pd_sgdm_mixtral", "pd_sgdm_tinylm_hier",
-            "cpd_sgdm_tinylm_sign")
+         "pd_sgdm_mixtral", "pd_sgdm_minicpm3", "pd_sgdm_mamba2",
+         "pd_sgdm_tinylm_hier", "cpd_sgdm_tinylm_sign")
+LM_PATHS = ("pd_sgdm_olmo1b", "pd_sgdm_mixtral", "pd_sgdm_minicpm3",
+            "pd_sgdm_mamba2", "pd_sgdm_tinylm_hier", "cpd_sgdm_tinylm_sign")
 # MT: each step mixes ĝ = g + λx (n = 2) and c + ĝ − ĝ_prev (n = 3); each
 # round mixes x and c (or the decoded Q(c))
 MT_MIXES = 2 * STEPS + 2 * (STEPS // P)
@@ -1456,12 +1503,13 @@ EXPECTED = {
     # landing is the kernel
     "pd_sgdm_overlap_churn": {"momentum_update": STEPS,
                               "gossip_mix": STEPS // P},
-    # the LM paths: OLMo's and Mixtral's rings mix through the shifted
-    # kernel (Mixtral's ring(2): 2 views, one launch); the hierarchical
-    # round has no gossip launch; CPD's sign wire packs the LM tree's 107
-    # ragged rows
+    # the LM paths: the full-width rings mix through the shifted kernel
+    # (Mixtral's ring(2): 2 views, one launch); the hierarchical round has
+    # no gossip launch; CPD's sign wire packs the LM tree's 107 ragged rows
     "pd_sgdm_olmo1b": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
     "pd_sgdm_mixtral": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
+    "pd_sgdm_minicpm3": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
+    "pd_sgdm_mamba2": {"momentum_update": STEPS, "gossip_mix": STEPS // P},
     "pd_sgdm_tinylm_hier": {"momentum_update": STEPS},
     "cpd_sgdm_tinylm_sign": {"momentum_update": STEPS,
                              "sign_pack": STEPS // P,
@@ -1594,11 +1642,17 @@ def lm_model(path: str):
     return make_model(ModelCfg(**TINY_LM))
 
 
+def seq_batch(path: str):
+    """The sequence length and batch a worker of an LM path."""
+    if path in FULL_WIDTH:
+        return FULL_WIDTH[path]["seq"], FULL_WIDTH[path]["batch"]
+    return TINY_SEQ, TINY_BATCH
+
+
 def lm_stream(path: str, seed: int):
     """Step t's LM batch of ``path``, its K workers, from ``seed``."""
     from repro_torch.data.synthetic import LMStreamCfg, lm_batch
-    seq, batch = ((FULL_SEQ, FULL_BATCH) if path in FULL_WIDTH
-                  else (TINY_SEQ, TINY_BATCH))
+    seq, batch = seq_batch(path)
     cfg = LMStreamCfg(vocab=lm_model(path).cfg.vocab, seq_len=seq,
                       batch=batch, n_workers=WORKERS.get(path, K), seed=seed)
     return lambda t: lm_batch(cfg, t, DEVICE)
@@ -1667,17 +1721,32 @@ def describe(path: str) -> str:
         return f"ResNet-20 width {WIDTH}, batch {BATCH}"
     model = lm_model(path)
     cfg = model.cfg
-    seq, batch = ((FULL_SEQ, FULL_BATCH) if path in FULL_WIDTH
-                  else (TINY_SEQ, TINY_BATCH))
+    seq, batch = seq_batch(path)
     n = sum(math.prod(s) for s in model.param_shapes().values())
-    experts = (f"{cfg.n_experts} experts top-{cfg.top_k} at capacity factor "
-               f"{cfg.capacity_factor}, {cfg.moe_groups} dispatch group(s), "
-               if cfg.n_experts else "")
+    mixers = {spec.mixer for spec in cfg.pattern}
+    parts = [f"pattern {[(sp.mixer, sp.ffn) for sp in cfg.pattern]}"]
+    if mixers & {"attn", "mla"}:
+        parts.append(f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv")
+    if "mla" in mixers:
+        parts.append(f"MLA q_lora {cfg.q_lora_rank}, kv_lora "
+                     f"{cfg.kv_lora_rank}, nope/rope {cfg.qk_nope_dim}/"
+                     f"{cfg.qk_rope_dim}, v_head {cfg.v_head_dim}")
+    if "mamba" in mixers:
+        s = model.mamba_cfg
+        parts.append(f"SSD d_inner {s.d_inner}, {s.n_heads} heads of "
+                     f"headdim {s.headdim}, d_state {s.d_state}, conv "
+                     f"{s.conv_kernel}, chunk {s.chunk}")
+    if any(spec.ffn != "none" for spec in cfg.pattern):
+        parts.append(f"d_ff {cfg.d_ff}, "
+                     f"{'gated SiLU' if cfg.gated_mlp else 'GELU'}")
+    if cfg.n_experts:
+        parts.append(f"{cfg.n_experts} experts top-{cfg.top_k} at capacity "
+                     f"factor {cfg.capacity_factor}, {cfg.moe_groups} "
+                     f"dispatch group(s)")
     return (f"{cfg.name} (n_layers {cfg.n_layers}, d_model {cfg.d_model}, "
-            f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, "
-            f"{experts}window {cfg.window}, vocab {cfg.vocab}, {cfg.norm}, "
-            f"{'gated SiLU' if cfg.gated_mlp else 'GELU'}, {cfg.param_dtype}; "
-            f"{n:,} params a worker), seq {seq}, batch {batch}")
+            f"{', '.join(parts)}, window {cfg.window}, vocab {cfg.vocab}, "
+            f"{cfg.norm}, {cfg.param_dtype}; {n:,} params a worker), seq "
+            f"{seq}, batch {batch}")
 
 
 def training_phase(torch, path: str) -> dict:
@@ -1919,10 +1988,11 @@ def moe_layer_phase(torch):
          **{n: one[pre + n][0] for n in ("wi", "wg", "wo")}}
     del one
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    x = torch.randn((FULL_BATCH, FULL_SEQ, cfg.d_model), device=DEVICE,
+    batch, seq = FULL_WIDTH[path]["batch"], FULL_WIDTH[path]["seq"]
+    x = torch.randn((batch, seq, cfg.d_model), device=DEVICE,
                     generator=gen)
     shared = torch.randn((cfg.d_model,), device=DEVICE, generator=gen)
-    N, E, k = FULL_BATCH * FULL_SEQ, cfg.n_experts, cfg.top_k
+    N, E, k = batch * seq, cfg.n_experts, cfg.top_k
     C = moe.capacity(N, cfg)
     for label, xs in (("even", x), ("skewed", x + shared)):
         y, aux = moe.moe_apply(p, xs, cfg)
@@ -1971,6 +2041,208 @@ def moe_layer_phase(torch):
         raise AssertionError(f"{path}: the bar {MOE_BAR} does not tell f32 "
                              "from bf16")
     del p, x, xs, y, want, low
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the full-width MLA and SSD layers' bars: max |Δy| over max |y|.  The
+# port and the plain formulations sum their f32 matmuls (TF32 off), the
+# softmax and the scan in other orders, a few ulps of each output; the
+# projections' inputs rounded to bf16 move y by about 2^-9 of its size, far
+# past the bars (the phases show it)
+MLA_BAR = 2e-5
+SSD_BAR = 2e-5
+
+
+def layer_params(torch, path: str, mixer: str, seed: int) -> dict:
+    """One worker's params of the first layer's mixer of ``path``'s model
+    (drawn by ``Model.init`` on the card), as the mixer's nested dict."""
+    one = lm_model(path).init(torch.Generator(device=DEVICE).manual_seed(
+        seed), device=DEVICE)
+    pre = f"blocks.pos0.{mixer}."
+    out: dict = {}
+    for name, v in one.items():
+        if name.startswith(pre):
+            *inner, leaf = name[len(pre):].split(".")
+            d = out
+            for q in inner:
+                d = d.setdefault(q, {})
+            d[leaf] = v[0]
+    return out
+
+
+def plain_mla(torch, p, x, cfg, theta: float, dtype):
+    """MiniCPM3's MLA written out apart from the port: the low-rank query
+    and the KV latent through their RMSNorms, the rotary halves turned by
+    RoPE's tables, the one rotary key head copied into every head, the keys
+    and values expanded per head, and ``F.scaled_dot_product_attention``
+    (causal, scale (nope + rope)^-0.5); the matmuls' inputs in ``dtype``."""
+    import torch.nn.functional as F
+    b, s, _ = x.shape
+    h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    half = rope // 2
+
+    def mm(a, w):
+        return (a.to(dtype) @ w["w"].to(dtype)).float()
+
+    def norm(a, w):
+        return (a * torch.rsqrt(a.square().mean(-1, keepdim=True) + 1e-6)
+                * w["scale"])
+
+    inv = 1.0 / (theta ** (torch.arange(0, rope, 2, device=x.device,
+                                        dtype=torch.float32) / rope))
+    ang = torch.outer(torch.arange(s, device=x.device,
+                                   dtype=torch.float32), inv)
+    cos, sin = ang.cos()[:, None, :], ang.sin()[:, None, :]
+
+    def rot(t):
+        t1, t2 = t[..., :half], t[..., half:]
+        return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin], -1)
+
+    q = mm(norm(mm(x, p["wdq"]), p["q_norm"]), p["wuq"]).view(
+        b, s, h, nope + rope)
+    q = torch.cat([q[..., :nope], rot(q[..., nope:])], -1)
+    ckv = norm(mm(x, p["wdkv"]), p["kv_norm"])
+    k_rope = rot(mm(x, p["wkr"])[:, :, None, :]).repeat(1, 1, h, 1)
+    k = torch.cat([mm(ckv, p["wuk"]).view(b, s, h, nope), k_rope], -1)
+    v = mm(ckv, p["wuv"]).view(b, s, h, cfg.v_head_dim)
+    out = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2).to(dtype) for t in (q, k, v)), is_causal=True,
+        scale=(nope + rope) ** -0.5).float()
+    return mm(out.transpose(1, 2).reshape(b, s, -1), p["wo"])
+
+
+def mla_layer_phase(torch):
+    """MiniCPM3's MLA layer at its published widths (d 2560, 40 heads,
+    q_lora 768, kv_lora 256, nope/rope 64/32, v_head 64) on one worker's
+    512 tokens (batch 2 × seq 256), through the port's ``mla_apply``
+    against :func:`plain_mla`: y within ``MLA_BAR`` of max |y|; the plain
+    formulation with bf16 matmul inputs must miss that bar."""
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rope_freqs
+    path = "pd_sgdm_minicpm3"
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = lm_model(path)
+    cfg, theta = model.attn_cfg, model.cfg.rope_theta
+    p = layer_params(torch, path, "attn", 7)
+    batch, seq = FULL_WIDTH[path]["batch"], FULL_WIDTH[path]["seq"]
+    x = torch.randn((batch, seq, cfg.d_model), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(8))
+    cos, sin = rope_freqs(cfg.qk_rope_dim, seq, theta, device=DEVICE)
+    y = attention.mla_apply(p, x, cfg, cos, sin)
+    want = plain_mla(torch, p, x, cfg, theta, torch.float32)
+    low = plain_mla(torch, p, x, cfg, theta, torch.bfloat16)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    gap = float((y - want).abs().max()) / scale
+    low_gap = float((low - want).abs().max()) / scale
+    print(f"mla: {path} layer at full width, {batch * seq} tokens, "
+          f"{cfg.n_heads} heads, q/kv rank {cfg.q_lora_rank}/"
+          f"{cfg.kv_lora_rank}, nope/rope {cfg.qk_nope_dim}/"
+          f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}: max |Δy| / max |y| = "
+          f"{gap:.3e} against the explicit per-head K/V and "
+          f"scaled_dot_product_attention (bar {MLA_BAR}, max |y| "
+          f"{scale:.4f}); with bf16 matmul inputs {low_gap:.3e}, past the "
+          f"bar: {low_gap > MLA_BAR}")
+    if not gap <= MLA_BAR:
+        raise AssertionError(f"{path}: the MLA layer's output is {gap:.3e} "
+                             f"of max |y| from the plain one")
+    if not low_gap > MLA_BAR:
+        raise AssertionError(f"{path}: the bar {MLA_BAR} does not tell f32 "
+                             "from bf16")
+    del p, x, y, want, low
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plain_ssd(torch, p, u, cfg, dtype, reset: bool = False):
+    """Mamba-2's mixer written out apart from the port, its SSD as the
+    sequential scan over positions, in f32: the projection (inputs in
+    ``dtype``), the depthwise causal conv as ``F.conv1d`` and SiLU,
+    ``dt = softplus(dt + dt_bias)``, then for each position ``S ← S·exp(dt·A)
+    + dt·B⊗x`` and ``y = C·S + D·x``, the gated RMSNorm and ``out_proj``.
+    ``reset`` zeroes S at each chunk's start: what the chunked form would
+    give without its recurrence across chunks."""
+    import torch.nn.functional as F
+    b, s, _ = u.shape
+    h, hd, n, di = cfg.n_heads, cfg.headdim, cfg.d_state, cfg.d_inner
+    k = cfg.conv_kernel
+
+    def mm(a, w):
+        return (a.to(dtype) @ w["w"].to(dtype)).float()
+
+    z, xBC, dt = mm(u, p["in_proj"]).split([di, cfg.conv_dim, h], -1)
+    xBC = F.silu(F.conv1d(xBC.transpose(1, 2), p["conv_w"].T[:, None, :],
+                          p["conv_b"], padding=k - 1,
+                          groups=cfg.conv_dim)[..., :s].transpose(1, 2))
+    x, B, C = xBC.split([di, n, n], -1)          # one group: B, C shared
+    x = x.reshape(b, s, h, hd)
+    dt = F.softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    S = torch.zeros((b, h, n, hd), device=u.device)
+    ys = []
+    for t in range(s):
+        if reset and t % cfg.chunk == 0:
+            S = torch.zeros_like(S)
+        S = (S * torch.exp(dt[:, t] * A)[:, :, None, None]
+             + B[:, t, None, :, None] * (dt[:, t, :, None] * x[:, t])[
+                 :, :, None, :])
+        ys.append(torch.einsum("bn,bhnp->bhp", C[:, t], S)
+                  + p["D"][:, None] * x[:, t])
+    g = torch.stack(ys, 1).reshape(b, s, di) * F.silu(z)
+    g = (g * torch.rsqrt(g.square().mean(-1, keepdim=True) + 1e-6)
+         * p["norm"]["scale"])
+    return mm(g, p["out_proj"])
+
+
+def ssd_layer_phase(torch):
+    """Mamba2-1.3B's mixer at its published widths (d 2048, d_inner 4096,
+    64 heads of headdim 64, d_state 128, conv 4, chunk 256) on one worker's
+    1,024 positions, four chunks, through the port's chunked
+    ``mamba2_apply`` against :func:`plain_ssd`'s sequential scan: y within
+    ``SSD_BAR`` of max |y|.  ``dt_bias`` is Mamba-2's published init, the
+    inverse softplus of a dt drawn log-uniform in [0.001, 0.1] per head,
+    so that the state carries across chunks; the scan with its state reset
+    at each chunk's start, and the scan with bf16 projection inputs, must
+    each miss the bar."""
+    from repro_torch.models import mamba2
+    path = "pd_sgdm_mamba2"
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = lm_model(path).mamba_cfg
+    p = layer_params(torch, path, "mamba", 9)
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    dt = torch.exp(torch.rand((cfg.n_heads,), device=DEVICE, generator=gen)
+                   * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    p["dt_bias"] = dt + torch.log(-torch.expm1(-dt))
+    batch, seq = FULL_WIDTH[path]["batch"], FULL_WIDTH[path]["seq"]
+    u = torch.randn((batch, seq, cfg.d_model), device=DEVICE, generator=gen)
+    y = mamba2.mamba2_apply(p, u, cfg)
+    want = plain_ssd(torch, p, u, cfg, torch.float32)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    gap = float((y - want).abs().max()) / scale
+    misses = {label: float((plain_ssd(torch, p, u, cfg, dtype, reset)
+                            - want).abs().max()) / scale
+              for label, dtype, reset in (
+                  ("state reset at each chunk", torch.float32, True),
+                  ("bf16 projection inputs", torch.bfloat16, False))}
+    print(f"ssd: {path} mixer at full width, {batch * seq} positions in "
+          f"{seq // cfg.chunk} chunks of {cfg.chunk}, {cfg.n_heads} heads x "
+          f"{cfg.headdim}, d_state {cfg.d_state}: max |Δy| / max |y| = "
+          f"{gap:.3e} against the sequential scan (bar {SSD_BAR}, max |y| "
+          f"{scale:.4f}); " + "; ".join(f"{label} {v:.3e}"
+                                        for label, v in misses.items()))
+    if not gap <= SSD_BAR:
+        raise AssertionError(f"{path}: the SSD mixer's output is {gap:.3e} "
+                             f"of max |y| from the sequential scan")
+    for label, v in misses.items():
+        if not v > SSD_BAR:
+            raise AssertionError(f"{path}: the bar {SSD_BAR} does not tell "
+                                 f"the chunked SSD from the scan with "
+                                 f"{label}")
+    del p, u, y, want
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2618,10 +2890,38 @@ def gather_in_round(torch, variants, rounds: int = 8):
               f"({min(floor)[1]})")
 
 
+def gradient_peak(torch, path: str):
+    """The device memory one step's gradient of a full-width path takes
+    above its K workers' params: the peak of ``vmap(grad_and_value)`` on
+    step 0's batch, less the params, with the grads it returns."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lm_init(torch, path, 0)
+    batch = lm_stream(path, 0)(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, grads = lm_grads_fn(torch, path)(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    copy = sum(v.numel() * v.element_size() for v in params.values())
+    print(f"profile: {path} one step's gradient: peak {peak / 2**20:.1f} "
+          f"MiB above the params ({peak / copy:.2f} copies of "
+          f"{copy / 2**20:.1f} MiB), {held / 2**20:.1f} MiB held after "
+          f"(the grads)")
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def profile_round(torch, path: str):
     """Profile one steady-state round of ``path``; the table goes to
-    ``round_profile_<path>.txt`` in the output directory."""
+    ``round_profile_<path>.txt`` in the output directory.  A full-width
+    path also prints :func:`gradient_peak`."""
     from torch.profiler import ProfilerActivity, profile
+    if path in FULL_WIDTH:
+        gradient_peak(torch, path)
     opt = make_opt(path, use_kernel=True)
     drive(torch, opt, path, 0, P)
     torch.cuda.synchronize()
@@ -2720,6 +3020,8 @@ def main(argv=None) -> int:
     for path in PATHS:
         parity_phase(torch, path)
     moe_layer_phase(torch)
+    mla_layer_phase(torch)
+    ssd_layer_phase(torch)
     gossip_dispatch_phase(torch)
     fig1_phase(torch)
     fig2_phase(torch)

@@ -1,8 +1,9 @@
-"""Attention: GQA (+bias), sliding window, blockwise long sequences.
+"""Attention: GQA (+bias), sliding window, MLA, blockwise long sequences.
 
-Port of the GQA part of ``src/repro/models/attention.py:31-165``: plain
-PyTorch matmuls and a softmax, the reference's formula step by step (the
-reference has no Pallas kernel here).  Two execution paths:
+Port of the training half of ``src/repro/models/attention.py`` (GQA,
+``:31-165``; MLA, ``:246-301``): plain PyTorch matmuls and a softmax, the
+reference's formula step by step (the reference has no Pallas kernel
+here).  Two execution paths:
 
 * :func:`attend_full` — O(s²) scores under the causal (and window) mask;
 * :func:`attend_blockwise` — a loop over query chunks, memory O(s·chunk);
@@ -16,8 +17,19 @@ are f32, scaled by ``head_dim ** -0.5``, masked entries filled with
 :data:`NEG_INF` (a finite f32, not −inf), softmaxed in f32, and the
 probabilities cast to v's dtype.
 
-Prefill, decode and KV caches (reference ``:168-244``) wait for the port's
-serving (ROADMAP queue A item 13); MLA (``:246-353``) for item 11 step 3.
+MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2): the queries
+come from a low-rank ``wdq`` → RMSNorm ``q_norm`` → ``wuq``, the keys'
+and values' shared latent from ``wdkv`` → RMSNorm ``kv_norm``, expanded
+per head by ``wuk`` and ``wuv``; ``wkr`` gives one rotary key head of
+``qk_rope_dim``, broadcast (``expand``, no copy) to every head after its
+``qk_nope_dim`` part.  The scores are MHA's over ``qk_nope_dim +
+qk_rope_dim`` (scale its ``-0.5`` power), the values ``v_head_dim`` wide:
+:func:`attend_full` / :func:`attend_blockwise` on a ``dataclasses.replace``d
+cfg, as the reference runs them.
+
+Prefill, decode and the KV caches, the MLA ones too (reference
+``:168-244``, ``:303-353``), wait for the port's serving (ROADMAP queue A
+item 13).
 """
 from __future__ import annotations
 
@@ -27,10 +39,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_rope, dense
+from repro_torch.models.layers import apply_rope, dense, rmsnorm
 
 __all__ = ["AttnCfg", "attention_apply", "attend_full", "attend_blockwise",
-           "NEG_INF"]
+           "mla_apply", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -143,4 +155,52 @@ def attention_apply(params, x, cfg: AttnCfg, cos, sin, positions=None,
                  else force_blockwise)
     attend = attend_blockwise if blockwise else attend_full
     out = attend(q, k, v, cfg, positions, positions)
+    return dense(params["wo"], out.reshape(b, s, -1))
+
+
+# ============================================================================ MLA
+def _mla_qkv(params, x, cfg: AttnCfg, cos, sin, positions):
+    """The rotated query halves, the normed KV latent ``ckv`` (b, s, r) and
+    the one rotary key head ``k_rope`` (b, s, 1, qk_rope_dim)."""
+    b, s, _ = x.shape
+    cq = rmsnorm(params["q_norm"], dense(params["wdq"], x))
+    q = dense(params["wuq"], cq).reshape(b, s, cfg.n_heads,
+                                         cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
+                                 dim=-1)
+    q_rope = apply_rope(q_rope, cos, sin, positions)
+    ckv = rmsnorm(params["kv_norm"], dense(params["wdkv"], x))
+    k_rope = apply_rope(dense(params["wkr"], x).unsqueeze(2), cos, sin,
+                        positions)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_expand(params, ckv, k_rope, cfg: AttnCfg):
+    """Per-head keys ``[k_nope, k_rope]`` and values from the latent; the
+    rotary head is broadcast to all heads, so its gradient sums them."""
+    b, s, _ = ckv.shape
+    h = cfg.n_heads
+    k_nope = dense(params["wuk"], ckv).reshape(b, s, h, cfg.qk_nope_dim)
+    v = dense(params["wuv"], ckv).reshape(b, s, h, cfg.v_head_dim)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
+    return k, v
+
+
+def mla_apply(params, x, cfg: AttnCfg, cos, sin, positions=None):
+    """Multi-head latent attention of ``x`` (b, s, d) with params ``{"wdq",
+    "q_norm", "wuq", "wdkv", "kv_norm", "wkr", "wuk", "wuv", "wo"}``;
+    ``cos``/``sin`` are tables of ``qk_rope_dim``."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, x, cfg, cos, sin,
+                                           positions)
+    k, v = _mla_expand(params, ckv, k_rope, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    # MLA is MHA (n_kv == n_heads) over the nope + rope dims
+    mcfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_heads,
+                               head_dim=cfg.qk_nope_dim + cfg.qk_rope_dim)
+    attend = (attend_blockwise if s >= cfg.blockwise_threshold
+              else attend_full)
+    out = attend(q, k, v, mcfg, positions, positions)
     return dense(params["wo"], out.reshape(b, s, -1))

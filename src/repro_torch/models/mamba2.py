@@ -1,0 +1,177 @@
+"""Mamba-2 SSD (state-space duality) mixer — arXiv:2405.21060.
+
+Port of the training half of ``src/repro/models/mamba2.py:27-186``, the
+reference's formula step by step in plain PyTorch (the reference has no
+Pallas kernel here).  ``in_proj`` gives ``z``, ``xBC`` and ``dt``; ``xBC``
+goes through a depthwise causal conv (the sum of ``conv_kernel`` shifted
+products, plus ``conv_b``, then SiLU in f32); ``dt = softplus(dt +
+dt_bias)``, ``A = −exp(A_log)``.  The chunked SSD then computes, for each
+head, the scan ``S ← S·exp(dt·A) + dt·B⊗x``, ``y = C·S + D·x``:
+
+* within a chunk of ``chunk`` positions, a quadratic form with the decay
+  mask ``L[q, j] = exp(cum_q − cum_j)`` for ``j ≤ q`` (``cum`` the cumsum
+  of ``dt·A``); the upper triangle is set to −1e9 **before** the ``exp``,
+  so that no overflowed ``exp`` meets a zero in the gradient;
+* each chunk's state ``Σ_j exp(cum_end − cum_j)·dt_j·B_j ⊗ x_j``;
+* across chunks a Python loop over the chunks (the reference's
+  ``lax.scan``), which emits the state entering each chunk;
+* the gated RMSNorm ``rmsnorm(y·silu(z))`` and ``out_proj``.
+
+Every contraction takes two operands, in the reference's left-to-right
+order (``torch.einsum`` would reorder three or more where ``opt_einsum``
+is installed, and left to right it never builds a 6-D intermediate).  The
+groups' B and C are broadcast to the heads (the reference's
+``bcast_groups`` and ``jnp.repeat`` lowerings give the same values, so
+the port has the one, and ``ModelCfg.ssm_bcast_groups`` does not reach
+it).  Nothing is written in place and nothing is read on the host, so the
+mixer runs under ``torch.func.vmap`` over the workers.
+
+``F.softplus`` returns its input above ``threshold=20``, where
+``jax.nn.softplus`` computes ``log1p(exp(−x)) + x``: the two agree to f32
+rounding there.
+
+The serving half — ``return_state`` (the final SSM state and conv tail),
+``mamba2_decode`` and ``init_mamba_cache`` — waits for the port's serving
+(ROADMAP queue A item 13) and raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense, rmsnorm
+
+__all__ = ["Mamba2Cfg", "mamba2_apply", "mamba2_decode", "init_mamba_cache"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Cfg:
+    d_model: int
+    d_state: int = 128
+    headdim: int = 64
+    expand: int = 2
+    chunk: int = 256
+    conv_kernel: int = 4
+    n_groups: int = 1
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.headdim
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+    @property
+    def in_proj_dim(self) -> int:
+        # z, xBC, dt
+        return self.d_inner + self.conv_dim + self.n_heads
+
+
+def _split_zxbcdt(cfg: Mamba2Cfg, zxbcdt):
+    return torch.split(zxbcdt, [cfg.d_inner, cfg.conv_dim, cfg.n_heads],
+                       dim=-1)
+
+
+def _causal_conv(xBC, w, b):
+    """Depthwise causal conv1d.  xBC: (b, s, c); w: (k, c)."""
+    k, s = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, k - 1, 0))
+    out = pad[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i:i + s] * w[i]
+    return F.silu((out + b).to(torch.float32)).to(xBC.dtype)
+
+
+def _split_xbc(cfg: Mamba2Cfg, xBC, bsz: int, s: int):
+    gn = cfg.n_groups * cfg.d_state
+    x, B, C = torch.split(xBC, [cfg.d_inner, gn, gn], dim=-1)
+    x = x.reshape(bsz, s, cfg.n_heads, cfg.headdim)
+    rep = cfg.n_heads // cfg.n_groups
+
+    def to_heads(t):          # group g serves heads g·rep … g·rep + rep − 1
+        t = t.reshape(bsz, s, cfg.n_groups, 1, cfg.d_state)
+        return t.expand(bsz, s, cfg.n_groups, rep, cfg.d_state).reshape(
+            bsz, s, cfg.n_heads, cfg.d_state)
+    return x, to_heads(B), to_heads(C)
+
+
+def mamba2_apply(params, u, cfg: Mamba2Cfg, return_state: bool = False):
+    """u: (b, s, d_model) → (b, s, d_model), by the chunked SSD.  Params
+    ``{"in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D", "norm",
+    "out_proj"}``; ``s`` a multiple of ``min(chunk, s)``."""
+    if return_state:
+        raise NotImplementedError(
+            "mamba2_apply(return_state=True), the decode cache, is ROADMAP "
+            "queue A item 13")
+    bsz, s, _ = u.shape
+    Q = min(cfg.chunk, s)
+    if s % Q:
+        raise ValueError(f"seq {s} % chunk {Q} != 0")
+    nc = s // Q
+    h, p, n = cfg.n_heads, cfg.headdim, cfg.d_state
+    f32 = torch.float32
+
+    z, xBC, dt_raw = _split_zxbcdt(cfg, dense(params["in_proj"], u))
+    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+    x, B, C = _split_xbc(cfg, xBC, bsz, s)
+
+    dt = F.softplus(dt_raw.to(f32) + params["dt_bias"])         # (b,s,h)
+    A = -torch.exp(params["A_log"])                             # (h,)
+    dA = dt * A                                                 # ≤ 0
+
+    # chunked views
+    xc = x.reshape(bsz, nc, Q, h, p).to(f32)
+    Bc = B.reshape(bsz, nc, Q, h, n).to(f32)
+    Cc = C.reshape(bsz, nc, Q, h, n).to(f32)
+    dtc = dt.reshape(bsz, nc, Q, h)
+    cum = torch.cumsum(dA.reshape(bsz, nc, Q, h), dim=2)        # (b,nc,Q,h)
+
+    # intra-chunk: L[q, j] = exp(cum_q − cum_j) for j ≤ q, masked before exp
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (b,nc,Q,Q,h)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
+    L = torch.exp(torch.where(causal[:, :, None], rel, -1e9))
+    att = torch.einsum("bcqhn,bcjhn->bcqjh", Cc, Bc) * L
+    y_intra = torch.einsum("bcqjh,bcjhp->bcqhp", att * dtc[:, :, None],
+                           xc)
+
+    # chunk states: S_c = Σ_j exp(cum_end − cum_j) dt_j B_j ⊗ x_j
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)           # (b,nc,Q,h)
+    states = torch.einsum("bcjhn,bcjhp->bchnp",
+                          (decay_to_end * dtc)[..., None] * Bc, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                   # (b,nc,h)
+
+    # inter-chunk recurrence, emitting the state entering each chunk
+    S = torch.zeros_like(states[:, 0])
+    entering = []
+    for c in range(nc):
+        entering.append(S)
+        S = S * chunk_decay[:, c, :, None, None] + states[:, c]
+    S_in = torch.stack(entering, dim=1)                         # (b,nc,h,n,p)
+
+    # inter-chunk output: y_q += exp(cum_q) C_q · S_in
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp",
+                           torch.exp(cum)[..., None] * Cc, S_in)
+
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    y = y + params["D"][:, None] * x.to(f32)
+    y = y.reshape(bsz, s, cfg.d_inner).to(u.dtype)
+
+    # gated RMSNorm, then the output projection
+    y = rmsnorm(params["norm"],
+                (y.to(f32) * F.silu(z.to(f32))).to(u.dtype))
+    return dense(params["out_proj"], y)
+
+
+def _serving(*args, **kwargs):
+    raise NotImplementedError(
+        "the Mamba-2 decode cache and step are ROADMAP queue A item 13")
+
+
+mamba2_decode = init_mamba_cache = _serving

@@ -153,7 +153,7 @@ def test_port_imports_no_jax_and_no_reference():
                    "configs/registry.py", "configs/shapes.py",
                    "configs/olmo_1b.py", "models/layers.py",
                    "models/attention.py", "models/moe.py",
-                   "models/transformer.py"):
+                   "models/mamba2.py", "models/transformer.py"):
         assert os.path.join("src", "repro_torch", module) in scanned
     for example in ("torch_quickstart.py", "torch_compression_ablation.py",
                     "torch_noniid_ablation.py"):

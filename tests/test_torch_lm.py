@@ -277,7 +277,7 @@ def test_cpd_sgdm_sign_rounds_match_reference(graph, use_kernel):
         params, state = new_p, new_s
 
 
-# ------------------------------------------- chip_smoke.py's three LM paths
+# ------------------------------------------- chip_smoke.py's six LM paths
 def _chip_smoke():
     import importlib.util
     import os
@@ -290,18 +290,21 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("path", ["pd_sgdm_olmo1b", "pd_sgdm_mixtral",
+                                  "pd_sgdm_minicpm3", "pd_sgdm_mamba2",
                                   "pd_sgdm_tinylm_hier",
                                   "cpd_sgdm_tinylm_sign"])
 def test_chip_smoke_lm_paths_on_the_cpu(path, monkeypatch):
     """Each LM path of ``chip_smoke.py`` through the script's own
-    ``make_opt`` and ``drive`` on the CPU (OLMo and Mixtral at their smoke
-    widths, one layer: launches do not depend on the widths): the kernel
-    launches of its 14-step run, counted by the calls of the kernel
-    wrappers, equal the script's ``EXPECTED``; the losses are finite; and
-    its bytes per round, at the path's real widths (one layer of OLMo-1B
-    or of Mixtral-8x7B as meta tensors, never allocated), equal the
-    script's ``WIRE_BYTES`` and the reference's on the same shapes, on the
-    path's ring (K = 2 for Mixtral)."""
+    ``make_opt`` and ``drive`` on the CPU (OLMo, Mixtral, MiniCPM3 and
+    Mamba2 at their smoke widths, one layer, at the path's sequence and
+    batch, Mamba2 at two chunks of its smoke SSD: launches do not depend
+    on the widths): the kernel launches of its 14-step run, counted by
+    the calls of the kernel wrappers, equal the script's ``EXPECTED``; the
+    losses are finite; and at the path's real widths (one layer of each
+    model, as cut in ``FULL_WIDTH``, as meta tensors, never allocated) its
+    plan's rows and used rows equal ``FULL_WIDTH``'s and its bytes per
+    round equal the script's ``WIRE_BYTES`` and the reference's on the
+    same shapes, on the path's ring (K = 2 for Mixtral)."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import ops as kops
@@ -331,14 +334,26 @@ def test_chip_smoke_lm_paths_on_the_cpu(path, monkeypatch):
         small = make_model(dataclasses.replace(
             get_smoke_config(full.cfg.name).model, n_layers=1))
         monkeypatch.setattr(cs, "lm_model", lambda _path: small)
+    if path == "pd_sgdm_mamba2":
+        # two chunks of the smoke SSD, as the path's seq is four of its
+        # own: the chunk recurrence still runs, at a 32nd of the positions
+        monkeypatch.setitem(cs.FULL_WIDTH[path], "seq",
+                            2 * small.cfg.ssm_chunk)
     opt = cs.make_opt(path, use_kernel=True)
     _, params, state, hist = cs.drive(torch, opt, path, 0, cs.STEPS)
     assert {k: v for k, v in counts.items() if v} == cs.EXPECTED[path]
     assert len(hist.loss) == cs.STEPS and all(np.isfinite(hist.loss))
     assert int(state["step"]) == cs.STEPS
     shapes = full.param_shapes()
-    ours = opt.bytes_per_round_cycle(
-        {n: torch.empty(s, device="meta") for n, s in shapes.items()})
+    meta = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
+    if path in cs.FULL_WIDTH:
+        # the shape at which the full-width kernel phase holds the kernels
+        plan = kops.KernelPlan.for_tree(
+            {n: torch.empty((cs.WORKERS.get(path, K),) + s, device="meta")
+             for n, s in shapes.items()}, worker_dim=True)
+        assert (plan.rows, plan.used_rows) == (
+            cs.FULL_WIDTH[path]["rows"], cs.FULL_WIDTH[path]["used"])
+    ours = opt.bytes_per_round_cycle(meta)
     rtree: dict = {}
     for leaf_name, s in shapes.items():
         *p, leaf = leaf_name.split(".")

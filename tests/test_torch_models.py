@@ -8,10 +8,13 @@ and PyTorch sum the matmuls and reductions in different orders, which
 moves results by a few ulps.
 
 * layers and attention outputs: atol 1e-5, rtol 1e-5;
-* logits: atol 1e-5 (measured on the three smoke configs: at most
-  1.9e-6 apart); the loss: rtol 1e-5 (measured: 6.9e-8 at most);
+* logits: atol 1e-5 (measured on the ten smoke configs: at most
+  2.3e-6 apart); the loss: rtol 1e-5 (measured: 1.5e-7 at most);
 * gradients: each leaf within 1e-4 of the largest gradient's max norm
-  (measured: 5.2e-7 of it at most).
+  (measured: 8.7e-7 of it at most);
+* PD-SGDM's kernel round on the MiniCPM3 (MLA) and Mamba2 (SSD) smoke
+  configs, round by round from the same start: params and m within atol
+  2e-6, losses rtol 1e-6, as ``tests/test_torch_moe.py`` holds Mixtral's.
 """
 import dataclasses
 
@@ -25,12 +28,16 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import ModelCfg as RModelCfg  # noqa: E402
 from repro.configs.registry import get_smoke_config as r_smoke  # noqa: E402
+from repro.core import make_optimizer as r_make_optimizer  # noqa: E402
+from repro.core import topology as r_top  # noqa: E402
+from repro.core.gossip import DenseComm as RDenseComm  # noqa: E402
 from repro.models import attention as r_attn  # noqa: E402
 from repro.models import layers as r_layers  # noqa: E402
 from repro.models import make_model as r_make_model  # noqa: E402
 from repro_torch.configs.base import ModelCfg  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.core import DenseComm, make_optimizer, ring  # noqa: E402
 from repro_torch.models import attention, layers, make_model  # noqa: E402
 from repro_torch.tree import leaf_order  # noqa: E402
 
@@ -165,8 +172,15 @@ def test_attention_apply(case):
 
 
 # ---------------------------------------------------------------- the model
+# every LM config of get_smoke_config: GQA (dense and MoE FFNs), MLA, the
+# SSD mixer, Jamba's hybrid (mamba, dense) + (attn, moe) pattern, and the
+# audio (embeds) and VLM (patch prefix) input modes
 SMOKE = ("olmo-1b", "qwen2-72b", "stablelm-12b", "mixtral-8x7b",
-         "arctic-480b")
+         "arctic-480b", "minicpm3-4b", "mamba2-1.3b", "jamba-1.5-large-398b",
+         "musicgen-medium", "internvl2-76b")
+# the configs of this slice run at seq 32: two chunks of the smoke SSD's
+# 16, and the VLM's 16 patches before 16 tokens
+SEQ = {name: 32 for name in SMOKE[5:]}
 
 
 def _ref_model(name):
@@ -177,12 +191,28 @@ def _ref_model(name):
     return mcfg, model, params
 
 
-def _batch(vocab, b=2, s=16, seed=8):
+def _batch(vocab, b=2, s=16, seed=8, mcfg=None):
+    """Tokens and labels; under ``mcfg``'s ``embeds`` mode normal frame
+    embeddings instead of tokens, under ``vlm`` normal patch embeddings
+    (``min(n_patches, s // 2)`` of them) before ``s − patches`` tokens,
+    with labels for the tokens only (as ``train_batch_arrays``)."""
     rng = _rng(seed)
+    mode = "tokens" if mcfg is None else mcfg.input_mode
+    out = {}
+    if mode == "embeds":
+        out["embeds"] = rng.standard_normal((b, s, mcfg.d_model),
+                                            dtype=np.float32)
+    elif mode == "vlm":
+        npatch = min(mcfg.n_patches, s // 2)
+        out["patch_embeds"] = rng.standard_normal((b, npatch, mcfg.d_model),
+                                                  dtype=np.float32)
+        s -= npatch
+    if mode != "embeds":
+        out["tokens"] = rng.integers(0, vocab, (b, s)).astype(np.int32)
     labels = rng.integers(0, vocab, (b, s)).astype(np.int32)
     labels[0, :3] = -1                       # masked labels
-    return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
-            "labels": labels}
+    out["labels"] = labels
+    return out
 
 
 @pytest.mark.parametrize("name", SMOKE)
@@ -193,21 +223,24 @@ def test_model_apply_loss_and_grads(name):
     assert list(params) == leaf_order(model.param_shapes())
     assert {k: tuple(v.shape) for k, v in params.items()} == \
         model.param_shapes()
-    batch = _batch(mcfg.vocab)
+    batch = _batch(mcfg.vocab, s=SEQ.get(name, 16), mcfg=mcfg)
     tbatch = _t(batch)
 
-    rlogits, raux = rmodel.apply(rparams, batch)
+    rlogits, raux = jax.jit(rmodel.apply)(rparams, batch)
     logits, aux = model.apply(params, tbatch)
     assert logits.dtype == torch.float32
     _close(logits, rlogits)
     # the MoE configs' summed router loss; exactly 0 without an MoE FFN
     np.testing.assert_allclose(float(aux), float(raux), rtol=1e-5, atol=0)
 
-    (rloss, rmet), rgrads = jax.value_and_grad(rmodel.loss, has_aux=True)(
-        rparams, batch)
+    (rloss, rmet), rgrads = jax.jit(jax.value_and_grad(
+        rmodel.loss, has_aux=True))(rparams, batch)
     params = {k: v.requires_grad_(True) for k, v in params.items()}
     loss, met = model.loss(params, tbatch)
-    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    # the embeds mode never reads the embedding table: its gradient is 0,
+    # as the reference's
+    grads = dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()), materialize_grads=True)))
     np.testing.assert_allclose(float(loss.detach()), float(rloss), rtol=1e-5)
     np.testing.assert_allclose(float(met["ce"].detach()), float(rmet["ce"]),
                                rtol=1e-5)
@@ -270,8 +303,12 @@ def test_init_distribution_and_refusals():
     """``init`` draws the reference's distributions (a truncated normal on
     [−2, 2] times ``in_dim ** -0.5``; the embedding times 1.0; norm scales
     1, biases 0) from an explicit generator, the MoE leaves too (the
-    router in f32 under bf16 params, ``wi`` at d^-0.5, ``wo`` at f^-0.5);
-    the branches of later slices raise, naming their ROADMAP item."""
+    router in f32 under bf16 params, ``wi`` at d^-0.5, ``wo`` at f^-0.5),
+    and the SSM leaves of Jamba's hybrid pattern (``conv_w`` a normal
+    times 0.1, ``conv_b`` zeros, ``A_log`` log(1 … 16), ``dt_bias`` 0,
+    ``D`` 1; the last three f32 under bf16 params); every mixer and input
+    mode builds, and what still refuses is serving, naming ROADMAP item
+    13."""
     cfg = get_smoke_config("stablelm-12b").model
     model = make_model(cfg)
     g = torch.Generator().manual_seed(0)
@@ -295,10 +332,106 @@ def test_init_distribution_and_refusals():
         t = mp[f"blocks.pos0.moe.{leaf}"].float()
         assert float(t.abs().max()) <= 2.0 * fan_in ** -0.5
         assert abs(float(t.std()) * fan_in ** 0.5 - 0.8796) < 0.02, leaf
-    for name, item in (("minicpm3-4b", "step 3"), ("mamba2-1.3b", "step 4"),
-                       ("jamba-1.5-large-398b", "step 4"),
-                       ("musicgen-medium", "step 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_model(get_smoke_config(name).model)
+    jcfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b").model,
+                               param_dtype="bfloat16")
+    jp = make_model(jcfg).init(torch.Generator().manual_seed(2),
+                               device="cpu")
+    ssm = "blocks.pos0.mamba."
+    h = jcfg.ssm_expand * jcfg.d_model // jcfg.ssm_headdim
+    np.testing.assert_allclose(jp[ssm + "A_log"][0].numpy(),
+                               np.log(np.linspace(1, 16, h)), rtol=1e-6)
+    for leaf, value in (("dt_bias", 0.0), ("D", 1.0)):
+        assert jp[ssm + leaf].dtype == torch.float32
+        assert torch.equal(jp[ssm + leaf], torch.full((1, h), value))
+    assert jp[ssm + "A_log"].dtype == torch.float32
+    assert jp[ssm + "conv_b"].dtype == torch.bfloat16
+    assert not jp[ssm + "conv_b"].float().any()
+    assert jp[ssm + "conv_w"].dtype == torch.bfloat16
+    assert abs(float(jp[ssm + "conv_w"].float().std()) - 0.1) < 0.02
+    assert jp["blocks.pos1.moe.router.w"].dtype == torch.float32
+    for name in SMOKE:
+        built = make_model(get_smoke_config(name).model)
+        with pytest.raises(NotImplementedError, match="item 13"):
+            built.decode_step(p, None, None, 0)
     with pytest.raises(NotImplementedError, match="item 13"):
-        model.decode_step(p, None, None, 0)
+        model.prefill(p, None)
+
+
+# ----------------------------------- PD-SGDM on the MLA and SSD smoke models
+K, P, ROUNDS = 2, 4, 2
+HYPER = dict(eta=0.25, mu=0.9, p=P, weight_decay=1e-4)
+
+
+def _nested(flat):
+    out: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        d = out
+        for q in path:
+            d = d.setdefault(q, {})
+        d[leaf] = np.array(v)
+    return out
+
+
+@pytest.mark.parametrize("name", ["minicpm3-4b", "mamba2-1.3b"])
+def test_pd_sgdm_kernel_round_matches_reference(name):
+    """PD-SGDM on the smoke config (2 layers: (mla, dense), or (mamba,
+    none) at 2 chunks of 16), K = 2 on ``ring(2)``, the chip path's step:
+    each of two kernel rounds from the port's state after the rounds
+    before it, against the reference's kernel round (its Pallas kernels in
+    interpret mode on the CPU) from that same state, on the reference's
+    ``lm_batch`` batches.  The momentum launches write in place, so the
+    round's inputs must come back untouched."""
+    from repro.data.synthetic import LMStreamCfg as RLMCfg
+    from repro.data.synthetic import lm_batch as r_lm_batch
+    mcfg = r_smoke(name).model
+    rmodel = r_make_model(mcfg)
+    p0 = jax.tree_util.tree_map(np.asarray, jax.vmap(
+        lambda _: rmodel.init(jax.random.PRNGKey(0)))(jnp.arange(K)))
+    data = RLMCfg(vocab=mcfg.vocab, seq_len=32, batch=2, n_workers=K)
+    batches = [jax.tree_util.tree_map(np.asarray, r_lm_batch(data, t))
+               for t in range(ROUNDS * P)]
+    ref = r_make_optimizer("pd_sgdm", RDenseComm(r_top.ring(K)),
+                           use_kernel=True, **HYPER)
+    rgrad = jax.vmap(jax.value_and_grad(lambda p, b: rmodel.loss(p, b)[0]))
+
+    def r_grads(p, b):
+        losses, g = rgrad(p, b)
+        return losses.mean(), g
+
+    r_round = jax.jit(lambda s, p, b: ref.round(s, p, r_grads, b))
+    model = make_model(get_smoke_config(name).model)
+    opt = make_optimizer("pd_sgdm", DenseComm(ring(K), device="cpu"),
+                         use_kernel=True, **HYPER)
+    grad = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: model.loss(p, b)[0]))
+
+    def grads(p, b):
+        g, losses = grad(p, b)
+        return losses.mean(), g
+
+    params = params_from_reference(p0, "cpu")
+    state = opt.init(params)
+    for r in range(ROUNDS):
+        steps = batches[r * P:(r + 1) * P]
+        stacked = {k: np.stack([b[k] for b in steps]) for k in steps[0]}
+        rstate = {"m": _nested(state["m"]),
+                  "step": jnp.asarray(int(state["step"]), jnp.int32)}
+        rp, rs, rl = r_round(rstate, _nested(params), stacked)
+        before = ({k: v.clone() for k, v in params.items()},
+                  {k: v.clone() for k, v in state["m"].items()})
+        new_p, new_s, losses = opt.round(state, params, grads, _t(stacked))
+        assert all(torch.equal(params[k], before[0][k]) for k in params)
+        assert all(torch.equal(state["m"][k], before[1][k])
+                   for k in state["m"])
+        np.testing.assert_allclose(losses.numpy(), np.asarray(rl),
+                                   rtol=1e-6)
+        want_p = params_from_reference(jax.tree_util.tree_map(np.asarray,
+                                                              rp), "cpu")
+        want_m = params_from_reference(jax.tree_util.tree_map(
+            np.asarray, rs["m"]), "cpu")
+        for k in want_p:
+            _close(new_p[k], want_p[k].numpy(), atol=2e-6, rtol=0)
+            _close(new_s["m"][k], want_m[k].numpy(), atol=2e-6, rtol=0)
+        assert int(new_s["step"]) == (r + 1) * P
+        params, state = new_p, new_s
