@@ -9,6 +9,8 @@
     python3 chip_smoke.py --gather-variant parent=PATH   # also build the
                                        # row_gather.cu at PATH and check
                                        # and time it beside this one
+    python3 chip_smoke.py --probe-gloo # only ask whether gloo's send/recv
+                                       # take a CUDA tensor
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all at once) and then, with TF32 off for convolutions and
@@ -136,12 +138,32 @@ matmuls:
    each cell's MB equal to the committed ``BENCH_elastic.json``'s, the
    survivors bounded) and the equal-bytes claim of
    ``benchmarks/topology_sweep.py`` (``topology_phase``: the static ring
-   at 96 steps against the one-peer schedule at 192, K = 16).
+   at 96 steps against the one-peer schedule at 192, K = 16);
+6. drives the sharded runtime (``ShardedComm``/``HierarchicalComm`` through
+   ``build_train`` and ``ShardedTrainer``) in ranks it spawns on this card,
+   each a process on ``cuda:0`` joined by a gloo group, whose wire goes
+   through pinned host buffers (a rank that fails fails the script):
+   ``sharded_olmo1b`` (PD-SGDM on OLMo-1B's widths, one layer, f32, K = 4
+   ranks on a ring, seq 256, batch 2, two rounds: per rank p momentum and
+   1 gossip launches a round and 2 × used rows × 4 KiB handed to
+   ``isend``; round 0's gossip bit for bit the dense shifted step on the
+   stacked matrices; each round within the kernel-round bar of
+   ``DenseComm``'s from the same start; each rank's peak memory and
+   s/round), ``sharded_resnet_pd`` (the ``pd_sgdm`` path in 8 ranks: the
+   dense run's launches and bytes per rank, each round and the tail bit
+   for bit the dense round from the same start with the gradients taken
+   worker by worker), ``sharded_tinylm_hier_sign`` (the tiny LM on
+   ``HierarchicalComm``, flat axis, hierarchical(2, 2), the sign inter
+   codec: the codec kernels on every rank, the inter bytes on the leaders
+   and the all-reduce bytes as ``hier_bytes_per_round`` has them, each
+   round against the dense round with the plain codec) and
+   ``sharded_resume`` (checkpoints at steps 6 and 8 resumed in fresh ranks
+   bit for bit, and step 8 restored into 6 ranks).
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, the MoE,
 MLA and SSD layers, the four figure phases' and the elastic and topology
-phases' rows, verdicts and wall seconds, one JSON line ``{"kernels":
+phases' rows, verdicts and wall seconds, the sharded phases' rows, one JSON line ``{"kernels":
 [...]}`` (``momentum_update`` with its in-place time, and with
 ``gossip_mix`` a ``full_width`` row for each path of ``FULL_WIDTH``)
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -2959,6 +2981,675 @@ def profile_round(torch, path: str):
                 f"{dev_us(e) / e.count:.2f} us x{e.count}" for e in hits))
 
 
+# ----------------------------------------------------------- sharded paths
+# The sharded runtime (ShardedComm / HierarchicalComm through build_train
+# and ShardedTrainer) in ranks spawned on this one card: each rank a
+# process on cuda:0, joined by a gloo group whose wire goes through host
+# buffers (NCCL puts no two ranks on one device).  Its s/round is gloo's
+# host-staged loopback, not an interconnect's speed.
+SHARDED_OLMO_K = 4          # ~9.6 GiB a rank at OLMo-1B's one layer (PERF.md §4)
+SHARDED_ROUNDS = 2
+HIER_SIGN = (2, 2)          # hierarchical(2, 2): 2 nodes of 2 ranks
+RESUME_K, RESUME_K2, RESUME_STEPS = 4, 6, 12
+RESUME_STOPS = (6, 8)       # off a round boundary, and on one
+ROUND_BAR = dict(rtol=1e-3, atol=1e-4)    # the kernel-round bar
+
+
+def rank_setup(torch, dev):
+    """A rank's card settings, as ``main`` sets the parent's: no TF32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def spawn(fn, n: int, *args) -> list:
+    """``fn((rank, world, device), *args)`` in ``n`` gloo ranks on the card;
+    a rank that raises fails the call (nothing is caught)."""
+    from repro_torch.launch.spawn import spawn_ranks
+    return spawn_ranks(fn, n, args, backend="gloo", device=DEVICE)
+
+
+def reset_counters() -> dict:
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    return kernels
+
+
+def lm_run(path: str, *, inter_codec="none", node_size=0,
+           hyper=FULL_HYPER):
+    """The RunCfg of an LM path on the sharded runtime, kernel layout."""
+    from repro_torch.configs.base import OptimCfg, ParallelCfg, RunCfg
+    return RunCfg(model=lm_model(path).cfg,
+                  parallel=ParallelCfg(profile="A", remat="none",
+                                       topology="ring", node_size=node_size,
+                                       inter_codec=inter_codec),
+                  optim=OptimCfg(name="pd_sgdm", use_kernel=True,
+                                 weight_decay=hyper.get("weight_decay", 0.0),
+                                 **{k: v for k, v in hyper.items()
+                                    if k != "weight_decay"}))
+
+
+def worker_stream(path: str, world: int, seed: int = 0):
+    """The dense stream of ``world`` workers (all K drawn, as ``lm_batch``
+    draws them for ``SimTrainer``)."""
+    from repro_torch.data.synthetic import LMStreamCfg, lm_batch
+    seq, batch = seq_batch(path)
+    cfg = LMStreamCfg(vocab=lm_model(path).cfg.vocab, seq_len=seq,
+                      batch=batch, n_workers=world, seed=seed)
+    return lambda t: lm_batch(cfg, t, DEVICE)
+
+
+def watch_rounds(torch, pack, rounds: list):
+    """Wrap ``pack.train_round``: per round its wall (the card synchronized
+    on both sides), launches, bytes handed to isend and to all_reduce,
+    and the params and state it started from."""
+    inner = pack.train_round
+    comm = pack.opt.comm
+
+    def train_round(params, state, batches, t):
+        kernels = counters()
+        before = {n: f.launches for n, f in kernels.items()}
+        comm.sent_bytes = comm.reduced_bytes = 0
+        sync(torch, comm.device)
+        t0 = time.perf_counter()
+        out = inner(params, state, batches, t)
+        sync(torch, comm.device)
+        rounds.append({
+            "s": time.perf_counter() - t0, "t": t,
+            "launches": {n: f.launches - before[n]
+                         for n, f in kernels.items()},
+            "sent": comm.sent_bytes, "reduced": comm.reduced_bytes,
+            "start": (params, state), "end": out[0], "end_state": out[1]})
+        return out
+    pack.train_round = train_round
+
+
+def gather_to_root(torch, t):
+    """``t`` (this rank's, on the card) gathered to rank 0 through the host,
+    stacked on the worker dim; None on the other ranks."""
+    import torch.distributed as dist
+    t = t.detach().cpu().contiguous()
+    root = dist.get_rank() == 0
+    bufs = [torch.empty_like(t) for _ in range(dist.get_world_size())] \
+        if root else None
+    dist.gather(t, bufs, dst=0)
+    return torch.cat(bufs) if root else None
+
+
+def dense_round(torch, path, opt, params, state, stream, t0):
+    """One dense kernel round of ``opt`` (a ``DenseComm``) from ``params``
+    and ``state`` on the steps of ``stream`` from ``t0``: what
+    ``SimTrainer`` runs."""
+    from repro_torch.train.trainer import _stack_batches
+    batches = _stack_batches([stream(t0 + i) for i in range(P)])
+    params, state, _ = opt.round(state, params, lm_grads_fn(torch, path),
+                                 batches)
+    return params, state
+
+
+def sharded_olmo_rank(mesh_rank):
+    """A rank of ``sharded_olmo1b``: two rounds of its worker through
+    ``ShardedTrainer``, then (rank 0) the checks against the dense
+    backend, with the other ranks' matrices gathered through the host."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import DenseComm, make_optimizer, ring
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.runtime import build_train
+    from repro_torch.train.trainer import ShardedTrainer
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    path = "pd_sgdm_olmo1b"
+    pack = build_train(lm_run(path), make_mesh((world,), ("w",), device=dev))
+    opt = pack.opt
+    stream = worker_stream(path, world)
+    grab = []
+    inner = opt._gossip_mat
+
+    def gossip_mat(x_mat, r, *, plan=None):
+        y = inner(x_mat, r, plan=plan)
+        if not grab:                      # round 0's input and output
+            grab.extend([x_mat, y])
+        return y
+    opt._gossip_mat = gossip_mat
+    rounds = []
+    watch_rounds(torch, pack, rounds)
+    trainer = ShardedTrainer(pack)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    out = trainer.train(0, lambda t: pack.worker_batch(stream(t)),
+                        SHARDED_ROUNDS * P, log_every=P, verbose=False)
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    cycle = trainer.bytes_per_round_cycle()
+    plan = kops.KernelPlan.for_tree(out["params"], worker_dim=True)
+    stats = {"rank": rank, "peak_mib": peak / 2 ** 20,
+             "s_per_round": [r["s"] for r in rounds],
+             "launches": [r["launches"] for r in rounds],
+             "sent": [r["sent"] for r in rounds], "cycle": cycle,
+             "used": plan.used_rows, "rows": plan.rows,
+             "losses": out["history"].loss}
+    # to the host, then the card freed for rank 0's dense rounds
+    x_in, y0 = (grab[0].cpu(), grab[1].cpu())
+    m0 = plan.flatten(rounds[1]["start"][1]["m"]).cpu()
+    y1 = plan.flatten(out["params"]).cpu()
+    del grab[:], rounds[:], out, opt, pack, trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    x_all = gather_to_root(torch, x_in)
+    y0_all = gather_to_root(torch, y0)
+    m0_all = gather_to_root(torch, m0)
+    y1_all = gather_to_root(torch, y1)
+    del x_in, y0, m0, y1
+    if rank != 0:
+        dist.barrier()
+        return stats
+    # (1) round 0's gossip, bit for bit the dense shifted step on the
+    # stacked matrices
+    top = ring(world)
+    x = x_all.to(dev)
+    dense_y = kops.gossip_mix_shifted(
+        x, grid=top.axis_sizes, axis=0, shifts=[s for (_, s, _) in
+                                                top.shifts],
+        weights=[w for (_, _, w) in top.shifts], lim=stats["used"])
+    stats["gossip_bitwise"] = bool(torch.equal(dense_y.cpu(), y0_all))
+    del x, dense_y, x_all
+    # (2) each round against DenseComm's kernel round from the same start
+    dopt = make_optimizer("pd_sgdm", DenseComm(ring(world), device=dev),
+                          use_kernel=True, **FULL_HYPER)
+    one = lm_model(path).init(torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    params = {n: v.expand((world,) + v.shape).contiguous()
+              for n, v in one.items()}
+    del one
+    gaps = []
+    for rnd, (start_x, start_m, want) in enumerate(
+            ((None, None, y0_all), (y0_all, m0_all, y1_all))):
+        if start_x is None:
+            state = dopt.init(params)
+        else:
+            dplan = kops.KernelPlan.for_tree(params, worker_dim=True)
+            params = dplan.unflatten(start_x.to(dev))
+            state = {"m": dplan.unflatten(start_m.to(dev)),
+                     "step": torch.tensor(rnd * P, dtype=torch.int32,
+                                          device=dev)}
+        params, state = dense_round(torch, path, dopt, params, state,
+                                    stream, rnd * P)
+        dplan = kops.KernelPlan.for_tree(params, worker_dim=True)
+        got = want.to(dev)
+        dense = dplan.flatten(params)
+        gaps.append(float((dense - got).abs().max()))
+        if not torch.allclose(got, dense, **ROUND_BAR):
+            stats.setdefault("round_missed", []).append(rnd)
+        del state, got, dense
+    stats["round_gaps"] = gaps
+    dist.barrier()
+    return stats
+
+
+def sharded_olmo_phase(torch):
+    """``sharded_olmo1b``: PD-SGDM at OLMo-1B's published widths (one of 16
+    layers, f32) in 4 ranks on the card, ring, seq 256, batch 2 a worker,
+    the kernel layout: two rounds through ``ShardedTrainer``; each rank p
+    momentum and 1 gossip launches a round and hands ``isend``
+    2 × used rows × 4 KiB; round 0's gossip bit for bit the dense shifted
+    step; each round within the kernel-round bar of ``DenseComm``'s from
+    the same start."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats = spawn(sharded_olmo_rank, SHARDED_OLMO_K)
+    wall = time.perf_counter() - t0
+    root = stats[0]
+    from repro_torch.kernels import LANE
+    want = (2 * root["used"] * LANE * 4,)
+    print(f"sharded: sharded_olmo1b {describe('pd_sgdm_olmo1b')}, "
+          f"K={SHARDED_OLMO_K} ranks on one card (gloo), ring, p={P}, "
+          f"{SHARDED_ROUNDS} rounds through ShardedTrainer, {wall:.1f} s "
+          "with the spawn and the checks")
+    print(f"sharded: sharded_olmo1b losses (the ranks' mean) "
+          + " ".join(f"{v:.4f}" for v in root["losses"]))
+    for s in stats:
+        print(f"sharded: sharded_olmo1b rank {s['rank']}: peak "
+              f"{s['peak_mib']:.1f} MiB, s/round (gloo's host-staged wire) "
+              + ", ".join(f"{v:.4f}" for v in s["s_per_round"])
+              + f", launches {s['launches']}, isend bytes {s['sent']}")
+    print(f"sharded: sharded_olmo1b peak summed over the ranks "
+          f"{sum(s['peak_mib'] for s in stats):.1f} MiB; round 0's gossip "
+          f"bit for bit the dense step: {root['gossip_bitwise']}; max "
+          f"|Δparam| against DenseComm per round {root['round_gaps']}")
+    for s in stats:
+        for lc in s["launches"]:
+            if lc != {**{n: 0 for n in lc}, "momentum_update": P,
+                      "gossip_mix": 1}:
+                raise AssertionError(f"sharded_olmo1b: launches {lc}")
+        if tuple(s["cycle"]) != want or s["sent"] != list(
+                want) * SHARDED_ROUNDS:
+            raise AssertionError(f"sharded_olmo1b: isend bytes {s['sent']},"
+                                 f" cycle {s['cycle']}, expected {want}")
+    if not root["gossip_bitwise"]:
+        raise AssertionError("sharded_olmo1b: round 0's gossip differs from "
+                             "the dense shifted step")
+    if root.get("round_missed") or not all(
+            math.isfinite(v) for v in root["losses"]):
+        raise AssertionError(f"sharded_olmo1b: rounds {root.get('round_missed')}"
+                             f" past the bar, losses {root['losses']}")
+
+
+def sharded_resnet_rank(mesh_rank, seed: int):
+    """A rank of ``sharded_resnet_pd``: ResNet-20's worker through a
+    ``TrainPack`` of its own and ``ShardedTrainer``, 14 steps."""
+    import torch
+    from repro_torch.core import ShardedComm, make_optimizer, ring
+    from repro_torch.launch.mesh import make_layout, make_mesh
+    from repro_torch.launch.runtime import (TrainPack, check_state_keys,
+                                            make_steps)
+    from repro_torch.models.resnet import resnet20_init, resnet20_loss
+    from repro_torch.train.trainer import ShardedTrainer
+    from repro_torch.configs.base import ParallelCfg
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh((world,), ("w",), device=dev)
+    opt = make_optimizer("pd_sgdm", ShardedComm(ring(world), axis_names=("w",),
+                                                mesh=mesh),
+                         use_kernel=True, **HYPER)
+    grad = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: resnet20_loss(p, b)[0]))
+
+    def gfn(params, batch):
+        g, losses = grad(params, batch)
+        return losses.mean(), g
+
+    def init_fn(s):
+        gen = torch.Generator(device=dev).manual_seed(s)
+        params = {n: v.unsqueeze(0) for n, v in
+                  resnet20_init(gen, width=WIDTH, device=dev).items()}
+        return params, opt.init(params)
+
+    train_step, train_round = make_steps(opt, gfn)
+
+    struct = {n: torch.empty((1,) + tuple(v.shape[1:]), device="meta")
+              for n, v in stacked_init(torch, seed, 1).items()}
+    pack = TrainPack(model=None, opt=opt,
+                     layout=make_layout(ParallelCfg(), mesh), device=dev,
+                     params_struct=struct, state_struct=opt.init(struct),
+                     state_keys=check_state_keys(opt.init(struct)),
+                     init_fn=init_fn, train_step=train_step,
+                     train_round=train_round)
+    stream = batch_fn(seed, world)
+    rounds = []
+    watch_rounds(torch, pack, rounds)
+    kernels = reset_counters()
+    out = ShardedTrainer(pack).train(seed, lambda t: pack.worker_batch(
+        stream(t)), STEPS, log_every=1, verbose=False)
+    sync(torch, dev)
+
+    def host(tree):
+        return {n: v.cpu() for n, v in tree.items()}
+    return {"launches": {n: f.launches for n, f in kernels.items()},
+            "sent": sum(r["sent"] for r in rounds),
+            "cycle": ShardedTrainer(pack).bytes_per_round_cycle(),
+            "rounds": [(host(r["start"][0]), host(r["start"][1]["m"]),
+                        host(r["end"]), host(r["end_state"]["m"]), r["t"])
+                       for r in rounds],
+            "params": host(out["params"]), "losses": out["history"].loss}
+
+
+def resnet_grads_fn(torch, per_worker: bool = False):
+    """``SimTrainer``'s gradients of ResNet-20 over the stacked workers; with
+    ``per_worker`` one worker at a time (a vmap over 1, the shapes a rank's
+    convolutions see), concatenated."""
+    from repro_torch.models.resnet import resnet20_loss
+    grad = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: resnet20_loss(p, b)[0]))
+
+    def grads_fn(params, batch):
+        if not per_worker:
+            g, losses = grad(params, batch)
+            return losses.mean(), g
+        k = next(iter(params.values())).shape[0]
+        outs = [grad({n: v[i:i + 1] for n, v in params.items()},
+                     {n: v[i:i + 1] for n, v in batch.items()})
+                for i in range(k)]
+        g = {n: torch.cat([o[0][n] for o in outs]) for n in params}
+        return torch.cat([o[1] for o in outs]).mean(), g
+    return grads_fn
+
+
+def sharded_resnet_phase(torch):
+    """``sharded_resnet_pd``: the paper's main path, ResNet-20 width 16 at
+    the ``pd_sgdm`` path's settings, K = 8 ranks on the ring, 14 steps
+    (3 rounds and a 2-step tail), held against the dense ``pd_sgdm`` path:
+    each rank the dense run's launches and bytes, and each round (and the
+    tail) within the kernel-round bar of the dense round from the same
+    start, its gradients taken worker by worker (a rank's convolutions see
+    a vmap over 1 worker, the dense run's over 8, and round 0 from the
+    init is chaotic enough at this step to part the two by more than the
+    bar: that gap, against the dense round's own vmap over 8, is printed
+    beside)."""
+    from repro_torch.train.trainer import _stack_batches
+    t0 = time.perf_counter()
+    stats = spawn(sharded_resnet_rank, K, 0)
+    wall = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = True
+    opt = make_opt("pd_sgdm", True)
+    stream = batch_fn(0, K)
+
+    def stacked(i, j):
+        return {n: torch.cat([s["rounds"][i][j][n] for s in stats]).to(DEVICE)
+                for n in stats[0]["rounds"][i][j]}
+
+    gaps = []
+    n_rounds = len(stats[0]["rounds"])
+    for i in range(n_rounds + 1):
+        if i < n_rounds:
+            t, (x0, m0), want = (stats[0]["rounds"][i][4],
+                                 (stacked(i, 0), stacked(i, 1)),
+                                 stacked(i, 2))
+            steps = P
+        else:                           # the tail: local steps only
+            t = n_rounds * P
+            x0, m0 = stacked(i - 1, 2), stacked(i - 1, 3)
+            want = {n: torch.cat([s["params"][n] for s in stats]).to(DEVICE)
+                    for n in x0}
+            steps = STEPS - t
+        state = {"m": m0, "step": torch.tensor(t, dtype=torch.int32,
+                                               device=DEVICE)}
+        batches = _stack_batches([stream(t + k) for k in range(steps)])
+        gap = []
+        for per_worker in (True, False):
+            got, _, _ = opt.round(dict(state), x0,
+                                  resnet_grads_fn(torch, per_worker),
+                                  batches, gossip=steps == P)
+            gap.append(max(float((got[n] - want[n]).abs().max())
+                           for n in got))
+            if per_worker:
+                held = got
+        gaps.append(tuple(gap))
+        got = held
+        for n in got:
+            if not torch.allclose(want[n], got[n], **ROUND_BAR):
+                raise AssertionError(f"sharded_resnet_pd: round {i}'s {n} "
+                                     "differs from the dense round")
+    torch.backends.cudnn.deterministic = False
+    print(f"sharded: sharded_resnet_pd ResNet-20 width {WIDTH}, batch "
+          f"{BATCH}, K={K} ranks on one card (gloo), ring, {STEPS} steps "
+          f"through ShardedTrainer, {wall:.1f} s with the spawn; losses "
+          + " ".join(f"{v:.4f}" for v in stats[0]["losses"]))
+    print(f"sharded: sharded_resnet_pd launches per rank "
+          f"{stats[0]['launches']}, isend bytes per rank "
+          f"{[s['sent'] for s in stats]}, max |Δparam| against the dense "
+          f"round from the same start (its grads worker by worker; over the "
+          f"vmap of 8), per round and the tail {gaps}")
+    want = {name: EXPECTED["pd_sgdm"].get(name, 0) for name in counters()}
+    rounds = STEPS // P
+    for s in stats:
+        if s["launches"] != want:
+            raise AssertionError(f"sharded_resnet_pd: launches "
+                                 f"{s['launches']}, expected {want}")
+        if (tuple(s["cycle"]) != WIRE_BYTES["pd_sgdm"]
+                or s["sent"] != rounds * WIRE_BYTES["pd_sgdm"][0]):
+            raise AssertionError(f"sharded_resnet_pd: {s['sent']} B sent")
+
+
+def plain_hier_sign_mix(torch, x_mat, used: int):
+    """The plain two-level round of ``hierarchical(2, 2)`` with the sign
+    codec on the stacked matrix: node means, the inter factor's self term
+    on the mean, the other node's mean (cut to the used rows) through the
+    plain per-leaf sign codec, the result on every member."""
+    from repro_torch.core import SignCompressor, hierarchical
+    from repro_torch.core.topology import (hierarchical_inter_shifts,
+                                           hierarchical_self_weight)
+    from repro_torch.core.wire import make_codec
+    codec = make_codec(SignCompressor(block=1024))
+    top = hierarchical(*HIER_SIGN)
+    n, m = HIER_SIGN
+    xa = x_mat.reshape((n, m) + tuple(x_mat.shape[1:])).mean(dim=1)
+    acc = xa * float(hierarchical_self_weight(top))
+    for (sh, w) in hierarchical_inter_shifts(top):
+        dec = []
+        for i in range(n):
+            src = xa[(i + sh) % n][:used].contiguous()
+            q = codec.unpack(codec.pack(src.cpu()), src.numel(), src.shape,
+                             torch.float32).to(src.device)
+            dec.append(torch.nn.functional.pad(q, (0, 0, 0, x_mat.shape[1]
+                                                   - used)))
+        acc = acc + torch.stack(dec) * float(w)
+    return acc.repeat_interleave(m, dim=0)
+
+
+def sharded_hier_rank(mesh_rank):
+    """A rank of ``sharded_tinylm_hier_sign``: the tiny LM on
+    ``HierarchicalComm`` (flat axis, 2 nodes × 2) with the sign inter
+    codec, 3 rounds; each round's start and result gathered to rank 0,
+    which holds it against the dense round."""
+    import torch
+    from repro_torch.core import DenseComm, hierarchical, make_optimizer
+    from repro_torch.core.gossip import hier_bytes_per_round
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.runtime import build_train, per_worker
+    from repro_torch.train.trainer import ShardedTrainer
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    path = "pd_sgdm_tinylm_hier"
+    pack = build_train(lm_run(path, inter_codec="sign", node_size=HIER_SIGN[1],
+                              hyper=TINY_HYPER),
+                       make_mesh((world,), ("w",), device=dev))
+    rounds = []
+    watch_rounds(torch, pack, rounds)
+    stream = worker_stream(path, world)
+    reset_counters()
+    ShardedTrainer(pack).train(0, lambda t: pack.worker_batch(stream(t)),
+                               3 * P, log_every=P, verbose=False)
+    plan = kops.KernelPlan.for_tree(rounds[0]["end"], worker_dim=True)
+    levels = hier_bytes_per_round(torch.empty(
+        (plan.used_rows * kops.LANE,), device="meta"), pack.opt.comm)
+    stats = {"rank": rank, "launches": [r["launches"] for r in rounds],
+             "sent": [r["sent"] for r in rounds],
+             "reduced": [r["reduced"] for r in rounds], "levels": levels,
+             "cycle": ShardedTrainer(pack).bytes_per_round_cycle(),
+             "bytes_model": pack.opt.hier_bytes_per_level(
+                 per_worker(pack.params_struct)),
+             "rows": (plan.rows, plan.used_rows)}
+    gathered = [(gather_to_root(torch, plan.flatten(r["start"][0])),
+                 gather_to_root(torch, plan.flatten(r["start"][1]["m"])),
+                 gather_to_root(torch, plan.flatten(r["end"])), r["t"])
+                for r in rounds]
+    if rank != 0:
+        return stats
+    dopt = make_optimizer("pd_sgdm", DenseComm(hierarchical(*HIER_SIGN),
+                                               device=dev),
+                          use_kernel=True, **TINY_HYPER)
+    gaps = []
+    for (x0, m0, want, t) in gathered:
+        params = plan.unflatten(x0.to(dev))
+        state = {"m": plan.unflatten(m0.to(dev)),
+                 "step": torch.tensor(t, dtype=torch.int32, device=dev)}
+        from repro_torch.train.trainer import _stack_batches
+        batches = _stack_batches([stream(t + i) for i in range(P)])
+        params, state, _ = dopt.round(state, params,
+                                      lm_grads_fn(torch, path), batches,
+                                      gossip=False)
+        # the leaves' elements: a decoded pad element is no param
+        dense = plan.flatten(plan.unflatten(plain_hier_sign_mix(
+            torch, plan.flatten(params), plan.used_rows)))
+        got = want.to(dev)
+        gap = (dense - got).abs()
+        far = ~torch.isclose(got, dense, **ROUND_BAR)
+        # a node mean within an ulp of 0 may take the other sign on the
+        # two sides: its element moves by 2·scale·w, bounded by 2·max|x|
+        flips = int(far.sum())
+        gaps.append((float(gap.max()), flips))
+        if flips > 8 or not bool(
+                (gap[far] <= 2 * float(dense.abs().max())).all()):
+            stats.setdefault("round_missed", []).append(t // P)
+    stats["round_gaps"] = gaps
+    return stats
+
+
+def sharded_hier_phase(torch):
+    """``sharded_tinylm_hier_sign``: the tiny LM on ``HierarchicalComm``
+    (flat axis, hierarchical(2, 2)) with ``inter_codec="sign"`` on the
+    kernel layout, 4 ranks, 3 rounds: ``sign_pack`` and ``sign_unpack``
+    on every rank, the inter bytes on the leaders only and the all_reduce
+    bytes as ``hier_bytes_per_round`` has them, each round held against
+    the dense round (``DenseComm`` on hierarchical(2, 2), the plain sign
+    codec on its inter wire) from the same start."""
+    t0 = time.perf_counter()
+    world = HIER_SIGN[0] * HIER_SIGN[1]
+    stats = spawn(sharded_hier_rank, world)
+    wall = time.perf_counter() - t0
+    root = stats[0]
+    print(f"sharded: sharded_tinylm_hier_sign {describe('pd_sgdm_tinylm_hier')}"
+          f", hierarchical{HIER_SIGN} on {world} ranks (flat axis), sign "
+          f"inter codec, p={P}, 3 rounds, {wall:.1f} s with the spawn")
+    for s in stats:
+        print(f"sharded: sharded_tinylm_hier_sign rank {s['rank']}: launches "
+              f"{s['launches'][0]}, isend bytes {s['sent']}, all_reduce "
+              f"bytes {s['reduced']}")
+    print(f"sharded: sharded_tinylm_hier_sign levels {root['levels']}; "
+          f"(max |Δparam|, elements past the bar: sign flips) against the "
+          f"dense round, per round {root['round_gaps']}")
+    m = HIER_SIGN[1]
+    for s in stats:
+        for lc in s["launches"]:
+            want = {**{n: 0 for n in lc}, "momentum_update": P,
+                    "sign_pack": 1, "sign_unpack": 1}
+            if lc != want:
+                raise AssertionError(f"sharded_tinylm_hier_sign: {lc}")
+        leader = s["rank"] % m == 0
+        site = s["levels"]["inter_site"] if leader else 0
+        if (s["sent"] != [site] * 3
+                or s["reduced"] != [s["levels"]["intra_result"]] * 3
+                or s["levels"] != s["bytes_model"]
+                or tuple(s["cycle"]) != (s["levels"]["inter"],)):
+            raise AssertionError(f"sharded_tinylm_hier_sign: bytes {s}")
+    if root.get("round_missed"):
+        raise AssertionError(f"sharded_tinylm_hier_sign: rounds "
+                             f"{root['round_missed']} past the bar")
+
+
+def resume_run(mesh_rank, runs):
+    """``runs``: ``[(ckpt_dir, stop, resume)]`` of the tiny LM's PD-SGDM,
+    kernel layout, p = 4, in these ranks; each run's final worker."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.runtime import build_train
+    from repro_torch.train.trainer import ShardedTrainer
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    path = "pd_sgdm_tinylm_hier"
+    pack = build_train(lm_run(path, hyper=TINY_HYPER),
+                       make_mesh((world,), ("w",), device=dev))
+    stream = worker_stream(path, world)
+    out = []
+    for ckpt_dir, stop, resume in runs:
+        res = ShardedTrainer(pack, ckpt_dir=ckpt_dir,
+                             ckpt_every=stop if not resume else 0).train(
+            0, lambda t: pack.worker_batch(stream(t)),
+            RESUME_STEPS if resume or stop is None else stop, log_every=P,
+            verbose=False, resume=resume)
+        out.append(({n: v.cpu() for n, v in res["params"].items()},
+                    {k: ({n: v.cpu() for n, v in s.items()}
+                         if isinstance(s, dict) else s.cpu())
+                     for k, s in res["state"].items()}, res["steps_run"]))
+    return out
+
+
+def elastic_rank(mesh_rank, ckpt_dir):
+    """This rank's worker of the latest checkpoint in ``ckpt_dir``, restored
+    into these K′ ranks."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.runtime import build_train
+    from repro_torch.train.trainer import ShardedTrainer
+    rank, world, dev = mesh_rank
+    pack = build_train(lm_run("pd_sgdm_tinylm_hier", hyper=TINY_HYPER),
+                       make_mesh((world,), ("w",), device=dev))
+    params, state = ShardedTrainer(pack, ckpt_dir=ckpt_dir)._restore(
+        latest_step(ckpt_dir))
+    return ({n: v.cpu() for n, v in params.items()},
+            {k: ({n: v.cpu() for n, v in s.items()}
+                 if isinstance(s, dict) else s.cpu())
+             for k, s in state.items()})
+
+
+def sharded_resume_phase(torch):
+    """``sharded_resume``: the tiny LM, K = 4, p = 4, kernel layout.  One set
+    of ranks runs 12 steps unbroken and writes checkpoints at step 6 (off a
+    round boundary) and step 8; a fresh set resumes each to step 12, bit for
+    bit the unbroken run; 6 ranks restore the step-8 checkpoint: the
+    survivors' slices bit for bit, the joiners their donors'."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="resume_") as d:
+        dirs = {s: os.path.join(d, f"stop{s}") for s in RESUME_STOPS}
+        first = spawn(resume_run, RESUME_K, [(None, None, False)] + [
+            (dirs[s], s, False) for s in RESUME_STOPS])
+        second = spawn(resume_run, RESUME_K, [
+            (dirs[s], s, True) for s in RESUME_STOPS])
+        grown = spawn(elastic_rank, RESUME_K2, dirs[8])
+    wall = time.perf_counter() - t0
+
+    def leaves(params, state):
+        out = dict(params)
+        for k, s in state.items():
+            if isinstance(s, dict):
+                out.update({f"{k}/{n}": v for n, v in s.items()})
+            else:
+                out[k] = s
+        return out
+
+    print(f"sharded: sharded_resume tiny LM, K={RESUME_K} ranks, p={P}, "
+          f"kernel layout, {RESUME_STEPS} steps; checkpoints at "
+          f"{RESUME_STOPS}, each resumed in fresh ranks; step 8 restored "
+          f"into {RESUME_K2} ranks; {wall:.1f} s with the spawns")
+    for rank in range(RESUME_K):
+        base = leaves(*first[rank][0][:2])
+        for i, stop in enumerate(RESUME_STOPS):
+            got = leaves(*second[rank][i][:2])
+            if second[rank][i][2] != RESUME_STEPS - stop or any(
+                    not torch.equal(got[k], base[k]) for k in base):
+                raise AssertionError(f"sharded_resume: rank {rank} resumed "
+                                     f"from step {stop} differs")
+    at8 = [leaves(*first[r][2][:2]) for r in range(RESUME_K)]
+    for r in range(RESUME_K2):
+        got = leaves(*grown[r])
+        donor = at8[r % RESUME_K]
+        if any(not torch.equal(got[k], donor[k]) for k in donor):
+            raise AssertionError(f"sharded_resume: slot {r} of K'="
+                                 f"{RESUME_K2} is not worker "
+                                 f"{r % RESUME_K}'s")
+    print(f"sharded: sharded_resume resumed from steps {RESUME_STOPS}: bit "
+          f"for bit the unbroken run on every rank; K'={RESUME_K2}: slots "
+          f"0-{RESUME_K - 1} their own, {RESUME_K}-{RESUME_K2 - 1} workers "
+          f"0-{RESUME_K2 - RESUME_K - 1}'s, bit for bit")
+
+
+def gloo_cuda_probe(mesh_rank):
+    """Whether gloo's send/recv take a CUDA tensor (run apart from the
+    script, in a child that may crash: ``--probe-gloo``)."""
+    import torch
+    import torch.distributed as dist
+    rank, world, dev = mesh_rank
+    t = torch.full((4,), float(rank), device=dev)
+    if rank == 0:
+        dist.send(t, 1)
+        return None
+    dist.recv(t, 0)
+    return t.cpu().tolist()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2970,6 +3661,9 @@ def main(argv=None) -> int:
                          "the checkout's build), check it and time it "
                          "beside the checkout's gather in this call; with "
                          "--profile, also profile a sparse round with it")
+    ap.add_argument("--probe-gloo", action="store_true",
+                    help="only ask whether gloo's send/recv take a CUDA "
+                         "tensor (two ranks; a crash is the answer no)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2992,6 +3686,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    if args.probe_gloo:
+        try:
+            got = spawn(gloo_cuda_probe, 2)[1]
+            print(f"probe: gloo send/recv of a CUDA tensor: received {got}")
+        except Exception as err:        # the answer, not a failure
+            print(f"probe: gloo send/recv of a CUDA tensor fails: "
+                  f"{type(err).__name__}: {err}")
+        return 0
     bw, f32_peak = peaks(torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
@@ -3029,6 +3731,10 @@ def main(argv=None) -> int:
     noniid_phase(torch)
     elastic_phase(torch)
     topology_phase(torch)
+    sharded_olmo_phase(torch)
+    sharded_resnet_phase(torch)
+    sharded_hier_phase(torch)
+    sharded_resume_phase(torch)
     if args.profile:
         for path in PATHS:
             profile_round(torch, path)

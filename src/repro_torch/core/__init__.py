@@ -1,6 +1,7 @@
 """Core of the port: topologies (hierarchical ones too), their
 time-varying schedules and elastic membership, the dense gossip backend
-(overlapped rounds, the bf16 wire), LR schedules, PD-SGDM (paper
+(overlapped rounds, the bf16 wire) and the sharded ones over
+``torch.distributed``, LR schedules, PD-SGDM (paper
 Algorithm 1), CPD-SGDM (Algorithm 2) with its compressors and wire codecs,
 C-SGDM, the momentum-free baselines, and MT-DSGDm and QG-DSGDm for
 non-IID data."""
@@ -14,6 +15,7 @@ from repro_torch.core.compression import (Compressor, IdentityCompressor,
                                           TopKCompressor, make_compressor)
 from repro_torch.core.cpdsgdm import CPDSGDM, CPDSGDMConfig
 from repro_torch.core.gossip import (CommBackend, DenseComm,
+                                     HierarchicalComm, ShardedComm,
                                      gossip_bytes_per_round)
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.topology import (MembershipSchedule, Topology,
@@ -36,7 +38,8 @@ __all__ = [
     "make_topology", "make_schedule",
     "MembershipSchedule", "full_membership", "membership_from_events",
     "masked_matrix", "active_edge_count",
-    "CommBackend", "DenseComm", "gossip_bytes_per_round",
+    "CommBackend", "DenseComm", "ShardedComm", "HierarchicalComm",
+    "gossip_bytes_per_round",
     "PDSGDM", "PDSGDMConfig", "CPDSGDM", "CPDSGDMConfig",
     "MTDSGDm", "MTDSGDMConfig", "QGDSGDm", "QGDSGDMConfig",
     "make_optimizer", "CSGDM", "d_sgd", "pd_sgd", "choco_sgd",

@@ -3,9 +3,9 @@
 
 * **C-SGDM**: centralized momentum SGD (the paper's Fig. 1 reference):
   gradients are averaged over all workers every step, so the replicas
-  stay identical.  It mixes the gradients with the complete topology, so
-  it shares the dense backend and the momentum kernel with the
-  decentralized methods;
+  stay identical.  It mixes the gradients with the complete topology
+  (``W @ g`` on the dense backend, an ``all_reduce`` mean on the sharded
+  one), so it shares the momentum kernel with the decentralized methods;
 * **D-SGD** [Lian et al. '17]: gossip every step, no momentum;
 * **PD-SGD** [Li et al. '19]: periodic gossip, no momentum;
 * **CHOCO-SGD** [Koloskova et al. '19]: compressed gossip every step, no
@@ -21,7 +21,7 @@ import dataclasses
 
 from repro_torch.core.compression import Compressor
 from repro_torch.core.cpdsgdm import CPDSGDM, CPDSGDMConfig
-from repro_torch.core.gossip import CommBackend, DenseComm
+from repro_torch.core.gossip import CommBackend, DenseComm, ShardedComm
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.topology import complete
 from repro_torch.core.tracking import (MTDSGDMConfig, MTDSGDm, QGDSGDMConfig,
@@ -121,12 +121,15 @@ def make_optimizer(name: str, comm: CommBackend, *, eta: float = 0.1,
             raise ValueError(
                 "c_sgdm is the centralized baseline (complete-graph mean "
                 "every step); hierarchical gossip does not apply")
+        K = comm.topology.n_workers
+        mean = (ShardedComm(complete(K), axis_names=comm.axis_names,
+                            mesh=comm.mesh)
+                if isinstance(comm, ShardedComm)
+                else DenseComm(complete(K), device=comm.device))
         return CSGDM(PDSGDMConfig(eta=eta, mu=mu, p=1,
                                   weight_decay=weight_decay,
                                   lr_schedule=lr_schedule,
-                                  use_kernel=use_kernel),
-                     DenseComm(complete(comm.topology.n_workers),
-                               device=comm.device))
+                                  use_kernel=use_kernel), mean)
     if name in ("d_sgd", "dsgd"):
         return d_sgd(eta, comm, weight_decay)
     if name in ("pd_sgd", "pdsgd"):

@@ -45,7 +45,7 @@ round start and lands at its end; lines 7-9 stay at the round boundary
 (q encodes the round's own drift), commit-gated under membership.
 
 Not ported: the sharded backend with its ``xhat_nbrs`` copies and pruned
-exchanges (ROADMAP queue A item 12).
+exchanges (ROADMAP queue A item 12b, refused at construction).
 """
 from __future__ import annotations
 
@@ -56,8 +56,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.compression import Compressor, SignCompressor
-from repro_torch.core.gossip import (CommBackend, gossip_bytes_per_round,
-                                     select_round, worker_mask_like)
+from repro_torch.core.gossip import (CommBackend, ShardedComm,
+                                     gossip_bytes_per_round, select_round,
+                                     worker_mask_like)
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.topology import exchanges
 from repro_torch.core.wire import leaf_keys, make_codec, round_trip_tree
@@ -81,6 +82,18 @@ class CPDSGDM(PDSGDM):
 
     def __init__(self, config: CPDSGDMConfig, comm: CommBackend,
                  compressor: Optional[Compressor] = None):
+        if config.overlap and isinstance(comm, ShardedComm):
+            raise ValueError(
+                "CPD-SGDM overlap=True is dense-only: the xhat_nbrs "
+                "error-compensation copies must stay bitwise consistent "
+                "with each owner's x̂ (Alg. 2 line 9), and a one-round-"
+                "stale consensus breaks that replica contract")
+        if isinstance(comm, ShardedComm):
+            raise NotImplementedError(
+                "CPD-SGDM on the sharded backend (its per-neighbour "
+                "xhat_nbrs copies, committed payloads and pruned "
+                "exchanges) is not ported yet: ROADMAP queue A item 12b.  "
+                "Run it on DenseComm, or PD/MT/QG on the sharded backend")
         super().__init__(config, comm)
         self.compressor = (compressor if compressor is not None
                            else SignCompressor())

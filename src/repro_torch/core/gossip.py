@@ -1,6 +1,7 @@
-"""Gossip communication: the dense K-worker simulation backend.
+"""Gossip communication: the dense K-worker simulation backend and the
+sharded backends over ``torch.distributed``.
 
-Port of ``src/repro/core/gossip.py:67-373`` and ``:840-920``.
+Port of ``src/repro/core/gossip.py``.
 :class:`DenseComm` keeps every leaf worker-stacked (leading dim K) and
 mixes ``x⁽ᵏ⁾ ← Σⱼ w_kj x⁽ʲ⁾`` either as ``W @ flat`` over the worker dim
 (:meth:`DenseComm.mix`, the tree path), as shifted views of the worker
@@ -26,8 +27,20 @@ worker is active uses the topology's own W, bit for bit.
   factor on the node means (the bf16 point on that slow wire), the result
   broadcast in-node; bytes per level are :func:`hier_bytes_per_round`.
 
-Not in this module: the sharded backend, its hierarchical comm and its
-membership programs (ROADMAP queue A item 12).
+* **The sharded backends** (:class:`ShardedComm`,
+  :class:`HierarchicalComm`): one worker per rank, its leaves with a
+  leading worker dim of 1.  The reference's ``ppermute`` becomes P2P
+  (``dist.batch_isend_irecv``: each rank posts its sends and receives of
+  one exchange at once, each exchange of a call under its own tag, so two
+  exchanges with one peer, as on a ring of 2 or at the ±K/2 shifts of
+  ``exponential``, never pair up wrongly); ``pmean`` becomes an
+  ``all_reduce``.  Round ``r``'s P2P pairs depend on ``r``, so the
+  sharded ``mix`` takes ``r`` as a host int (the trainer's ``t // p``); a
+  static graph needs none.  On a card with the gloo backend each payload
+  is staged through preallocated pinned host buffers; with NCCL the card's
+  tensors go to the library as they are.  ``sent_bytes`` and
+  ``reduced_bytes`` count what this rank handed to ``isend`` and to
+  ``all_reduce``.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.core.topology import (MembershipSchedule, Topology,
@@ -46,8 +60,9 @@ from repro_torch.core.topology import (MembershipSchedule, Topology,
                                        masked_matrix)
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["CommBackend", "DenseComm", "gossip_bytes_per_round",
-           "hier_bytes_per_round", "select_round", "worker_mask_like"]
+__all__ = ["CommBackend", "DenseComm", "HierarchicalComm", "ShardedComm",
+           "gossip_bytes_per_round", "hier_bytes_per_round", "select_round",
+           "worker_mask_like"]
 
 ShiftKey = Tuple[int, int]  # (topology axis, shift)
 
@@ -335,6 +350,612 @@ class DenseComm(CommBackend):
                 for (ax, sh, _w) in self.nonself_shifts()}
 
 
+def _as_dict(tree):
+    """A flat dict of tensors, and how to give a result back its form (a
+    bare tensor travels as the one leaf ``""``)."""
+    if isinstance(tree, dict):
+        return tree, lambda d: d
+    return {"": tree}, lambda d: d[""]
+
+
+@dataclasses.dataclass
+class ShardedComm(CommBackend):
+    """One worker per rank of a process group, P2P between neighbours.
+
+    ``axis_names[i]`` is the axis of the worker ``mesh``
+    (:class:`repro_torch.launch.mesh.WorkerMesh`) that carries topology
+    axis ``i``.  Each leaf keeps a leading worker dim of 1; the rank's
+    neighbour along axis ``i`` at shift ``s`` is the rank ``s`` further
+    along that axis.  Takes a ``Topology`` or a ``TopologySchedule``, and a
+    ``MembershipSchedule`` on a single worker axis (the reference's
+    ``gossip.py:411-418``: per-worker edge pruning of a multi-axis
+    exchange is not expressible there)."""
+
+    topology: Topology  # or a TopologySchedule at construction
+    axis_names: Tuple[str, ...] = ()
+    mesh: object = None
+    membership: Optional[MembershipSchedule] = None
+    wire_dtype: str = "float32"
+
+    def __post_init__(self):
+        self._check_common()
+        tops = (self.schedule.topologies if self.schedule is not None
+                else (self.topology,))
+        for top in tops:
+            # 'complete' is the mean over every worker: no grid
+            if top.name != "complete" and (
+                    len(self.axis_names) != len(top.axis_sizes)):
+                raise ValueError(
+                    f"axis_names {self.axis_names} vs grid {top.axis_sizes}")
+        if self.membership is not None:
+            self.membership.validate()
+            if self.membership.n_workers != self.topology.n_workers:
+                raise ValueError(
+                    f"membership K={self.membership.n_workers} != topology "
+                    f"K={self.topology.n_workers}")
+            if len(self.axis_names) != 1:
+                raise ValueError(
+                    "elastic membership on ShardedComm needs a single "
+                    f"worker axis; got axis_names {self.axis_names}")
+        self._bind_mesh()
+
+    def _check_common(self):
+        if self.wire_dtype not in _WIRE_DTYPES:
+            raise ValueError(
+                f"wire_dtype {self.wire_dtype!r} not in {_WIRE_DTYPES}")
+        self._resolve(self.topology)
+        self.axis_names = tuple(self.axis_names)
+
+    def _bind_mesh(self):
+        if self.mesh is None:
+            raise ValueError("ShardedComm needs the worker mesh of its "
+                             "process group (repro_torch.launch.mesh."
+                             "make_mesh)")
+        m = self.mesh
+        if m.world_size != self.topology.n_workers:
+            raise ValueError(f"{m.world_size} ranks for "
+                             f"{self.topology.n_workers} workers")
+        for i, name in enumerate(self.axis_names):
+            if name not in m.axis_names:
+                raise ValueError(f"axis {name!r} not in the mesh's "
+                                 f"{m.axis_names}")
+            if (self.topology.name != "complete" and len(self.axis_names)
+                    == len(self.topology.axis_sizes)
+                    and m.axis_sizes[m.axis_index(name)]
+                    != self.topology.axis_sizes[i]):
+                raise ValueError(
+                    f"mesh axis {name!r} has {m.axis_sizes[m.axis_index(name)]}"
+                    f" ranks; topology axis {i} has "
+                    f"{self.topology.axis_sizes[i]} workers")
+        self.device = m.device
+        self.sent_bytes = 0        # bytes handed to isend by this rank
+        self.reduced_bytes = 0     # bytes handed to all_reduce
+        self._host: dict = {}      # pinned staging buffers (gloo on a card)
+        self._full_counts: dict = {}
+
+    # -- the wire ------------------------------------------------------------
+    def _pinned(self, key, t):
+        """The pinned host buffer of ``key`` for a tensor shaped as ``t``,
+        allocated once per key, shape and dtype."""
+        key = key + (tuple(t.shape), t.dtype)
+        buf = self._host.get(key)
+        if buf is None:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host[key] = buf
+        return buf
+
+    def _p2p(self, sends, recvs):
+        """One exchange: ``sends`` ``[(tensor, dst, tag)]`` and ``recvs``
+        ``[(out, src, tag)]``, posted at once through
+        ``dist.batch_isend_irecv`` and waited for; a receive from this rank
+        itself (an axis of size 1, an aliased shift) copies the matching
+        send.  Staged on a card under gloo: each send is copied to a
+        pinned host buffer, the stream synchronized, and each receive
+        lands in one and is copied back."""
+        me = self.mesh.rank
+        own = {tag: t for (t, dst, tag) in sends if dst == me}
+        for (out, src, tag) in recvs:
+            if src == me:
+                out.copy_(own[tag])
+        sends = [s for s in sends if s[1] != me]
+        recvs = [r for r in recvs if r[1] != me]
+        if not sends and not recvs:
+            return
+        staged = self.mesh.staged
+        ops, back, hosted = [], [], {}
+        for (t, dst, tag) in sends:
+            if staged:
+                # one host copy of a payload that goes to several peers
+                h = hosted.get(id(t))
+                if h is None:
+                    h = hosted[id(t)] = self._pinned(("send", tag), t)
+                    h.copy_(t, non_blocking=True)
+                t = h
+            self.sent_bytes += t.numel() * t.element_size()
+            ops.append(dist.P2POp(dist.isend, t, dst, tag=tag))
+        for (out, src, tag) in recvs:
+            buf = out
+            if staged:
+                buf = self._pinned(("recv", tag), out)
+                back.append((out, buf))
+            ops.append(dist.P2POp(dist.irecv, buf, src, tag=tag))
+        if staged:
+            # the sends' copies have landed, and the last exchange's
+            # copies out of the receive buffers too
+            torch.cuda.current_stream(self.device).synchronize()
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        for (out, buf) in back:
+            out.copy_(buf, non_blocking=True)
+
+    def _all_reduce(self, t, group):
+        """In-place ``all_reduce`` (sum) of ``t`` over ``group``, staged as
+        :meth:`_p2p` stages its payloads."""
+        self.reduced_bytes += t.numel() * t.element_size()
+        if not self.mesh.staged:
+            dist.all_reduce(t, group=group)
+            return t
+        h = self._pinned(("reduce",), t)
+        h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        dist.all_reduce(h, group=group)
+        t.copy_(h, non_blocking=True)
+        return t
+
+    def _peer(self, axis: int, shift: int) -> int:
+        return self.mesh.peer(self.axis_names[axis], shift)
+
+    def _coord(self, axis: int) -> int:
+        return self.mesh.coords[self.mesh.axis_index(self.axis_names[axis])]
+
+    def _rank_on(self, axis: int, c: int) -> int:
+        co = list(self.mesh.coords)
+        co[self.mesh.axis_index(self.axis_names[axis])] = int(c)
+        return self.mesh.rank_at(co)
+
+    def _ends(self, axis: int, kind: str, arg):
+        """``(dst, src)`` of one exchange: the rank this one sends to and
+        the rank it receives from; ``kind`` "shift" (``arg`` the shift) or
+        "perm" (``arg[j]``: the coordinate that coordinate j receives
+        from)."""
+        if kind == "shift":
+            return self._peer(axis, -arg), self._peer(axis, arg)
+        c = self._coord(axis)
+        dst = [j for j, s in enumerate(arg) if int(s) == c]
+        return self._rank_on(axis, dst[0]), self._rank_on(axis, arg[c])
+
+    def _receive_entries(self, payload: dict, axis: int, entries) -> list:
+        """Every array of ``payload`` through each exchange of ``entries``
+        (``(kind, arg)``) along ``axis``, all in one batch, entry j's leaf
+        i under tag ``j·n + i``; returns one dict per entry."""
+        names = list(payload)
+        sends, recvs, out = [], [], []
+        for j, (kind, arg) in enumerate(entries):
+            dst, src = self._ends(axis, kind, arg)
+            got = {}
+            for i, k in enumerate(names):
+                t = payload[k].contiguous()
+                tag = j * len(names) + i
+                sends.append((t, dst, tag))
+                got[k] = torch.empty_like(t)
+                recvs.append((got[k], src, tag))
+            out.append(got)
+        self._p2p(sends, recvs)
+        return out
+
+    def _wire_cast(self, x):
+        """What ships: the neighbour payload in the wire dtype; the bf16
+        payload as its i16 bits (the self term never ships)."""
+        if self.wire_dtype == "bfloat16":
+            return x.to(torch.bfloat16).view(torch.int16)
+        return x
+
+    def _unwire_cast(self, v):
+        """A received payload back to f32 for the accumulation."""
+        if self.wire_dtype == "bfloat16":
+            return v.view(torch.bfloat16).to(torch.float32)
+        return v.to(torch.float32)
+
+    # -- raw neighbour exchanges -----------------------------------------------
+    def receive_tree(self, tree, axis: int, shift: int):
+        """Each leaf of worker (k+shift) on ``axis``, dtypes kept."""
+        d, back = _as_dict(tree)
+        return back(self._receive_entries(d, axis, [("shift", shift)])[0])
+
+    def receive_payload(self, payload: Dict[str, object], axis: int,
+                        shift: int) -> Dict[str, object]:
+        """One wire-codec payload from the (axis, shift) neighbour, each
+        array in its own dtype (u8 bits, i32 indices, f32 scales)."""
+        return self.receive_tree(dict(payload), axis, shift)
+
+    def receive_payload_committed(self, payload: Dict[str, object],
+                                  axis: int, shift: int,
+                                  source_ok) -> Dict[str, object]:
+        """:meth:`receive_payload` with the edges from sources whose
+        ``source_ok`` is False pruned: such a source ships nothing, and
+        its receiver gets zeros (which every codec decodes to 0)."""
+        ok = np.asarray(source_ok, dtype=bool)
+        n = int(self.topology.axis_sizes[axis])
+        c = self._coord(axis)
+        dst, src = self._ends(axis, "shift", shift)
+        names = list(payload)
+        sends, recvs = [], []
+        got = {k: torch.zeros_like(v) for k, v in payload.items()}
+        for i, k in enumerate(names):
+            if ok[c]:
+                sends.append((payload[k].contiguous(), dst, i))
+            if ok[(c + shift) % n]:
+                recvs.append((got[k], src, i))
+        self._p2p(sends, recvs)
+        return got
+
+    def shift_views(self, tree) -> Dict[ShiftKey, object]:
+        return {(ax, sh): self.receive_tree(tree, ax, sh)
+                for (ax, sh, _w) in self.nonself_shifts()}
+
+    # -- mixing --------------------------------------------------------------
+    def _mean_all(self, tree):
+        """The exact mean over every worker (``complete``): an
+        ``all_reduce`` sum over the process group, divided by K."""
+        K = self.topology.n_workers
+
+        def f(x):
+            t = self._all_reduce(x.to(torch.float32).clone(), None)
+            return (t / K).to(x.dtype)
+        return tree_map(f, tree)
+
+    def _mix_with(self, top: Topology, tree):
+        """One round under ``top``: per topology axis, in order, every
+        exchange of the axis in one batch and ``Σ w·view`` accumulated in
+        f32 in the topology's order (the self term unshipped)."""
+        if top.name == "complete":
+            return self._mean_all(tree)
+        if top.name == "disconnected":
+            return tree
+        per_axis: Dict[int, list] = {}
+        for (ax, sh, w) in top.shifts:
+            per_axis.setdefault(ax, []).append(("shift", sh, w))
+        for (ax, recv, w) in top.perms:
+            per_axis.setdefault(ax, []).append(("perm", recv, w))
+        y, back = _as_dict(tree)
+        for ax in sorted(per_axis):
+            entries = per_axis[ax]
+            remote = [(kind, arg) for (kind, arg, _w) in entries
+                      if not (kind == "shift" and arg == 0)]
+            payload = {k: self._wire_cast(v) for k, v in y.items()}
+            got = iter(self._receive_entries(payload, ax, remote))
+            views = [None if (kind == "shift" and arg == 0) else next(got)
+                     for (kind, arg, _w) in entries]
+            new = {}
+            for k, x in y.items():
+                acc = None
+                for (kind, arg, w), v in zip(entries, views):
+                    v = (x.to(torch.float32) if v is None
+                         else self._unwire_cast(v[k]))
+                    term = v * float(np.float32(w))
+                    acc = term if acc is None else acc + term
+                new[k] = acc.to(x.dtype)
+            y = new
+        return back(y)
+
+    def _mix_with_masked(self, top: Topology, act, tree):
+        """One round under ``top`` with only ``act`` workers exchanging:
+        each exchange pruned to edges whose two ends are active, this
+        worker's coefficient of each taken from the exchange's own
+        ``(shift, w)`` entry (never read back from the masked matrix, where
+        the aliased ±K/2 shifts of ``exponential`` share a cell) and the
+        lost mass moved to its self weight."""
+        act = np.asarray(act, dtype=bool)
+        if act.all():
+            return self._mix_with(top, tree)
+        if top.name == "disconnected":
+            return tree
+        n = int(top.axis_sizes[0])
+        k = self._coord(0)
+        entries, off_diag = [], 0.0   # (coeff, any pair, send?, recv?, ends)
+        for (_ax, sh, w) in top.shifts:
+            if sh % n == 0:
+                continue
+            coeff = w if act[k] and act[(k + sh) % n] else 0.0
+            anyp = any(act[s] and act[(s - sh) % n] for s in range(n))
+            send = bool(act[k] and act[(k - sh) % n])
+            entries.append((coeff, anyp, send, coeff != 0.0,
+                            self._ends(0, "shift", sh)))
+            off_diag += coeff
+        for (_ax, recv, w) in top.perms:
+            src = [int(s) for s in recv]
+            coeff = w if src[k] != k and act[k] and act[src[k]] else 0.0
+            anyp = any(src[j] != j and act[j] and act[src[j]]
+                       for j in range(n))
+            dst = [j for j in range(n) if src[j] == k][0]
+            send = bool(dst != k and act[dst] and act[k])
+            entries.append((coeff, anyp, send, coeff != 0.0,
+                            self._ends(0, "perm", recv)))
+            off_diag += coeff
+        diag = float(np.float32(1.0 - off_diag))
+        x_d, back = _as_dict(tree)
+        names = list(x_d)
+        payload = {kk: self._wire_cast(v).contiguous()
+                   for kk, v in x_d.items()}
+        sends, recvs, views = [], [], []
+        for j, (coeff, anyp, send, rec, (dst, src)) in enumerate(entries):
+            got = {kk: torch.zeros_like(v) for kk, v in payload.items()}
+            for i, kk in enumerate(names):
+                tag = j * len(names) + i
+                if send:
+                    sends.append((payload[kk], dst, tag))
+                if rec:
+                    recvs.append((got[kk], src, tag))
+            views.append(got)
+        self._p2p(sends, recvs)
+        out = {}
+        for kk, x in x_d.items():
+            acc = x.to(torch.float32) * diag
+            for (coeff, anyp, _s, _r, _e), got in zip(entries, views):
+                if anyp:
+                    acc = acc + self._unwire_cast(got[kk]) * float(
+                        np.float32(coeff))
+            out[kk] = acc.to(x.dtype)
+        return back(out)
+
+    def _host_round(self, r, what: str, call: str) -> int:
+        """Round ``r`` as a host int: its P2P pairs are built on the host."""
+        if r is None:
+            raise ValueError(f"ShardedComm with {what} needs the round "
+                             f"index: {call}")
+        if isinstance(r, torch.Tensor):
+            raise TypeError(
+                f"ShardedComm with {what} selects round r's exchanges on the "
+                f"host: pass r as an int (the trainer's t // p), not a "
+                f"device tensor: {call}")
+        return int(r)
+
+    def mix(self, tree, r=None):
+        """Σⱼ w_kj x⁽ʲ⁾ for this rank's worker with round ``r``'s graph and
+        liveness (``r`` a host int; a static graph ignores it)."""
+        if self.membership is not None:
+            cyc = self.round_cycle
+            l = 0 if cyc == 1 else self._host_round(
+                r, "a MembershipSchedule", "mix(tree, r=...)") % cyc
+            return self._mix_with_masked(self.topology_at(l),
+                                         self.active_at(l), tree)
+        if self.period == 1:
+            return self._mix_with(self.topology, tree)
+        l = self._host_round(r, "a TopologySchedule", "mix(tree, r=...)")
+        return self._mix_with(self.topology_at(l), tree)
+
+    def stale_mix(self, tree, r=None):
+        if self.membership is None:
+            return self.mix(tree, r=r)
+        cyc = self.round_cycle
+        l = 0 if cyc == 1 else self._host_round(
+            r, "a MembershipSchedule", "stale_mix(tree, r=...)") % cyc
+        return self._mix_with_masked(self.topology_at(l),
+                                     self.active_at(l + 1), tree)
+
+
+@dataclasses.dataclass
+class HierarchicalComm(ShardedComm):
+    """Two-level sharded backend on the ``(n_nodes, node_size)`` grid of a
+    ``"hierarchical"`` topology (or a schedule of them): the exact in-node
+    mean, the inter-node exchange between node leaders, the result back
+    to every worker of the node.
+
+    * ``axis_names = (name,)``: one flat axis of ``n_nodes·node_size``
+      ranks; rank ``i·m + j`` is member j of node i, member 0 its leader.
+      The in-node mean is an ``all_reduce`` over the node's subgroup, the
+      inter exchange runs between leaders only (the other members receive
+      zeros), and the rebroadcast is an ``all_reduce`` sum of the leader's
+      value over the node.
+    * ``axis_names = (inter, intra)``: the node is the ``intra`` mesh axis.
+      The mean runs over that axis's subgroup, every rank exchanges along
+      ``inter`` (no leader amortization) and no rebroadcast is needed.
+
+    ``inter_codec`` compresses the inter wire with a keyless codec
+    (identity, sign, QSGD, top-k); on the kernel layout a codec with a
+    rows format at the lane block packs and decodes through its kernels,
+    on every rank, as the reference packs and decodes on every device.
+    Every subgroup is created when the comm is built, on every rank in the
+    same order."""
+
+    inter_codec: Optional[object] = None
+
+    def __post_init__(self):
+        self._check_common()
+        tops = (self.schedule.topologies if self.schedule is not None
+                else (self.topology,))
+        for top in tops:
+            if top.name != "hierarchical" or len(top.axis_sizes) != 2:
+                raise ValueError(
+                    "HierarchicalComm needs hierarchical (n_nodes, "
+                    f"node_size) topologies; got {top.name!r} with grid "
+                    f"{top.axis_sizes}")
+        if len(self.axis_names) not in (1, 2):
+            raise ValueError(
+                "HierarchicalComm maps onto one flat worker axis or an "
+                f"(inter, intra) axis pair; got {self.axis_names}")
+        if self.membership is not None:
+            raise ValueError(
+                "elastic membership on HierarchicalComm is not supported: "
+                "masked two-level rounds are not expressible as pruned "
+                "grouped collectives; run hierarchical churn on DenseComm")
+        if self.inter_codec is not None:
+            if getattr(self.inter_codec, "name", "") == "randk":
+                raise ValueError(
+                    "randk inter_codec needs a shared per-round key; use "
+                    "identity/sign/qsgd/topk on the inter wire")
+            if self.wire_dtype != "float32":
+                raise ValueError(
+                    "inter_codec already defines the wire encoding; "
+                    "combine it with wire_dtype='float32'")
+        self._bind_mesh()
+        n, m = self.n_nodes, self.node_size
+        if len(self.axis_names) == 1:
+            if self.mesh.axis_names != self.axis_names:
+                raise ValueError(f"the flat layout needs a one-axis mesh "
+                                 f"{self.axis_names}; got "
+                                 f"{self.mesh.axis_names}")
+            self._node_group = None
+            if m > 1:
+                # collective: every rank builds every node's group, in order
+                for i in range(n):
+                    g = dist.new_group([i * m + j for j in range(m)])
+                    if self.mesh.rank // m == i:
+                        self._node_group = g
+        else:
+            intra = self.axis_names[1]
+            self._node_group = self.mesh.groups.get(intra)
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.topology.axis_sizes[0])
+
+    @property
+    def node_size(self) -> int:
+        return int(self.topology.axis_sizes[1])
+
+    @property
+    def hier_leader_pruned(self) -> bool:
+        """True when only node leaders ship the inter wire (flat layout)."""
+        return len(self.axis_names) == 1
+
+    def _level_ops(self, top: Topology):
+        """``node_avg(x)`` (the exact in-node mean, f32),
+        ``recv(payload, shift, j)`` (the inter exchange of a dict of
+        arrays, exchange j's tags) and ``rebroadcast(acc)``."""
+        n, m = int(top.axis_sizes[0]), int(top.axis_sizes[1])
+        group = self._node_group
+
+        def node_avg(x):
+            x32 = x.to(torch.float32)
+            if m == 1:
+                return x32
+            return self._all_reduce(x32.clone(), group) / m
+
+        def exchange(payload, dst, src, j, active=True):
+            got = {k: torch.zeros_like(v) for k, v in payload.items()}
+            if active:
+                names = list(payload)
+                self._p2p(
+                    [(payload[k].contiguous(), dst, j * len(names) + i)
+                     for i, k in enumerate(names)],
+                    [(got[k], src, j * len(names) + i)
+                     for i, k in enumerate(names)])
+            return got
+
+        if len(self.axis_names) == 2:
+            inter = self.axis_names[0]
+
+            def recv(payload, sh, j):
+                return exchange(payload, self.mesh.peer(inter, -sh),
+                                self.mesh.peer(inter, sh), j)
+
+            return node_avg, recv, (lambda acc: acc)
+
+        me = self.mesh.rank
+        leader = me % m == 0
+        i = me // m
+
+        def recv(payload, sh, j):
+            # leaders only: the other members receive zeros, which the
+            # rebroadcast overwrites
+            return exchange(payload, ((i - sh) % n) * m,
+                            ((i + sh) % n) * m, j, active=leader)
+
+        def rebroadcast(acc):
+            if m == 1:
+                return acc
+            only = acc if leader else torch.zeros_like(acc)
+            return self._all_reduce(only.contiguous(), group)
+
+        return node_avg, recv, rebroadcast
+
+    def _codec_rows(self, src) -> bool:
+        c = self.inter_codec
+        return (c is not None and c.rows_supported
+                and c.block == src.shape[-1])
+
+    def _pack(self, src, rows: bool):
+        """The codec payload of ``src``: through its kernels on the kernel
+        layout (every row a full block, as the reference's per-leaf pack
+        of the matrix sees it), else the per-leaf pack."""
+        c = self.inter_codec
+        if not rows:
+            return c.pack(src)
+        u = src.shape[-2]
+        mat = src.reshape(-1, u, src.shape[-1])[0]
+        key = (u, src.device)
+        counts = self._full_counts.get(key)
+        if counts is None:
+            counts = torch.full((u, 1), float(src.shape[-1]),
+                                device=src.device)
+            self._full_counts[key] = counts
+        return c.rows_pack(mat, counts=counts)
+
+    def _unpack(self, got, src, rows: bool):
+        c = self.inter_codec
+        if not rows:
+            return c.unpack(got, src.numel(), src.shape, torch.float32)
+        return c.rows_unpack(got).reshape(src.shape)
+
+    def _inter_mix(self, xa, top, recv, *, wire=None, unwire=None):
+        """The weighted inter-node sum on a node mean ``xa`` (f32);
+        ``wire``/``unwire`` cut what ships to the plan's used rows and pad
+        it back after the decode."""
+        inter = hierarchical_inter_shifts(top)
+        ws = hierarchical_self_weight(top)
+        if not inter:
+            return xa
+        if wire is None:
+            wire = unwire = (lambda v: v)
+        acc = xa * float(np.float32(ws))
+        src = wire(xa).contiguous()
+        if self.inter_codec is not None:
+            rows = self._codec_rows(src)
+            pay = self._pack(src, rows)
+            for j, (sh, w) in enumerate(inter):
+                dec = self._unpack(recv(pay, sh, j), src, rows)
+                acc = acc + unwire(dec) * float(np.float32(w))
+        else:
+            payload = {"x": self._wire_cast(src)}
+            for j, (sh, w) in enumerate(inter):
+                v = self._unwire_cast(recv(payload, sh, j)["x"])
+                acc = acc + unwire(v) * float(np.float32(w))
+        return acc
+
+    def _mix_with(self, top: Topology, tree):
+        node_avg, recv, rebroadcast = self._level_ops(top)
+
+        def mix_leaf(x):
+            acc = self._inter_mix(node_avg(x), top, recv)
+            return rebroadcast(acc).to(x.dtype)
+
+        return tree_map(mix_leaf, tree)
+
+    def mix_mat(self, x_mat, *, plan=None, r: int = 0):
+        """The two-level round on the kernel matrix, cut to
+        ``plan.used_rows`` at every level: the alignment tail is zero on
+        every worker and stays zero through the mean and the inter mix, so
+        the in-node all-reduces and the inter wire move the accounted
+        bytes (``hier_bytes_per_round`` of the used rows) and the tail is
+        padded back at the end.  Static graphs (a schedule goes through
+        :meth:`mix`)."""
+        top = self.topology_at(r)
+        node_avg, recv, rebroadcast = self._level_ops(top)
+        u = None if plan is None else int(plan.used_rows)
+        cut = u is not None and u < x_mat.shape[-2]
+        x = x_mat[..., :u, :] if cut else x_mat
+        acc = rebroadcast(self._inter_mix(node_avg(x), top, recv))
+        if cut:
+            acc = plan.pad_wire(acc)
+        return acc.to(x_mat.dtype)
+
+    def shift_views(self, tree):
+        raise NotImplementedError(
+            "HierarchicalComm has no flat per-shift views: the inter wire "
+            "moves node means between leaders, not raw worker tensors")
+
+
 def _wire_leaf_bytes(tree, backend: CommBackend) -> int:
     """Σ leaf bytes as they ship: the leaf dtype, narrowed to the backend's
     wire dtype when that is narrower."""
@@ -368,28 +989,35 @@ def gossip_bytes_per_round(tree, backend: CommBackend,
 
 
 def hier_bytes_per_round(tree, backend: CommBackend, r: int = 0) -> dict:
-    """Per-worker bytes of hierarchical round ``r``, level by level, on the
-    dense backend (only node leaders ship the slow wire):
+    """Per-worker bytes of hierarchical round ``r``, level by level:
 
-    * ``"inter"``: slow-link bytes per worker, the inter degree × the leaf
-      bytes at the wire dtype, over the node size m;
-    * ``"inter_site"``: the same per shipping leader (no amortization);
+    * ``"inter"``: slow-link bytes per worker, the inter degree × the
+      payload (the codec's wire bytes with an ``inter_codec``, else the
+      leaf bytes at the wire dtype), over the node size m where only the
+      leaders ship (the flat layout and the dense backend);
+    * ``"inter_site"``: the same per shipping rank (no amortization);
     * ``"intra_wire"``: fast-link bytes per worker, a ring all-reduce's
-      ``2(m−1)/m`` × the f32 bytes, for the average and the rebroadcast;
-    * ``"intra_result"``: the two all-reduces' result bytes.
-
-    The sharded two-axis layout (no rebroadcast, no leader amortization)
-    and a codec on the inter wire are ROADMAP queue A item 12."""
+      ``2(m−1)/m`` × the f32 bytes per in-node collective (the mean and
+      the rebroadcast on the flat layout, the mean alone on the two-axis
+      layout);
+    * ``"intra_result"``: those all-reduces' result bytes."""
     top = backend.topology_at(r)
     if top.name != "hierarchical":
         raise ValueError(f"not a hierarchical topology: {top.name!r}")
     m = int(top.axis_sizes[1])
-    elems = sum(int(np.prod(tuple(l.shape))) for l in tree_leaves(tree))
-    site = len(hierarchical_inter_shifts(top)) * _wire_leaf_bytes(tree,
-                                                                   backend)
-    n_intra = 0 if m == 1 else 2
+    leaves = tree_leaves(tree)
+    elems = sum(int(np.prod(tuple(l.shape))) for l in leaves)
+    codec = getattr(backend, "inter_codec", None)
+    if codec is not None:
+        payload = sum(codec.wire_bytes(int(np.prod(tuple(l.shape))))
+                      for l in leaves)
+    else:
+        payload = _wire_leaf_bytes(tree, backend)
+    pruned = bool(getattr(backend, "hier_leader_pruned", True))
+    site = len(hierarchical_inter_shifts(top)) * payload
+    n_intra = 0 if m == 1 else (2 if pruned else 1)
     return {
-        "inter": site / m,
+        "inter": site / m if pruned else float(site),
         "inter_site": site,
         "intra_wire": n_intra * (2.0 * (m - 1) / m) * 4 * elems,
         "intra_result": n_intra * 4 * elems,

@@ -1,9 +1,10 @@
 """PD-SGDM — Periodic Decentralized Momentum SGD (paper Algorithm 1).
 
 Port of ``src/repro/core/pdsgdm.py:36-620`` on the dense simulation
-backend, over a static graph, a time-varying schedule or a hierarchical
-graph, with or without elastic membership (a churn round mixes with its
-masked W through ``comm.mix`` and is charged its live edges only).
+backend and on the sharded backends (one worker per rank), over a static
+graph, a time-varying schedule or a hierarchical graph, with or without
+elastic membership (a churn round mixes with its masked W through
+``comm.mix`` and is charged its live edges only).
 Per worker k, per iteration t::
 
     m⁽ᵏ⁾ₜ   = μ m⁽ᵏ⁾ₜ₋₁ + ∇F(x⁽ᵏ⁾ₜ; ξ⁽ᵏ⁾ₜ)
@@ -36,6 +37,16 @@ makes no host sync.
   kernel layout the shifted mix reads the self view from the f32 matrix
   and the neighbour views from its bf16 round trip (``nbr``), and each
   neighbour exchange is charged 2 bytes an element.
+* **The sharded backends** (:class:`~repro_torch.core.gossip.ShardedComm`):
+  each rank holds its worker with a leading worker dim of 1.  On the
+  kernel layout the payload is cut to ``plan.used_rows``, shipped in the
+  wire dtype, received into zero-tailed full-size buffers held per plan
+  geometry, and the self view and the received views, in the topology's
+  order, go to the n-matrix ``gossip_mix`` kernel: one launch per axis.
+  A ``HierarchicalComm`` on a static graph mixes through its ``mix_mat``.
+  The sharded comm picks round r's exchanges on the host, so the sharded
+  runtime hands the optimizer the host step (``host_step``), which it
+  keeps in step with the device counter: no host sync.
 """
 from __future__ import annotations
 
@@ -45,7 +56,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.gossip import (CommBackend, DenseComm, bf16_round_trip,
+from repro_torch.core.gossip import (CommBackend, HierarchicalComm,
+                                     ShardedComm, bf16_round_trip,
                                      gossip_bytes_per_round,
                                      hier_bytes_per_round)
 from repro_torch.kernels import LANE
@@ -92,16 +104,35 @@ class PDSGDM:
             raise ValueError("momentum μ must be in [0, 1)")
         if config.p < 1:
             raise ValueError("communication period p must be ≥ 1")
-        if not isinstance(comm, DenseComm):
-            raise NotImplementedError(
-                "only the dense simulation backend is ported; the sharded "
-                "backend is ROADMAP queue A item 12")
         self.config = config
         self.comm = comm
         # device copies of KernelPlan.row_counts, tiled over the workers,
         # one per plan geometry: a steady-state round copies nothing from
         # the host
         self._counts: dict = {}
+        # the sharded kernel wire's zero-tailed receive buffers, per plan
+        # geometry and exchange
+        self._recv: dict = {}
+        # the step counter on the host, where the sharded runtime keeps it
+        # (None on the dense backend): round r's sharded exchanges are
+        # chosen on the host
+        self.host_step: Optional[int] = None
+
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.comm, ShardedComm)
+
+    def _advance_host(self):
+        if self.host_step is not None:
+            self.host_step += 1
+
+    def _round_at(self, step):
+        """Round index ``step // p − 1``: from the host step where the
+        sharded runtime keeps one (a host int), else from the 0-d device
+        ``step``."""
+        if self.host_step is not None:
+            return self.host_step // self.config.p - 1
+        return step // self.config.p - 1
 
     # -- state ---------------------------------------------------------------
     def init(self, params) -> dict:
@@ -157,8 +188,9 @@ class PDSGDM:
     # -- communication (Alg. 1 lines 5-9) --------------------------------------
     def round_index(self, state):
         """0-based index of the gossip round being applied: ``comm_round``
-        runs after the local steps advanced the counter to (r+1)·p."""
-        return state["step"] // self.config.p - 1
+        runs after the local steps advanced the counter to (r+1)·p.  A host
+        int where the sharded runtime keeps the host step."""
+        return self._round_at(state["step"])
 
     def comm_round(self, state, params):
         """One gossip round (unconditional), with round ``r``'s topology."""
@@ -224,11 +256,13 @@ class PDSGDM:
         if self.config.overlap:
             delta = self.overlap_begin(state)
             params, state = self.local_step(state, params, grads)
+            self._advance_host()
             state = self.overlap_step_refresh(state, delta)
             if bool(self.is_comm_step(state)):
                 params, state = self.overlap_apply(state, params, delta)
             return params, state
         params, state = self.local_step(state, params, grads)
+        self._advance_host()
         return self.maybe_communicate(state, params)
 
     # -- fused round (the hot path) ---------------------------------------------
@@ -257,6 +291,7 @@ class PDSGDM:
         for batch in _unstack(batches):
             loss, grads = grads_fn(params, batch)
             params, state = self.local_step(state, params, grads)
+            self._advance_host()
             if delta is not None and self.overlap_refreshes:
                 state = self.overlap_step_refresh(state, delta)
             losses.append(loss)
@@ -341,7 +376,12 @@ class PDSGDM:
         views read the bf16 round trip of each axis's payload and the self
         view the f32 matrix."""
         if not self._mat_wire_static():
-            return self.comm.mix(x_mat, r=r)
+            comm = self.comm
+            if isinstance(comm, HierarchicalComm) and comm.period == 1:
+                return comm.mix_mat(x_mat, plan=plan)
+            return comm.mix(x_mat, r=r)
+        if self.sharded:
+            return self._sharded_gossip_mat(x_mat, plan)
         top = self.comm.topology
         lim = plan.used_rows if plan is not None else None
         bf16 = self.comm.wire_dtype == "bfloat16"
@@ -358,6 +398,58 @@ class PDSGDM:
                                         else None)
         return y
 
+    def _recv_buffers(self, shape, u, ax, j, dtype):
+        """Exchange j of axis ``ax``'s receive buffers for a ``shape``
+        matrix: the f32 view matrix, zero past row ``u`` (kept zero: only
+        rows below ``u`` are ever written), and on the bf16 wire the i16
+        buffer the payload lands in."""
+        key = (tuple(shape), u, ax, j, dtype, self.comm.device)
+        bufs = self._recv.get(key)
+        if bufs is None:
+            full = torch.zeros(shape, dtype=torch.float32,
+                               device=self.comm.device)
+            wire = (torch.empty(shape[:-2] + (u, shape[-1]), dtype=dtype,
+                                device=self.comm.device)
+                    if dtype != torch.float32 else full[..., :u, :])
+            bufs = self._recv[key] = (full, wire)
+        return bufs
+
+    def _sharded_gossip_mat(self, x_mat, plan):
+        """The shift-structured wire on a ``ShardedComm``: per topology
+        axis, the ``used_rows`` cut of the matrix ships in the wire dtype
+        to every neighbour of the axis in one batch, lands in the held
+        zero-tailed buffers, and the self view and the received views, in
+        the topology's order, go to one ``gossip_mix`` launch."""
+        comm = self.comm
+        top = comm.topology
+        rows = x_mat.shape[-2]
+        u = plan.used_rows if plan is not None else rows
+        per_axis: dict = {}
+        for (ax, sh, w) in top.shifts:
+            per_axis.setdefault(ax, []).append((sh, w))
+        y = x_mat
+        for ax in sorted(per_axis):
+            payload = comm._wire_cast(y[..., :u, :]).contiguous()
+            sends, recvs, views = [], [], []
+            for j, (sh, _w) in enumerate(per_axis[ax]):
+                if sh == 0:
+                    views.append(y)
+                    continue
+                full, wire = self._recv_buffers(tuple(y.shape), u, ax, j,
+                                                payload.dtype)
+                dst, src = comm._ends(ax, "shift", sh)
+                sends.append((payload, dst, j))
+                recvs.append((wire, src, j))
+                views.append((full, wire))
+            comm._p2p(sends, recvs)
+            for v in views:
+                if isinstance(v, tuple) and v[1].dtype != torch.float32:
+                    v[0][..., :u, :].copy_(comm._unwire_cast(v[1]))
+            views = [v[0] if isinstance(v, tuple) else v for v in views]
+            y = kops.gossip_mix_mat(tuple(views),
+                                    tuple(w for (_sh, w) in per_axis[ax]))
+        return y
+
     def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
         """One gossip round on the kernel layout (``counts`` is unused here;
         the compressed wire of CPD-SGDM reads it)."""
@@ -369,7 +461,9 @@ class PDSGDM:
         runs (no membership there, so stale and regular coincide), else
         ``comm.stale_mix``, whose membership mask keys on the delivery
         round r+1."""
-        if self._mat_wire_static():
+        if self._mat_wire_static() or (
+                isinstance(self.comm, HierarchicalComm)
+                and self.comm.period == 1):
             return self._gossip_mat(x_mat, r, plan=plan)
         return self.comm.stale_mix(x_mat, r=r)
 
@@ -416,7 +510,7 @@ class PDSGDM:
                     "gossip (kernel_comm_supported)")
             # round start: step = (r+1)·p, so r is the payload's round
             gate = (state["mix"]["phase"] > 0).to(torch.float32)
-            delta = self.overlap_begin_mat(mats, step // self.config.p - 1,
+            delta = self.overlap_begin_mat(mats, self._round_at(step),
                                            gate, plan=plan)
         losses = []
         for batch in _unstack(batches):
@@ -431,8 +525,9 @@ class PDSGDM:
             if overlap and self.overlap_refreshes:
                 mats = self.overlap_refresh_mat(mats, delta)
             step = step + 1
+            self._advance_host()
             losses.append(loss)
-        r = step // self.config.p - 1
+        r = self._round_at(step)
         if gossip and overlap:
             x_mat, mats = self.overlap_apply_mat(x_mat, mats, delta, r)
         elif gossip and self.kernel_comm_supported:
@@ -467,11 +562,24 @@ class PDSGDM:
         return (self.config.use_kernel and self.kernel_comm_supported
                 and self._mat_wire_static())
 
+    def _kernel_hier_active(self) -> bool:
+        """Whether the round gossips through ``HierarchicalComm.mix_mat``
+        (the kernel layout, a static hierarchical graph): its inter payload
+        is the ``(used_rows, 1024)`` matrix, not the leaf tree."""
+        return (self.config.use_kernel and self.kernel_comm_supported
+                and isinstance(self.comm, HierarchicalComm)
+                and self.comm.period == 1)
+
     def hier_bytes_per_level(self, params, r: int = 0) -> dict:
         """Per-level bytes of hierarchical round ``r``
-        (:func:`~repro_torch.core.gossip.hier_bytes_per_round`; the dense
-        backend ships the leaf tree on either layout)."""
-        return hier_bytes_per_round(params, self.comm, r=r)
+        (:func:`~repro_torch.core.gossip.hier_bytes_per_round`): the leaf
+        tree, or on ``HierarchicalComm.mix_mat`` the ``used_rows × 1024``
+        f32 matrix."""
+        payload = params
+        if self._kernel_hier_active():
+            payload = torch.empty((self._mat_wire_rows(params) * LANE,),
+                                  dtype=torch.float32, device="meta")
+        return hier_bytes_per_round(payload, self.comm, r=r)
 
     def bytes_per_comm_round(self, params, r: int = 0) -> int:
         """Per-worker bytes of gossip round ``r``; ``params`` is one

@@ -1,7 +1,7 @@
 """MT-DSGDm and QG-DSGDm: momentum variants for non-IID workloads.
 
 Port of ``src/repro/core/tracking.py:84-654`` on the dense simulation
-backend.  Both keep PD-SGDM's periodic structure (p local steps, one
+backend and, with full-precision tracking, on the sharded backends.  Both keep PD-SGDM's periodic structure (p local steps, one
 gossip) and its fused round, on the tree and on the flatten-once kernel
 layout.
 
@@ -49,9 +49,9 @@ displacement into its buffer as in the synchronous form.  On a
 hierarchical graph MT's bytes double at every level (the ``(x, c)``
 pair).
 
-Not ported: the sharded backend with its per-neighbour correction
-payloads (ROADMAP queue A item 12, refused by
-:class:`~repro_torch.core.pdsgdm.PDSGDM`).
+Not ported: MT's compressed tracking on the sharded backends, with its
+per-neighbour correction payloads (ROADMAP queue A item 12b, refused at
+construction).
 """
 from __future__ import annotations
 
@@ -62,7 +62,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.compression import Compressor
-from repro_torch.core.gossip import (CommBackend, gossip_bytes_per_round,
+from repro_torch.core.gossip import (CommBackend, ShardedComm,
+                                     gossip_bytes_per_round,
                                      worker_mask_like)
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.wire import make_codec, round_trip_tree
@@ -101,6 +102,12 @@ class MTDSGDm(PDSGDM):
                 "MT-DSGDm compressed tracking does not compose with "
                 "overlap=True: the in-flight correction payload would need "
                 "a second codec wire per round")
+        if codec is not None and isinstance(comm, ShardedComm):
+            raise NotImplementedError(
+                "MT-DSGDm compressed tracking on the sharded backend (the "
+                "per-neighbour correction payloads) is not ported yet: "
+                "ROADMAP queue A item 12b.  Full-precision tracking "
+                "(compressor=None) runs on it")
         super().__init__(config, comm)
         self.compressor = compressor
         self.codec = codec
@@ -184,8 +191,8 @@ class MTDSGDm(PDSGDM):
             c = round_trip_tree(self.codec, c, r)
         new_state = dict(state)
         new_state["c"] = self.comm.mix(c, r=r)
-        am = self.comm.active_mask(r)
-        if self.codec is not None and am is not None:
+        am = self.comm.active_mask(r) if self.codec is not None else None
+        if am is not None:
             # a straggler's masked row is e_k, which would quantize its c
             # in place with no exchange: it keeps the raw c
             new_state["c"] = tree_map(
@@ -341,6 +348,8 @@ class QGDSGDm(PDSGDM):
         """1/(η p), with η at the round's last local step (t = (r+1)·p − 1):
         the normalizer of the displacement → direction conversion."""
         cfg = self.config
+        if not isinstance(r, torch.Tensor):     # the sharded host round
+            r = torch.tensor(r, device=self.comm.device)
         return 1.0 / (cfg.lr((r + 1) * cfg.p - 1) * cfg.p)
 
     def _fold(self, m, xprev, x_mixed, inv):

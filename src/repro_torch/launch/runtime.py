@@ -1,0 +1,249 @@
+"""The sharded runtime: ``build_comm`` and ``build_train``/``TrainPack``.
+
+Port of ``src/repro/launch/runtime.py:112-445`` (training; ``build_serve``
+waits for ROADMAP queue A item 13, ``make_shd`` for item 12b).  Where the
+reference shard_maps the optimizer over the worker axes of a device mesh,
+the port runs one worker per rank: each rank builds its worker with a
+leading worker dim of 1 (the ``(1, rows, 1024)`` shard the reference's
+``shard_map`` sees) and its gradients come from the dense path's
+``torch.func.vmap(grad_and_value)`` over that dim.  Every rank draws x₀
+from the same seed (the paper's identical x₀); each draws its own
+worker's batches.
+
+``TrainPack.train_round(params, state, batches, t)`` is p local steps and
+one gossip round: the kernel round or the tree round, as
+``optim.use_kernel`` says.  ``train_step(params, state, batch, t)`` is one
+step, for a tail shorter than a round and for a resume off a round
+boundary, with its gossip where step t ends a round: on the kernel layout
+a one-step kernel round (so a tail launches what ``SimTrainer``'s does),
+else (and with overlapped rounds, whose per-step form forms the stale
+correction at every step) ``opt.step``.  Both take the host step ``t``:
+the sharded comm picks round r's exchanges on the host, and the trainer
+knows t.
+``remat`` changes no value and is not applied (item 12b).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelCfg, RunCfg
+from repro_torch.core import make_compressor, make_optimizer
+from repro_torch.core.gossip import HierarchicalComm, ShardedComm
+from repro_torch.core.topology import (hierarchical, make_schedule,
+                                       make_topology, torus)
+from repro_torch.launch.mesh import Layout, make_layout
+from repro_torch.models import make_model
+from repro_torch.tree import tree_map
+
+__all__ = ["STATE_KEYS", "TrainPack", "build_comm", "build_train",
+           "check_state_keys", "make_steps"]
+
+# every optimizer state entry the checkpoint knows: True where the entry is
+# worker-stacked (mirrors params), False where it is one scalar for all
+# workers; "mix" is the overlapped rounds' DelayedMixState
+STATE_KEYS = {"step": False, "m": True, "xhat": True, "c": True,
+              "g_prev": True, "xprev": True, "xhat_nbrs": True}
+MIX_KEYS = {"buf": True, "buf_c": True, "phase": False}
+
+
+def check_state_keys(state) -> dict:
+    """``{key: worker-stacked?}`` for every entry of an optimizer state
+    (``mix`` as a dict of its own); a key the checkpoint does not know
+    raises ``KeyError``, so an optimizer that grows a state entry fails
+    here and not in a resume."""
+    out = {}
+    for k, v in state.items():
+        if k == "mix":
+            out[k] = {}
+            for kk in v:
+                if kk not in MIX_KEYS:
+                    raise KeyError(f"mix/{kk}")
+                out[k][kk] = MIX_KEYS[kk]
+        elif k in STATE_KEYS:
+            out[k] = STATE_KEYS[k]
+        else:
+            raise KeyError(k)
+    return out
+
+
+# --------------------------------------------------------------------- comm
+def build_comm(run: RunCfg, layout: Layout, membership=None):
+    """The topology (or schedule) and sharded comm of the worker layout.
+    ``parallel.node_size > 0`` selects two-level gossip
+    (:class:`HierarchicalComm`, the inner axis is the node on a two-axis
+    layout); ``parallel.topology_schedule`` a time-varying graph."""
+    waxes = layout.worker_axes
+    sizes = layout.worker_sizes
+    wd = run.optim.wire_dtype
+    mesh = layout.mesh
+    sched_name = run.parallel.topology_schedule
+    node_size = int(run.parallel.node_size or 0)
+    if node_size:
+        K = int(layout.n_workers)
+        if len(waxes) == 2:
+            if node_size != sizes[1]:
+                raise ValueError(
+                    f"node_size {node_size} must equal the inner worker "
+                    f"axis size {sizes[1]} on a two-axis layout {waxes}: "
+                    "the node boundary is the mesh axis")
+        elif K % node_size != 0:
+            raise ValueError(f"node_size {node_size} does not divide the "
+                             f"worker count {K}")
+        n_nodes = K // node_size
+        if sched_name in ("hier_one_peer", "hierarchical_one_peer"):
+            first = make_schedule("hier_one_peer", (n_nodes, node_size))
+        elif sched_name == "static":
+            first = hierarchical(n_nodes, node_size,
+                                 inter=run.parallel.topology)
+        else:
+            raise ValueError(
+                f"topology_schedule {sched_name!r} does not compose with "
+                "node_size (hierarchical rounds support 'static' and "
+                "'hier_one_peer')")
+        return HierarchicalComm(first, axis_names=waxes, mesh=mesh,
+                                membership=membership, wire_dtype=wd,
+                                inter_codec=_make_inter_codec(run))
+    if sched_name != "static":
+        sched = make_schedule(
+            sched_name, sizes, base_topology=run.parallel.topology,
+            rounds=run.parallel.schedule_rounds,
+            seed=run.parallel.schedule_seed)
+        return ShardedComm(sched, axis_names=waxes, mesh=mesh,
+                           membership=membership, wire_dtype=wd)
+    topo = (make_topology(run.parallel.topology, sizes) if len(waxes) == 1
+            else torus(sizes))
+    return ShardedComm(topo, axis_names=waxes, mesh=mesh,
+                       membership=membership, wire_dtype=wd)
+
+
+def _make_inter_codec(run: RunCfg):
+    """The keyless codec of the hierarchical inter wire, from
+    ``parallel.inter_codec`` (shape knobs shared with the compressor)."""
+    from repro_torch.core.wire import make_codec
+    name = str(run.parallel.inter_codec).lower()
+    if name in ("none", ""):
+        return None
+    o = dataclasses.replace(run.optim, compressor=name)
+    return make_codec(make_compressor(name, **_compressor_kwargs(o)))
+
+
+def _compressor_kwargs(o) -> dict:
+    """OptimCfg knobs → the named compressor's constructor args."""
+    name = o.compressor.lower()
+    if name == "sign":
+        return {"block": o.compressor_block}
+    if name == "topk":
+        return {"fraction": o.compressor_fraction,
+                "block": o.compressor_block}
+    if name == "randk":
+        return {"fraction": o.compressor_fraction}
+    if name == "qsgd":
+        return {"levels": o.compressor_levels, "block": o.compressor_block}
+    if name in ("sparse", "sparse_rows") or name.startswith("sparse+"):
+        return {"max_rows": o.compressor_rows, "levels": o.compressor_levels,
+                "block": o.compressor_block}
+    return {}
+
+
+def _make_optimizer(run: RunCfg, comm):
+    o = run.optim
+    # CPD/CHOCO always ship a codec payload; MT ships its correction
+    # through one only when asked (track_compressed)
+    wants = (o.name.startswith(("cpd", "choco"))
+             or (o.name.startswith("mt") and o.track_compressed))
+    comp = make_compressor(o.compressor, **_compressor_kwargs(o)) \
+        if wants else None
+    return make_optimizer(o.name, comm, eta=o.eta, mu=o.mu, p=o.p,
+                          gamma=o.gamma, weight_decay=o.weight_decay,
+                          compressor=comp, use_kernel=o.use_kernel,
+                          overlap=o.overlap)
+
+
+# -------------------------------------------------------------------- train
+@dataclasses.dataclass
+class TrainPack:
+    model: object
+    opt: object
+    layout: Layout
+    device: torch.device
+    params_struct: dict        # this rank's worker, (1, ...), meta tensors
+    state_struct: dict
+    state_keys: dict           # check_state_keys(state_struct)
+    init_fn: Callable          # (seed) -> (params, opt_state)
+    train_step: Callable       # (params, state, batch, t) -> (.., loss)
+    train_round: Callable      # (params, state, batches[p], t) -> (.., losses)
+
+    def worker_batch(self, batch: dict) -> dict:
+        """This rank's worker of a batch drawn for all K workers (leading
+        dim K): the dense stream's batches, worker by worker."""
+        w = self.layout.worker_index
+        return {k: v[w:w + 1] for k, v in batch.items()}
+
+
+def build_train(run: RunCfg, mesh, model_cfg: Optional[ModelCfg] = None,
+                membership=None) -> TrainPack:
+    """The rank's training pack over the worker ``mesh``."""
+    mcfg = model_cfg or run.model
+    layout = make_layout(run.parallel, mesh)
+    device = mesh.device
+    model = make_model(mcfg)
+    comm = build_comm(run, layout, membership=membership)
+    opt = _make_optimizer(run, comm)
+
+    grad = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: model.loss(p, b)[0]))
+
+    def gfn(params, batch):
+        grads, losses = grad(params, batch)
+        return losses.mean(), grads
+
+    def init_fn(seed: int):
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        params = {k: v.unsqueeze(0) for k, v in
+                  model.init(gen, device=device).items()}
+        return params, opt.init(params)
+
+    train_step, train_round = make_steps(opt, gfn)
+    params_struct = {k: torch.empty((1,) + tuple(s),
+                                    dtype=model.leaf_dtype(k), device="meta")
+                     for k, s in model.param_shapes().items()}
+    state_struct = opt.init(params_struct)
+    return TrainPack(model=model, opt=opt, layout=layout, device=device,
+                     params_struct=params_struct, state_struct=state_struct,
+                     state_keys=check_state_keys(state_struct),
+                     init_fn=init_fn, train_step=train_step,
+                     train_round=train_round)
+
+
+def make_steps(opt, gfn):
+    """``(train_step, train_round)`` of ``opt`` with the gradient function
+    ``gfn(params, batch) -> (loss, grads)``; each hands ``opt`` the host
+    step first."""
+    cfg = opt.config
+
+    def train_step(params, state, batch, t: int):
+        opt.host_step = int(t)
+        if cfg.use_kernel and not cfg.overlap:
+            params, state, losses = opt.round(
+                state, params, gfn, {k: v[None] for k, v in batch.items()},
+                gossip=(int(t) + 1) % cfg.p == 0)
+            return params, state, losses[0]
+        loss, grads = gfn(params, batch)
+        params, state = opt.step(state, params, grads)
+        return params, state, loss
+
+    def train_round(params, state, batches, t: int):
+        opt.host_step = int(t)
+        return opt.round(state, params, gfn, batches)
+
+    return train_step, train_round
+
+
+def per_worker(struct) -> dict:
+    """One worker's tree (the worker dim stripped), as meta tensors: what
+    the optimizer's byte model reads."""
+    return tree_map(lambda s: torch.empty(tuple(s.shape[1:]), dtype=s.dtype,
+                                          device="meta"), struct)

@@ -285,6 +285,16 @@ class Model:
         shapes = {n: tuple(t.shape) for n, t in self.net.named_parameters()}
         return {n: shapes[n] for n in leaf_order(shapes)}
 
+    def leaf_dtype(self, name: str) -> torch.dtype:
+        """The dtype :meth:`init` gives leaf ``name``: ``param_dtype``, but
+        f32 for the MoE router and the SSM's ``A_log``, ``dt_bias``, ``D``."""
+        leaf = name.rsplit(".", 1)[-1]
+        ssm = name.rsplit(".", 2)[-2] == "mamba"
+        if name.endswith(".moe.router.w") or (
+                ssm and leaf in ("A_log", "dt_bias", "D")):
+            return torch.float32
+        return self.param_dtype
+
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         """Fresh params drawn from ``generator`` on its own device, in leaf
         order, and moved to ``device``: dense weights a truncated normal
@@ -304,9 +314,7 @@ class Model:
         for name, shape in self.param_shapes().items():
             leaf = name.rsplit(".", 1)[-1]
             ssm = name.rsplit(".", 2)[-2] == "mamba"
-            dtype = (f32 if name.endswith(".moe.router.w")
-                     or (ssm and leaf in ("A_log", "dt_bias", "D"))
-                     else self.param_dtype)
+            dtype = self.leaf_dtype(name)
             if ssm and leaf == "conv_w":
                 t = (torch.randn(shape, generator=generator, device=gdev,
                                  dtype=f32) * 0.1).to(dtype)

@@ -1,6 +1,7 @@
-"""Round-based training loop of the dense K-worker simulation.
+"""Round-based training loops: the dense K-worker simulation
+(``SimTrainer``) and the sharded runtime's (``ShardedTrainer``).
 
-Port of ``History`` and ``SimTrainer`` (``src/repro/train/trainer.py:45-216``),
+Port of ``src/repro/train/trainer.py``: ``History`` and ``SimTrainer``,
 with the eval hook: ``train(..., eval_fn=...)`` hands the worker average,
 re-stacked over the K workers, to ``eval_fn`` once per block that holds a
 log point, and records its value beside each of those log points.
@@ -13,19 +14,32 @@ with a tail of local steps and no gossip, reproducing the per-step
 schedule ``mod(t+1, p) == 0`` exactly.  Per-worker ``(loss, grads)`` come
 from ``torch.func.vmap(torch.func.grad_and_value(...))`` over the
 worker-stacked params.
+
+``ShardedTrainer`` drives a ``TrainPack`` (:mod:`repro_torch.launch.runtime`)
+in every rank: whole rounds through ``pack.train_round``, a tail or an
+off-boundary resume through ``pack.train_step``.  Losses stay on the
+device until a log block flushes; the flush is the one collective of the
+log path (the ranks' mean loss per step, so every rank logs the same
+global loss).  Comm MB come from ``bytes_per_round_cycle``.  With
+``ckpt_every`` rank 0 gathers the K workers' slices and writes the
+K-stacked trees (the same files as a dense run's); ``resume=True``
+restores through ``restore_elastic`` (K→K′ too) and continues bit for bit
+from a round boundary, or on the per-step path until the next one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.core.pdsgdm import PDSGDM
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["SimTrainer", "History"]
+__all__ = ["SimTrainer", "History", "ShardedTrainer", "gather_workers"]
 
 # cap on the derived block size (rounds between two host syncs)
 _MAX_BLOCK_ROUNDS = 16
@@ -165,3 +179,187 @@ class SimTrainer:
                                           batches, gossip=False)
             flush([lv], done, params)
         return params, state, hist
+
+
+def gather_workers(tree, keys, layout):
+    """The K-stacked tree on rank 0 (None elsewhere): each worker-stacked
+    leaf (``keys``: the ``check_state_keys`` marks, True for every params
+    leaf) gathered from every rank with ``dist.gather``, through the host
+    under gloo; the other leaves as rank 0 holds them.  Collective."""
+    mesh = layout.mesh
+    root = mesh.rank == 0
+    on_host = mesh.backend == "gloo"
+
+    def gather(leaf):
+        t = leaf.detach().contiguous()
+        if on_host:
+            t = t.cpu()
+        bufs = ([torch.empty_like(t) for _ in range(mesh.world_size)]
+                if root else None)
+        dist.gather(t, bufs, dst=0)
+        return torch.cat(bufs).cpu() if root else None
+
+    def walk(sub, mark):
+        if isinstance(sub, dict):
+            return {k: walk(v, mark[k] if isinstance(mark, dict) else mark)
+                    for k, v in sub.items()}
+        return gather(sub) if mark else (sub.detach().cpu() if root else None)
+
+    return walk(tree, keys)
+
+
+class ShardedTrainer:
+    """The sharded training loop over a ``TrainPack``, in every rank.
+
+    * the hot path is ``pack.train_round`` (p local steps + one gossip);
+    * losses stay on the device until a log block flushes, and the flush
+      averages them over the ranks (one ``all_reduce``): every rank logs
+      the same global loss;
+    * comm MB come from the optimizer's ``bytes_per_round_cycle``;
+    * checkpoints hold params and the whole optimizer state, K-stacked
+      (rank 0 gathers); ``resume=True`` continues bit for bit from a round
+      boundary, and from an off-boundary checkpoint on the per-step path
+      until the next boundary."""
+
+    def __init__(self, pack, ckpt_dir: Optional[str] = None,
+                 ckpt_every: int = 0):
+        self.pack = pack
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+
+    def bytes_per_round(self) -> int:
+        from repro_torch.launch.runtime import per_worker
+        return self.pack.opt.bytes_per_comm_round(
+            per_worker(self.pack.params_struct))
+
+    def bytes_per_round_cycle(self) -> tuple:
+        from repro_torch.launch.runtime import per_worker
+        return self.pack.opt.bytes_per_round_cycle(
+            per_worker(self.pack.params_struct))
+
+    def _stacked(self, struct, k: int):
+        """``struct`` (this rank's worker, leading dim 1) as a K-stacked
+        template."""
+        def f(s):
+            shape = tuple(s.shape)
+            if len(shape) >= 1 and shape[0] == 1:
+                shape = (k,) + shape[1:]
+            return torch.empty(shape, dtype=s.dtype, device="meta")
+
+        def walk(sub):
+            if isinstance(sub, dict):
+                return {kk: walk(v) for kk, v in sub.items()}
+            return f(sub)
+        return walk(struct)
+
+    def _restore(self, step: int):
+        """This rank's worker of the checkpoint of ``step``, written by any
+        fleet size (``restore_elastic``)."""
+        from repro_torch.checkpoint import elastic
+        pack = self.pack
+        K = pack.layout.n_workers
+        w = pack.layout.worker_index
+        out = elastic.restore_elastic(
+            self.ckpt_dir, step,
+            params_template=self._stacked(pack.params_struct, K),
+            state_template=self._stacked(pack.state_struct, K),
+            comm=pack.opt.comm, device=pack.device)
+
+        def mine(sub, mark):
+            if isinstance(sub, dict):
+                return {k: mine(v, mark[k] if isinstance(mark, dict)
+                                else mark) for k, v in sub.items()}
+            return sub[w:w + 1].contiguous() if mark else sub
+        return (mine(out["params"], True),
+                mine(out["opt_state"], pack.state_keys))
+
+    def save(self, step: int, params, state) -> None:
+        """Rank 0 writes the K-stacked params and state of ``step``; every
+        rank takes part in the gather and waits for the write."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+        layout = self.pack.layout
+        p = gather_workers(params, True, layout)
+        s = gather_workers(state, self.pack.state_keys, layout)
+        if layout.mesh.rank == 0:
+            ckpt.save(self.ckpt_dir, step, params=p, opt_state=s)
+        dist.barrier()
+
+    def _global_losses(self, losses) -> list:
+        """The ranks' mean of each step's loss: one ``all_reduce``."""
+        mesh = self.pack.layout.mesh
+        t = losses.detach().to(torch.float32)
+        if mesh.backend == "gloo":
+            t = t.cpu()
+        dist.all_reduce(t)
+        return (t / mesh.world_size).tolist()
+
+    def train(self, seed: int, batch_fn: Callable[[int], dict], steps: int,
+              log_every: int = 10, verbose: bool = True,
+              resume: bool = False) -> Dict:
+        """``steps`` steps from the init of ``seed`` (or the latest
+        checkpoint with ``resume``); ``batch_fn(t)`` gives step t's batch
+        of this rank's worker (leading dim 1).  Returns ``{"params",
+        "state", "history", "steps_run"}``."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+        pack = self.pack
+        p = pack.opt.config.p
+        params = state = None
+        start = 0
+        if resume and not self.ckpt_dir:
+            raise ValueError(
+                "resume=True needs a checkpoint directory (ckpt_dir)")
+        if resume:
+            last = ckpt.latest_step(self.ckpt_dir)
+            if last is not None:
+                params, state = self._restore(last)
+                start = last
+        if params is None:
+            params, state = pack.init_fn(seed)
+        if start >= steps and verbose:
+            print(f"resume: checkpoint step {start} >= steps {steps}, "
+                  "nothing to run")
+        hist = History()
+        per_round = self.bytes_per_round_cycle()
+        wall0 = time.time()
+        pending: list = []             # [(first step, device losses)]
+
+        def flush():
+            if not pending:
+                return
+            logged = len(hist.steps)
+            t0 = pending[0][0]
+            losses = self._global_losses(torch.cat([l for _, l in pending]))
+            _log_chunk(hist, losses, t0, steps=steps, log_every=log_every,
+                       p=p, per_round_bytes=per_round)
+            if verbose:
+                for i in range(logged, len(hist.steps)):
+                    print(f"step {hist.steps[i]:5d} loss {hist.loss[i]:.4f} "
+                          f"comm {hist.comm_mb[i]:.1f} MB "
+                          f"({time.time() - wall0:.1f}s)")
+            pending.clear()
+
+        t = start
+        while t < steps:
+            if t % p == 0 and steps - t >= p:
+                batches = _stack_batches([batch_fn(t + i) for i in range(p)])
+                params, state, losses = pack.train_round(params, state,
+                                                         batches, t)
+                n = p
+            else:
+                # off a round boundary (a resume from a tail checkpoint) or
+                # a tail shorter than a round: the per-step path, whose
+                # gossip keys on the restored step counter
+                params, state, loss = pack.train_step(params, state,
+                                                      batch_fn(t), t)
+                losses, n = loss.reshape(1), 1
+            pending.append((t, losses))
+            t += n
+            if t >= steps or any(_should_log(tt, steps, log_every)
+                                 for tt in range(t - n, t)):
+                flush()
+            if (self.ckpt_dir and self.ckpt_every
+                    and t // self.ckpt_every > (t - n) // self.ckpt_every):
+                self.save(t, params, state)
+        flush()
+        return {"params": params, "state": state, "history": hist,
+                "steps_run": t - start}

@@ -40,6 +40,19 @@ from repro_torch.core import topology as top  # noqa: E402
 from repro_torch.testing import chaos  # noqa: E402
 from repro_torch.train.trainer import SimTrainer  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K, D, P, R = 8, 24, 2, 12
 SEED = 7
 BENCH = os.path.join(os.path.dirname(__file__), "..", "benchmarks",

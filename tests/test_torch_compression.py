@@ -39,6 +39,19 @@ from repro_torch.kernels import LANE, ops  # noqa: E402
 from repro_torch.kernels.qsgd_quant import qsgd_dequant, qsgd_quant  # noqa: E402
 from repro_torch.kernels.sign_compress import sign_pack, sign_unpack  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SCALE_ULPS = 8
 LEAF_SHAPES = [(3,), (LANE + 1,), (3, 3, 16, 16), (2 * LANE + 7,)]
 _COUNTERS = (sign_pack, sign_unpack, qsgd_quant, qsgd_dequant)

@@ -60,6 +60,19 @@ from repro_torch.kernels.topk_select import topk_scatter, topk_select  # noqa: E
 from repro_torch.models.resnet import resnet20_init, resnet20_loss  # noqa: E402
 from repro_torch.train.trainer import SimTrainer  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTH, K, BATCH, P, STEPS = 4, 8, 2, 4, 9
 HYPER = dict(eta=0.1, mu=0.9, p=P, weight_decay=1e-4, gamma=0.4)
 GAMMA = np.float32(HYPER["gamma"])

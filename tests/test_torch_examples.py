@@ -114,3 +114,65 @@ def test_torch_noniid_ablation():
             for _, name, p in grid]
     _check(rows, refs, jax.tree_util.tree_map(
         np.asarray, resnet20_init(jax.random.PRNGKey(0), width=4)))
+
+
+BENCH_PRETRAIN = os.path.join(ROOT, "benchmarks", "BENCH_pretrain.json")
+PRETRAIN_RUNS = {"flat": [],
+                 "hier": ["--node-size", "2", "--wire-dtype", "bfloat16"]}
+
+
+@pytest.fixture(scope="module")
+def pretrain_records(tmp_path_factory):
+    """``examples/torch_pretrain_decentralized.py --quick`` in four gloo
+    ranks on the CPU, flat and on the sweep's hier row
+    (``benchmarks/pretrain_sweep.py:126``), each run's JSON record."""
+    import json
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    out = {}
+    for tag, extra in PRETRAIN_RUNS.items():
+        path = str(tmp_path_factory.mktemp("pretrain") / "run.json")
+        r = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "examples",
+                                          "torch_pretrain_decentralized.py"),
+             "--quick", "--workers", "4", "--device", "cpu", "--steps",
+             str(STEPS), "--json-out", path] + extra,
+            env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+        assert r.returncode == 0, r.stdout + r.stderr
+        with open(path) as f:
+            out[tag] = json.load(f)
+    return out
+
+
+@pytest.mark.parametrize("tag", list(PRETRAIN_RUNS))
+def test_torch_pretrain_decentralized(pretrain_records, tag):
+    """The bytes per round and comm-MB of the committed
+    ``BENCH_pretrain.json``'s ``train_flat``/``train_hier`` rows, exactly
+    (16,262,144 and 2,032,768 B: the ring's two f32 neighbours of the
+    2,032,768-param lm-5m, and the bf16 inter wire of hierarchical(2, 2)
+    shipped by the leaders, over the node); finite losses over 8 steps."""
+    import json
+    rec = pretrain_records[tag]
+    with open(BENCH_PRETRAIN) as f:
+        rows = {r["name"]: r["derived"] for r in json.load(f)["rows"]}
+    want = rows[f"pretrain/train_{tag}"]
+    assert rec["bytes_per_comm_round"] == want["bytes_per_comm_round"]
+    assert rec["bytes_per_comm_round"] == {"flat": 16_262_144,
+                                           "hier": 2_032_768}[tag]
+    assert round(rec["comm_mb"], 4) == want["comm_mb"]
+    assert (rec["model"], rec["workers"], rec["steps"]) == (
+        want["model"], want["workers"], want["steps"])
+    assert math.isfinite(rec["first_loss"]) and math.isfinite(
+        rec["final_loss"])
+    assert rec["final_loss"] < rec["first_loss"]
+
+
+def test_torch_pretrain_claim_equal_loss(pretrain_records):
+    """``claim_equal_loss`` as ``benchmarks/pretrain_sweep.py:145`` states
+    it: the hier run's final loss within 5 % of the flat run's, at 8× less
+    comm."""
+    flat, hier = pretrain_records["flat"], pretrain_records["hier"]
+    assert hier["final_loss"] <= 1.05 * flat["final_loss"]
+    assert flat["comm_mb"] / hier["comm_mb"] == 8.0

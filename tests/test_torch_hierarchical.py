@@ -39,6 +39,19 @@ from repro_torch.kernels.gossip_mix import launch_count  # noqa: E402
 from repro_torch.kernels.ops import KernelPlan  # noqa: E402
 from repro_torch.kernels.ref import gossip_shift_ref  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRIDS = [(2, 4, "ring"), (4, 2, "ring"), (8, 2, "exponential"),
          (3, 2, "complete"), (1, 4, "ring"), (4, 1, "ring")]

@@ -153,10 +153,15 @@ def test_port_imports_no_jax_and_no_reference():
                    "configs/registry.py", "configs/shapes.py",
                    "configs/olmo_1b.py", "models/layers.py",
                    "models/attention.py", "models/moe.py",
-                   "models/mamba2.py", "models/transformer.py"):
+                   "models/mamba2.py", "models/transformer.py",
+                   "launch/__init__.py", "launch/mesh.py",
+                   "launch/spawn.py", "launch/runtime.py",
+                   "launch/train.py", "checkpoint/checkpoint.py",
+                   "checkpoint/elastic.py", "train/trainer.py"):
         assert os.path.join("src", "repro_torch", module) in scanned
     for example in ("torch_quickstart.py", "torch_compression_ablation.py",
-                    "torch_noniid_ablation.py"):
+                    "torch_noniid_ablation.py",
+                    "torch_pretrain_decentralized.py"):
         assert os.path.join("examples", example) in scanned
     forbidden = []
     for path in _port_sources():
@@ -168,3 +173,35 @@ def test_port_imports_no_jax_and_no_reference():
     errors = lint_paths([os.path.join(REPO, "src", "repro_torch")]
                         + _examples(), base=REPO)
     assert errors == [], "\n".join(str(e) for e in errors)
+
+
+_NO_GROUP_AT_IMPORT = """
+import importlib, pkgutil, sys
+import torch.distributed as dist
+
+def refuse(*a, **k):
+    raise AssertionError("a process group created at import time")
+
+dist.init_process_group = dist.new_group = refuse
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not dist.is_initialized()
+print(len(names))
+"""
+
+
+def test_no_process_group_at_import():
+    """Importing every module of the port (the sharded runtime's
+    ``launch`` package too) creates no process group: ``init_process_group``
+    and ``new_group`` are only called by a rank's own setup."""
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    r = subprocess.run([sys.executable, "-c", _NO_GROUP_AT_IMPORT],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip().splitlines()[-1]) >= 50

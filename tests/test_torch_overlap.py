@@ -36,6 +36,19 @@ from repro_torch.core import (PDSGDM, DenseComm,  # noqa: E402
                               make_compressor, make_optimizer)
 from repro_torch.core import topology as top  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K, P, ETA, MU = 4, 4, 0.05, 0.9
 ATOL = 2e-6
 

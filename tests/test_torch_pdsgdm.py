@@ -41,6 +41,19 @@ from repro_torch.kernels.ops import KernelPlan  # noqa: E402
 from repro_torch.models.resnet import resnet20_init, resnet20_loss  # noqa: E402
 from repro_torch.train.trainer import SimTrainer  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTH, K, BATCH, P, STEPS = 4, 8, 2, 4, 9
 HYPER = dict(eta=0.1, mu=0.9, p=P, weight_decay=1e-4)
 
@@ -295,10 +308,12 @@ def test_schedules_match_reference(name, args):
 
 
 def test_optimizer_factory_refuses_what_this_slice_does_not_port():
-    """What the port refuses: an unknown optimizer and any backend but the
-    dense one (the sharded backend, ROADMAP queue A item 12).  Overlapped
-    rounds and hierarchical graphs are ported (tests/test_torch_overlap.py,
-    tests/test_torch_hierarchical.py) and build as the reference's do."""
+    """What the port refuses: an unknown optimizer, and on the sharded
+    backend CPD-SGDM and MT's compressed tracking (ROADMAP queue A item
+    12b; the rest of the sharded backend is tests/test_torch_sharded.py).
+    Overlapped rounds and hierarchical graphs are ported
+    (tests/test_torch_overlap.py, tests/test_torch_hierarchical.py) and
+    build as the reference's do."""
     comm = DenseComm(ring(K), device="cpu")
     for name in ("pd_sgdm", "mt_dsgdm", "qg_dsgdm"):
         opt = make_optimizer(name, comm, overlap=True)
@@ -306,8 +321,16 @@ def test_optimizer_factory_refuses_what_this_slice_does_not_port():
             {"w": torch.zeros(K, 3)})
     with pytest.raises(ValueError):
         make_optimizer("adam", comm)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_optimizer("pd_sgdm", object())
+    from repro_torch.core import SignCompressor
+    from repro_torch.core.gossip import ShardedComm
+    from repro_torch.launch.mesh import WorkerMesh
+    sharded = ShardedComm(ring(K), axis_names=("w",), mesh=WorkerMesh(
+        ("w",), (K,), 0, torch.device("cpu"), "gloo", {"w": None}))
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        make_optimizer("cpd_sgdm", sharded)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        make_optimizer("mt_dsgdm", sharded, compressor=SignCompressor())
+    assert make_optimizer("pd_sgdm", sharded).sharded
     assert make_topology("hierarchical", (2, 4)).axis_sizes == (2, 4)
     assert make_schedule("hier_one_peer", (2, 4)).name == "hier_one_peer"
     # the stale mix under membership: all active, it is the mix

@@ -23,6 +23,19 @@ from repro_torch.core import DenseComm, make_optimizer, ring  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 from repro_torch.train.trainer import SimTrainer  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTH, K, BATCH = 4, 8, 2
 RTOL, ATOL = 1e-4, 1e-5
 

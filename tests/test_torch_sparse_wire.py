@@ -47,6 +47,19 @@ from repro_torch.data.synthetic import (EmbedStreamCfg,  # noqa: E402
 from repro_torch.kernels import LANE, ops  # noqa: E402
 from repro_torch.kernels import row_gather as rg  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K, P = 4, 4
 INNERS = ["f32", "sign", "qsgd"]
 

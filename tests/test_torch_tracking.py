@@ -46,6 +46,19 @@ from repro_torch.kernels.sign_compress import sign_pack, sign_unpack  # noqa: E4
 from repro_torch.models.resnet import resnet20_init, resnet20_loss  # noqa: E402
 from repro_torch.train.trainer import SimTrainer  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small tensor ops: the
+    suite runs several test processes at once, and a thread pool per
+    process on the shared cores makes every small op wait at its barrier
+    (under the parallel run this file took 20x its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K, P, STEPS = 8, 4, 9
 # noniid_sweep.py's step: at η = 0.1 MT's tracked direction diverges at p = 4
 HYPER = dict(eta=0.05, mu=0.9, p=P, weight_decay=1e-4)
