@@ -156,9 +156,26 @@ matmuls:
    ``HierarchicalComm``, flat axis, hierarchical(2, 2), the sign inter
    codec: the codec kernels on every rank, the inter bytes on the leaders
    and the all-reduce bytes as ``hier_bytes_per_round`` has them, each
-   round against the dense round with the plain codec) and
+   round against the dense round with the plain codec),
    ``sharded_resume`` (checkpoints at steps 6 and 8 resumed in fresh ranks
-   bit for bit, and step 8 restored into 6 ranks).
+   bit for bit, and step 8 restored into 6 ranks), and the codec paths,
+   each rank keeping a copy of each neighbour's x̂ (``xhat_nbrs``):
+   ``sharded_olmo1b_cpd_sign`` (CPD-SGDM with the sign codec at
+   ``sharded_olmo1b``'s widths and step, γ = 0.4, 4 ranks, two rounds:
+   per rank 4 momentum, 1 gossip, 1 ``sign_pack`` and 3 ``sign_unpack``
+   launches and 66,097,152 B to ``isend`` a round; after each round every
+   copy's bit checksums those of the x̂ it tracks; round 0 within the
+   kernel-round bar of the sharded formula replayed on the stacked
+   matrices, x̂ past it only at sign flips, counted; peak and s/round
+   beside ``sharded_olmo1b``'s), ``sharded_resnet_cpd`` (8 ranks, 14
+   steps, in one spawn: CPD sign, QSGD and top-10 %, MT sign and CPD sign
+   under the churn script; launches and bytes per rank, the copies
+   gathered and held bit for bit after every round, every round and the
+   tail bit for bit the sharded formula replayed on the stacked workers,
+   the churn path's within the bar) and ``sharded_embedding_cpd_sparse``
+   (the (65,536 × 64) table from one draw, 4 ranks, the sparse-rows
+   codec: the row gather and scatter on the sharded path, held the same
+   way); the three print their wall together.
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, the MoE,
@@ -3044,10 +3061,10 @@ def worker_stream(path: str, world: int, seed: int = 0):
     return lambda t: lm_batch(cfg, t, DEVICE)
 
 
-def watch_rounds(torch, pack, rounds: list):
+def watch_rounds(torch, pack, rounds: list, keep: bool = True):
     """Wrap ``pack.train_round``: per round its wall (the card synchronized
     on both sides), launches, bytes handed to isend and to all_reduce,
-    and the params and state it started from."""
+    and (``keep``) the params and state it started from and its result."""
     inner = pack.train_round
     comm = pack.opt.comm
 
@@ -3063,8 +3080,10 @@ def watch_rounds(torch, pack, rounds: list):
             "s": time.perf_counter() - t0, "t": t,
             "launches": {n: f.launches - before[n]
                          for n, f in kernels.items()},
-            "sent": comm.sent_bytes, "reduced": comm.reduced_bytes,
-            "start": (params, state), "end": out[0], "end_state": out[1]})
+            "sent": comm.sent_bytes, "reduced": comm.reduced_bytes})
+        if keep:
+            rounds[-1].update(start=(params, state), end=out[0],
+                              end_state=out[1])
         return out
     pack.train_round = train_round
 
@@ -3242,6 +3261,7 @@ def sharded_olmo_phase(torch):
             math.isfinite(v) for v in root["losses"]):
         raise AssertionError(f"sharded_olmo1b: rounds {root.get('round_missed')}"
                              f" past the bar, losses {root['losses']}")
+    return stats
 
 
 def sharded_resnet_rank(mesh_rank, seed: int):
@@ -3636,6 +3656,656 @@ def sharded_resume_phase(torch):
           f"0-{RESUME_K2 - RESUME_K - 1}'s, bit for bit")
 
 
+# The codec paths of the sharded runtime: CPD-SGDM (and MT-DSGDm's
+# compressed tracking) with their per-shift x̂ copies and codec payloads
+# over P2P, in ranks spawned on this card as above.
+CPD_OLMO_ROUNDS = 2
+# x̂ elements a round that may be sign flips: one in a million (about
+# 1,000 of OLMo-1B's one layer in four workers; PERF.md §6, PR 25)
+CPD_OLMO_FLIP_SHARE = 1e-6
+CHECKSUM_PRIME = 65_521
+CHECKSUM_CHUNK = 1 << 24
+# per round on every rank: p momentum launches, the consensus (one gossip
+# launch over x̂ and the two copies), one pack and 1 + 2 unpacks (the own
+# payload and each neighbour's)
+CPD_ROUND_LAUNCHES = {"momentum_update": P, "gossip_mix": 1, "sign_pack": 1,
+                      "sign_unpack": 3}
+# OLMo-1B, one layer: 2 × 250,368 used rows × (128 + 4) B of sign payload
+CPD_OLMO_BYTES = 66_097_152
+# sharded_resnet_cpd's paths (K = 8 ranks, the ResNet path's settings), the
+# kernels each launches in a 14-step run on every rank (3 rounds, each 1 +
+# 2 unpacks; MT: the dense run's mixes and 2 more unpacks a round) and the
+# dense path whose bytes it ships
+CODEC_PATHS = {
+    "cpd_sgdm_sign": {"momentum_update": STEPS, "gossip_mix": STEPS // P,
+                      "sign_pack": STEPS // P, "sign_unpack": 3 * (STEPS // P)},
+    "cpd_sgdm_qsgd": {"momentum_update": STEPS, "gossip_mix": STEPS // P,
+                      "qsgd_quant": STEPS // P,
+                      "qsgd_dequant": 3 * (STEPS // P)},
+    "cpd_sgdm_topk": {"momentum_update": STEPS, "gossip_mix": STEPS // P,
+                      "topk_select": STEPS // P,
+                      "topk_scatter": 3 * (STEPS // P)},
+    "mt_dsgdm_sign": {"momentum_update": STEPS, "gossip_mix": MT_MIXES,
+                      "sign_pack": STEPS // P, "sign_unpack": 3 * (STEPS // P)},
+    # under churn the comm runs on the tree at the round boundary: the
+    # consensus is plain torch, the pruned payloads decode to 0 all the same
+    "cpd_sgdm_sign_churn": {"momentum_update": STEPS, "sign_pack": STEPS // P,
+                            "sign_unpack": 3 * (STEPS // P)},
+}
+EMB_PATH = "cpd_sgdm_sparse"
+EMB_LAUNCHES = {"momentum_update": STEPS, "gossip_mix": STEPS // P,
+                "row_gather": STEPS // P, "row_scatter": 3 * (STEPS // P)}
+CODEC_FLIPS = 8             # churn: x̂ elements past the bar, a round
+
+
+def nonzero(launches: dict) -> dict:
+    return {n: v for n, v in launches.items() if v}
+
+
+def stored_copy_comm(top, device):
+    """A ``DenseComm`` whose ``mix`` is the sharded backend's consensus over
+    its stored copies, ``w₀·x + Σ w·view`` in the shifts' order, on the
+    stacked workers (plain PyTorch, ``kernels.ref.gossip_shift_ref``): the
+    sharded round replayed on one device.  Static one-axis graphs."""
+    from repro_torch.core import DenseComm
+    from repro_torch.kernels.ref import gossip_shift_ref
+    from repro_torch.tree import tree_map
+    order = ([s for s in top.shifts if s[1] == 0]
+             + [s for s in top.shifts if s[1] != 0])
+
+    class StoredCopyComm(DenseComm):
+        def mix(self, tree, r=None):
+            return tree_map(lambda x: gossip_shift_ref(
+                x.reshape(x.shape[0], 1, -1), [s for (_a, s, _w) in order],
+                [w for (_a, _s, w) in order], grid=top.axis_sizes, axis=0,
+                lim=1).reshape(x.shape), tree)
+
+    return StoredCopyComm(top, device=device)
+
+
+def bit_checksum(torch, tree) -> tuple:
+    """Two checksums of a tree's f32 bits, leaves in name order: the sum of
+    the int32 views, and the sum of each weighted by its element index mod
+    65,521, both in int64 (wrapping mod 2⁶⁴), in chunks."""
+    s0 = s1 = 0
+    off = 0
+    for name in sorted(tree):
+        v = tree[name].detach().reshape(-1).view(torch.int32)
+        for a in range(0, v.numel(), CHECKSUM_CHUNK):
+            c = v[a:a + CHECKSUM_CHUNK].to(torch.int64)
+            idx = torch.arange(off + a, off + a + c.numel(),
+                               device=c.device) % CHECKSUM_PRIME
+            s0 += int(c.sum())
+            s1 += int((c * idx).sum())
+        off += v.numel()
+    return s0, s1
+
+
+def replica_checksums(torch, state) -> dict:
+    """This rank's checksums of x̂ and of each copy (``bit_checksum``)."""
+    out = {"xhat": bit_checksum(torch, state["xhat"])}
+    for key, copy in state["xhat_nbrs"].items():
+        out[key] = bit_checksum(torch, copy)
+    return out
+
+
+def replica_misses(sums: list) -> list:
+    """``(rank, key)`` of every copy whose checksums are not those of the
+    x̂ of the rank it tracks (rank k's ``ax0_sh{s}`` tracks k + s mod K)."""
+    k = len(sums)
+    return [(r, key) for r, s in enumerate(sums) for key in s
+            if key != "xhat"
+            and s[key] != sums[(r + int(key[len("ax0_sh"):])) % k]["xhat"]]
+
+
+def sharded_cpd_olmo_rank(mesh_rank):
+    """A rank of ``sharded_olmo1b_cpd_sign``: CPD sign on OLMo-1B's widths,
+    the kernel layout, two rounds through ``ShardedTrainer``; after each
+    round the replica contract by checksums, compared on rank 0, and the
+    round's result (the next one's start) held on the host; then every
+    round of this rank's worker replayed from its start."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.runtime import build_train
+    from repro_torch.train.trainer import ShardedTrainer
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    path = "pd_sgdm_olmo1b"
+    run = lm_run(path)
+    run = dataclasses.replace(run, optim=dataclasses.replace(
+        run.optim, name="cpd_sgdm", compressor="sign", gamma=GAMMA))
+    pack = build_train(run, make_mesh((world,), ("w",), device=dev))
+    stream = worker_stream(path, world)
+    rounds, sums, held = [], [], []
+    watch_rounds(torch, pack, rounds, keep=False)
+    timed = pack.train_round
+
+    def train_round(params, state, batches, t):
+        out = timed(params, state, batches, t)
+        got = [None] * world
+        dist.all_gather_object(got, replica_checksums(torch, out[1]))
+        sums.append(got)
+        # the round's x and x̂ on the host, and where a round follows the
+        # rest of its start: m and the copies
+        keep = {"x": out[0], "xhat": out[1]["xhat"]}
+        if len(held) + 1 < CPD_OLMO_ROUNDS:
+            keep.update(out[1]["xhat_nbrs"], m=out[1]["m"])
+        plan = kops.KernelPlan.for_tree(out[0], worker_dim=True)
+        held.append({k: plan.flatten(v).cpu() for k, v in keep.items()})
+        return out
+    pack.train_round = train_round
+    trainer = ShardedTrainer(pack)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    out = trainer.train(0, lambda t: pack.worker_batch(stream(t)),
+                        CPD_OLMO_ROUNDS * P, log_every=P, verbose=False)
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    plan = kops.KernelPlan.for_tree(out["params"], worker_dim=True)
+    stats = {"rank": rank, "peak_mib": peak / 2 ** 20,
+             "s_per_round": [r["s"] for r in rounds],
+             "launches": [r["launches"] for r in rounds],
+             "sent": [r["sent"] for r in rounds],
+             "cycle": trainer.bytes_per_round_cycle(),
+             "used": plan.used_rows, "losses": out["history"].loss,
+             "replica_misses": [replica_misses(s) for s in sums]}
+    del rounds[:], out, pack, trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    stats["rounds"] = replay_cpd_olmo_rounds(torch, path, stream, mesh_rank,
+                                             held)
+    return stats
+
+
+def replay_cpd_olmo_rounds(torch, path, stream, mesh_rank, held) -> list:
+    """Each round of this rank's worker of ``sharded_olmo1b_cpd_sign``
+    replayed from its start (x0 for round 0, then the round before's
+    result in ``held``): the dense backend's local steps of the one worker
+    (the momentum kernel on the same grads), then the sharded formula with
+    the plain versions: the consensus over x̂ and the two copies (each the
+    x̂ of the worker it tracks, by the checksums), x + γ(mix − x̂), the sign
+    codec of the drift, x̂ + q.  Held against the round's result in
+    ``held``: the params within the kernel-round bar, x̂ within it but for
+    sign flips, each an element whose replayed drift lies within the two
+    sides' gap in x (plus 4 ulps) of zero and whose decoded sign differs.
+    One report a round: the max |Δparam|, the flips, how far they moved
+    x̂, anything else past the bar, the elements."""
+    from repro_torch.core import DenseComm, make_optimizer, ring
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import (gossip_mix_ref, sign_pack_rows_ref,
+                                         sign_unpack_ref)
+    from repro_torch.train.trainer import _stack_batches
+    rank, world, dev = mesh_rank
+    x0 = lm_model(path).init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    one = {n: v.unsqueeze(0) for n, v in x0.items()}
+    del x0
+    plan = kops.KernelPlan.for_tree(one, worker_dim=True)
+    dopt = make_optimizer("pd_sgdm", DenseComm(ring(1), device=dev),
+                          use_kernel=True, **FULL_HYPER)
+    top = ring(world)
+    nbrs = [(f"ax0_sh{sh:+d}", w) for (_a, sh, w) in top.shifts if sh != 0]
+    weights = ([sum(w for (_a, sh, w) in top.shifts if sh == 0)]
+               + [w for (_k, w) in nbrs])
+    counts = plan.row_counts(dev).reshape(-1, 1)
+    ulp = 4 * torch.finfo(torch.float32).eps
+    elements = sum(v.numel() for v in one.values())
+    reports, start = [], None
+    for rnd, end in enumerate(held):
+        t = rnd * P
+        if start is None:
+            params = one
+            state = dopt.init(params)
+            xh = plan.flatten(one)
+            views = [xh] * len(weights)
+        else:
+            params = plan.unflatten(start.pop("x").to(dev),
+                                    dtype=torch.float32)
+            state = dopt.init(params)
+            state["m"] = plan.unflatten(start.pop("m").to(dev),
+                                        dtype=torch.float32)
+            state["step"].fill_(t)
+            xh = start.pop("xhat").to(dev)
+            views = [xh] + [start.pop(k).to(dev) for (k, _w) in nbrs]
+        batches = _stack_batches([{k: v[rank:rank + 1] for k, v in
+                                   stream(t + i).items()} for i in range(P)])
+        params, state, _ = dopt.round(state, params,
+                                      lm_grads_fn(torch, path), batches,
+                                      gossip=False)
+        x_loc = plan.flatten(params)
+        del params, state
+        mix = gossip_mix_ref(views, weights)
+        del views
+        x_new = (x_loc + GAMMA * (mix - xh))[0]
+        del mix, x_loc
+        gx = end["x"].to(dev)[0]
+        others = [] if torch.allclose(gx, x_new, **ROUND_BAR) else ["params"]
+        diff = x_new - xh[0]
+        near = diff.abs() <= ((gx - x_new).abs()
+                              + ulp * torch.maximum(x_new.abs(),
+                                                    xh[0].abs()))
+        gap = float((x_new - gx).abs().max())
+        del x_new, gx
+        packed, scales = sign_pack_rows_ref(diff, counts)
+        q = sign_unpack_ref(packed, scales)
+        del diff, packed, scales
+        xh_new = xh[0] + q
+        got = end["xhat"].to(dev)[0]
+        far = ~torch.isclose(got, xh_new, **ROUND_BAR)
+        # a flip: the drift within rounding of zero, its sign the other
+        # way on the two sides, so x̂ moves by ±scale the other way
+        flip = far & near & ((got - xh[0] > 0) != (q > 0))
+        moved = (float((got - xh_new).abs()[flip].max())
+                 if bool(flip.any()) else 0.0)
+        if bool((far & ~flip).any()):
+            others.append((int((far & ~flip).sum()),
+                           float((got - xh_new).abs()[far & ~flip].max())))
+        reports.append({"gap": gap, "flips": int(flip.sum()),
+                        "moved": moved, "others": others,
+                        "elements": elements})
+        del xh, q, xh_new, got, far, flip, near
+        start = end
+    return reports
+
+
+def sharded_cpd_olmo_phase(torch, pd_stats):
+    """``sharded_olmo1b_cpd_sign``: CPD-SGDM with the sign codec at OLMo-1B's
+    published widths (one of 16 layers, f32), ``sharded_olmo1b``'s cuts and
+    step, γ = 0.4, K = 4 ranks on a ring, the kernel layout, two rounds
+    through ``ShardedTrainer``: per round on every rank 4 momentum, 1
+    gossip, 1 ``sign_pack`` and 3 ``sign_unpack`` launches and 66,097,152
+    B handed to ``isend`` (``bytes_per_round_cycle``); after each round
+    every copy's bit checksums equal those of the x̂ it tracks; every
+    round of every worker, from its start, within the kernel-round bar of
+    the sharded formula replayed with the plain versions, x̂ but for its
+    sign flips, at most ``CPD_OLMO_FLIP_SHARE`` of the elements a round
+    (``replay_cpd_olmo_rounds``); each rank's peak and s/round beside
+    ``sharded_olmo1b``'s from the same call."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats = spawn(sharded_cpd_olmo_rank, SHARDED_OLMO_K)
+    wall = time.perf_counter() - t0
+    root = stats[0]
+    name = "sharded_olmo1b_cpd_sign"
+    print(f"sharded: {name} CPD-SGDM sign (γ={GAMMA}) on "
+          f"{describe('pd_sgdm_olmo1b')}, K={SHARDED_OLMO_K} ranks on one card"
+          f" (gloo), ring, p={P}, {CPD_OLMO_ROUNDS} rounds through "
+          f"ShardedTrainer, {wall:.1f} s with the spawn and the checks")
+    print(f"sharded: {name} losses (the ranks' mean) "
+          + " ".join(f"{v:.4f}" for v in root["losses"]))
+    for s, pd in zip(stats, pd_stats):
+        print(f"sharded: {name} rank {s['rank']}: peak {s['peak_mib']:.1f} "
+              f"MiB (PD's {pd['peak_mib']:.1f}), s/round (gloo's host-staged"
+              " wire) " + ", ".join(f"{v:.4f}" for v in s["s_per_round"])
+              + " (PD's " + ", ".join(f"{v:.4f}" for v in pd["s_per_round"])
+              + f"), launches {[nonzero(lc) for lc in s['launches']]}, "
+              f"isend bytes {s['sent']}")
+    print(f"sharded: {name} peak summed over the ranks "
+          f"{sum(s['peak_mib'] for s in stats):.1f} MiB (PD's "
+          f"{sum(s['peak_mib'] for s in pd_stats):.1f}); replica contract "
+          f"(bit checksums of every copy against the x̂ it tracks) misses "
+          f"per round {root['replica_misses']}")
+    missed = []
+    for i in range(CPD_OLMO_ROUNDS):
+        rds = [s["rounds"][i] for s in stats]
+        flips = sum(rd["flips"] for rd in rds)
+        bound = int(CPD_OLMO_FLIP_SHARE * sum(rd["elements"] for rd in rds))
+        others = [(s["rank"], s["rounds"][i]["others"]) for s in stats
+                  if s["rounds"][i]["others"]]
+        print(f"sharded: {name} round {i} from its start against the "
+              f"replayed sharded formula: max |Δparam| per worker "
+              f"{[rd['gap'] for rd in rds]}, x̂ sign flips {flips} of at "
+              f"most {bound} (each moved by at most "
+              f"{max(rd['moved'] for rd in rds):.3g}), elements past the "
+              f"bar otherwise {others}")
+        if others or flips > bound:
+            missed.append((i, flips, bound, others))
+    for s in stats:
+        for lc in s["launches"]:
+            if lc != {**{n: 0 for n in lc}, **CPD_ROUND_LAUNCHES}:
+                raise AssertionError(f"{name}: launches {lc}")
+        if (tuple(s["cycle"]) != (CPD_OLMO_BYTES,)
+                or s["sent"] != [CPD_OLMO_BYTES] * CPD_OLMO_ROUNDS):
+            raise AssertionError(f"{name}: isend bytes {s['sent']}, cycle "
+                                 f"{s['cycle']}, expected {CPD_OLMO_BYTES}")
+    if any(root["replica_misses"]) or len(root["replica_misses"]) != \
+            CPD_OLMO_ROUNDS:
+        raise AssertionError(f"{name}: replica contract {root['replica_misses']}")
+    if missed or not all(math.isfinite(v) for v in root["losses"]):
+        raise AssertionError(f"{name}: rounds against the replay {missed}, "
+                             f"losses {root['losses']}")
+
+
+def codec_rank_opt(path, mesh):
+    """A ``sharded_resnet_cpd`` path's optimizer on the ranks' ring, built
+    as ``make_opt`` builds the dense path's (the churn path under its
+    membership script)."""
+    from repro_torch.core import (QSGDCompressor, ShardedComm, SignCompressor,
+                                  TopKCompressor, make_optimizer,
+                                  membership_from_events, ring)
+    membership = (membership_from_events(K, CHURN_ROUNDS, CHURN_EVENTS)
+                  if path.endswith("_churn") else None)
+    comm = ShardedComm(ring(mesh.world_size), axis_names=("w",), mesh=mesh,
+                       membership=membership)
+    if path == "mt_dsgdm_sign":
+        return make_optimizer("mt_dsgdm", comm, use_kernel=True,
+                              compressor=SignCompressor(),
+                              **dict(HYPER, eta=TRACK_ETA))
+    comp, gamma = {
+        "cpd_sgdm_qsgd": (QSGDCompressor(levels=QSGD_LEVELS), GAMMA),
+        "cpd_sgdm_topk": (TopKCompressor(fraction=TOPK_FRACTION),
+                          TOPK_GAMMA)}.get(path, (SignCompressor(), GAMMA))
+    return make_optimizer("cpd_sgdm", comm, gamma=gamma, compressor=comp,
+                          use_kernel=True, **HYPER)
+
+
+def rank_pack(torch, opt, mesh, init_fn, grads_fn, struct):
+    """A ``TrainPack`` of this rank's worker for a model without a
+    ``ModelCfg`` (ResNet-20, the embedding table)."""
+    from repro_torch.configs.base import ParallelCfg
+    from repro_torch.launch.mesh import make_layout
+    from repro_torch.launch.runtime import (TrainPack, check_state_keys,
+                                            make_steps)
+    train_step, train_round = make_steps(opt, grads_fn)
+    return TrainPack(model=None, opt=opt,
+                     layout=make_layout(ParallelCfg(), mesh),
+                     device=mesh.device, params_struct=struct,
+                     state_struct=opt.init(struct),
+                     state_keys=check_state_keys(opt.init(struct)),
+                     init_fn=init_fn, train_step=train_step,
+                     train_round=train_round)
+
+
+def codec_run(torch, pack, steps, stream, seed: int):
+    """``steps`` steps of a codec path through ``ShardedTrainer`` in this
+    rank: per round its launches, isend bytes, start (params, m and the
+    coded state: CPD's x̂, MT's tracking pair, on the host) and the replica
+    contract by the copies gathered to rank 0 (bit for bit); the end of
+    the last round and the final worker."""
+    import torch.distributed as dist
+    from repro_torch.train.trainer import ShardedTrainer
+    keys = ("m",) + (("c", "g_prev") if "c" in pack.state_struct
+                     else ("xhat",))
+    rounds, misses = [], []
+    watch_rounds(torch, pack, rounds, keep=False)
+    timed = pack.train_round
+
+    def host(params, state):
+        return ({n: v.detach().cpu().clone() for n, v in params.items()},
+                {k: {n: v.detach().cpu().clone() for n, v in state[k].items()}
+                 for k in keys})
+
+    def train_round(params, state, batches, t):
+        start = host(params, state)
+        out = timed(params, state, batches, t)
+        rounds[-1]["start"], rounds[-1]["end"] = start, host(*out[:2])
+        if "xhat_nbrs" in out[1]:
+            mine = dict(out[1]["xhat_nbrs"], xhat=out[1]["xhat"])
+            mine = {k: {n: v.detach().cpu() for n, v in tree.items()}
+                    for k, tree in mine.items()}
+            root = dist.get_rank() == 0
+            got = [None] * dist.get_world_size() if root else None
+            dist.gather_object(mine, got, dst=0)
+            if root:
+                k = len(got)
+                misses.append([
+                    (r, key) for r, g in enumerate(got) for key in g
+                    if key != "xhat" and any(
+                        not torch.equal(g[key][n], got[
+                            (r + int(key[len("ax0_sh"):])) % k]["xhat"][n])
+                        for n in g[key])])
+        return out
+    pack.train_round = train_round
+    kernels = reset_counters()
+    out = ShardedTrainer(pack).train(seed, lambda t: pack.worker_batch(
+        stream(t)), steps, log_every=1, verbose=False)
+    sync(torch, pack.device)
+    return {"launches": {n: f.launches for n, f in kernels.items()},
+            "sent": [r["sent"] for r in rounds],
+            "cycle": ShardedTrainer(pack).bytes_per_round_cycle(),
+            "rounds": [(r["start"], r["t"]) for r in rounds],
+            "last_end": rounds[-1]["end"],
+            "final": host(out["params"], out["state"]),
+            "losses": out["history"].loss, "replica_misses": misses}
+
+
+def sharded_codec_rank(mesh_rank, paths, seed: int):
+    """A rank of ``sharded_resnet_cpd``: each path's ResNet-20 worker
+    through a ``TrainPack`` of its own and ``ShardedTrainer``, 14 steps."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.resnet import resnet20_init
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh((world,), ("w",), device=dev)
+    struct = {n: torch.empty((1,) + tuple(v.shape[1:]), device="meta")
+              for n, v in stacked_init(torch, seed, 1).items()}
+    out = {}
+    for path in paths:
+        opt = codec_rank_opt(path, mesh)
+
+        def init_fn(s, opt=opt):
+            gen = torch.Generator(device=dev).manual_seed(s)
+            params = {n: v.unsqueeze(0) for n, v in
+                      resnet20_init(gen, width=WIDTH, device=dev).items()}
+            return params, opt.init(params)
+        pack = rank_pack(torch, opt, mesh, init_fn,
+                         resnet_grads_fn(torch), struct)
+        out[path] = codec_run(torch, pack, STEPS, batch_fn(seed, world),
+                              seed)
+    return out
+
+
+def replay_codec_rounds(torch, name, res, dopt, grads_fn, stream, steps,
+                        bitwise: bool):
+    """Each round of a sharded codec run (``res``: the ranks' results of
+    one path) and its tail, from the stacked start, against ``dopt``'s
+    dense round from that start on the same batches: bit for bit (params
+    and the coded state), or (``bitwise=False``) params within the
+    kernel-round bar and the coded state within it but for at most
+    ``CODEC_FLIPS`` elements a round; returns the gaps and the flips."""
+    from repro_torch.train.trainer import _stack_batches
+
+    def cat(trees):
+        return {n: torch.cat([t[n] for t in trees]).to(DEVICE)
+                for n in trees[0]}
+
+    n_rounds = len(res[0]["rounds"])
+    report = []
+    for i in range(n_rounds + 1):
+        if i < n_rounds:
+            t = res[0]["rounds"][i][1]
+            start = [r["rounds"][i][0] for r in res]
+            end = [r["rounds"][i + 1][0] if i + 1 < n_rounds
+                   else r["last_end"] for r in res]
+            n = P
+        else:                               # the tail: local steps only
+            t = n_rounds * P
+            start = [r["last_end"] for r in res]
+            end = [r["final"] for r in res]
+            n = steps - t
+        params = cat([s[0] for s in start])
+        state = {k: cat([s[1][k] for s in start]) for k in start[0][1]}
+        state["step"] = torch.tensor(t, dtype=torch.int32, device=DEVICE)
+        batches = _stack_batches([stream(t + j) for j in range(n)])
+        got_p, got_s, _ = dopt.round(state, params, grads_fn, batches,
+                                     gossip=n == P)
+        want_p = cat([e[0] for e in end])
+        want_s = {k: cat([e[1][k] for e in end]) for k in end[0][1]}
+        gap = max(float((got_p[n_] - want_p[n_]).abs().max())
+                  for n_ in want_p)
+        flips = 0
+        for k in want_s:
+            for n_ in want_s[k]:
+                a, b = got_s[k][n_], want_s[k][n_]
+                if bitwise:
+                    flips += int((a != b).sum())
+                else:
+                    flips += int((~torch.isclose(a, b, **ROUND_BAR)).sum())
+        if bitwise:
+            ok = flips == 0 and all(torch.equal(got_p[n_], want_p[n_])
+                                    for n_ in want_p)
+        else:
+            ok = (flips <= CODEC_FLIPS and all(
+                torch.allclose(want_p[n_], got_p[n_], **ROUND_BAR)
+                for n_ in want_p))
+        if not ok:
+            raise AssertionError(f"{name}: round {i} "
+                                 f"differs from the replayed round: "
+                                 f"|Δparam| {gap}, state elements {flips}")
+        report.append((gap, flips))
+    return report
+
+
+def sharded_resnet_cpd_phase(torch):
+    """``sharded_resnet_cpd``: the paper's Algorithm 2 on its own model,
+    ResNet-20 width 16, batch 16, K = 8 ranks on the ring, p = 4, η = 0.1,
+    14 steps (3 rounds, a 2-step tail), cuDNN deterministic, in one spawn:
+    CPD sign, CPD QSGD (4-bit), CPD top-10 % (γ = 0.2), MT sign (η = 0.05)
+    and CPD sign under ``CHURN_EVENTS``.  On every rank the launches of
+    ``CODEC_PATHS`` and the bytes of the dense path's ``WIRE_BYTES`` (under
+    churn their mean over the ranks, the commit-weighted figure); the
+    replica contract bit for bit after every round, the churn rounds too;
+    each round and the tail bit for bit the sharded formula replayed on
+    the stacked workers with their gradients taken worker by worker (the
+    port's dense kernel round with the stored-copy consensus; MT's dense
+    round is that formula), the churn path's within the kernel-round bar
+    of the dense round (``W_r @ x̂``) but for its sign flips."""
+    from repro_torch.core import ring
+    t0 = time.perf_counter()
+    stats = spawn(sharded_codec_rank, K, tuple(CODEC_PATHS), 0)
+    wall = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = True
+    stream = batch_fn(0, K)
+    grads_fn = resnet_grads_fn(torch, per_worker=True)
+    print(f"sharded: sharded_resnet_cpd ResNet-20 width {WIDTH}, batch "
+          f"{BATCH}, K={K} ranks on one card (gloo), ring, {STEPS} steps "
+          f"through ShardedTrainer, five paths in one spawn, {wall:.1f} s")
+    for path, want in CODEC_PATHS.items():
+        res = [s[path] for s in stats]
+        dopt = make_opt(path, True)
+        if path.startswith("cpd") and not path.endswith("_churn"):
+            dopt.comm = stored_copy_comm(ring(K), DEVICE)
+        report = replay_codec_rounds(torch, path, res, dopt, grads_fn,
+                                     stream, STEPS,
+                                     bitwise=not path.endswith("_churn"))
+        launches = {n: want.get(n, 0) for n in counters()}
+        wire = WIRE_BYTES[path]
+        rounds = STEPS // P
+        want_sent = sum(wire[r % len(wire)] for r in range(rounds))
+        sent = [sum(r["sent"]) for r in res]
+        print(f"sharded: sharded_resnet_cpd {path}: launches per rank "
+              f"{nonzero(res[0]['launches'])}, isend bytes per rank {sent} "
+              f"(cycle "
+              f"{res[0]['cycle']}), replica misses per round "
+              f"{res[0]['replica_misses']}, (max |Δparam|, state elements "
+              f"apart) against the replayed round, per round and the tail "
+              f"{report}; losses "
+              + " ".join(f"{v:.4f}" for v in res[0]["losses"]))
+        for r in res:
+            if r["launches"] != launches:
+                raise AssertionError(f"sharded_resnet_cpd: {path} launches "
+                                     f"{r['launches']}, expected {launches}")
+            if tuple(r["cycle"]) != wire:
+                raise AssertionError(f"sharded_resnet_cpd: {path} cycle "
+                                     f"{r['cycle']}, expected {wire}")
+        if path.endswith("_churn"):
+            if abs(sum(sent) / len(sent) - want_sent) > 1e-6:
+                raise AssertionError(f"sharded_resnet_cpd: {path} mean bytes"
+                                     f" {sum(sent) / len(sent)}, expected "
+                                     f"{want_sent}")
+        elif sent != [want_sent] * K:
+            raise AssertionError(f"sharded_resnet_cpd: {path} bytes {sent}")
+        misses = res[0]["replica_misses"]
+        if path.startswith("cpd") and (len(misses) != rounds or any(misses)):
+            raise AssertionError(f"sharded_resnet_cpd: {path} replica "
+                                 f"contract {misses}")
+        if not all(math.isfinite(v) for v in res[0]["losses"]):
+            raise AssertionError(f"sharded_resnet_cpd: {path} losses")
+    torch.backends.cudnn.deterministic = False
+
+
+def sharded_embedding_rank(mesh_rank, seed: int):
+    """A rank of ``sharded_embedding_cpd_sparse``: its worker of the
+    (4, 65536, 64) table, CPD with the sparse-rows codec, 14 steps."""
+    import torch
+    from repro_torch.core import (CPDSGDM, CPDSGDMConfig, ShardedComm,
+                                  SparseRowsCompressor, ring)
+    from repro_torch.data.synthetic import EmbedStreamCfg, embed_batch
+    from repro_torch.launch.mesh import make_mesh
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    mesh = make_mesh((world,), ("w",), device=dev)
+    opt = CPDSGDM(CPDSGDMConfig(use_kernel=True, **EMB_HYPER),
+                  ShardedComm(ring(world), axis_names=("w",), mesh=mesh),
+                  SparseRowsCompressor(max_rows=EMB_MAX_ROWS))
+
+    def init_fn(s):
+        # one table for every worker (the sharded runtime's x0): CPD's init
+        # seeds each copy of a neighbour's x̂ with the rank's own x0, as the
+        # reference's does, so the copies track their owners only from a
+        # common start (the dense path draws a table per worker)
+        gen = torch.Generator(device=dev).manual_seed(s)
+        params = {"table": torch.randn((1, EMB_ROWS, EMB_DIM), generator=gen,
+                                       device=dev) * 0.1}
+        return params, opt.init(params)
+    struct = {"table": torch.empty((1, EMB_ROWS, EMB_DIM), device="meta")}
+    pack = rank_pack(torch, opt, mesh, init_fn, embedding_grads(torch),
+                     struct)
+    cfg = EmbedStreamCfg(n_rows=EMB_ROWS, dim=EMB_DIM, batch=EMB_BATCH,
+                         n_workers=EMB_K, seed=seed)
+    return codec_run(torch, pack, STEPS, lambda t: embed_batch(cfg, t, dev),
+                     seed)
+
+
+def sharded_embedding_phase(torch):
+    """``sharded_embedding_cpd_sparse``: ``cpd_sgdm_sparse``'s table in K = 4
+    ranks on the ring, 14 steps through ``ShardedTrainer``: on every rank
+    ``EMB_LAUNCHES`` (the row gather and scatter on the sharded path) and
+    3 × 524,800 B to ``isend``; the replica contract bit for bit after
+    every round; each round and the tail bit for bit the sharded formula
+    replayed on the stacked tables."""
+    from repro_torch.core import ring
+    from repro_torch.data.synthetic import EmbedStreamCfg, embed_batch
+    t0 = time.perf_counter()
+    res = spawn(sharded_embedding_rank, EMB_K, 0)
+    wall = time.perf_counter() - t0
+    dopt = make_opt(EMB_PATH, True)
+    dopt.comm = stored_copy_comm(ring(EMB_K), DEVICE)
+    cfg = EmbedStreamCfg(n_rows=EMB_ROWS, dim=EMB_DIM, batch=EMB_BATCH,
+                         n_workers=EMB_K, seed=0)
+    report = replay_codec_rounds(
+        torch, EMB_PATH, res, dopt, embedding_grads(torch),
+        lambda t: embed_batch(cfg, t, DEVICE), STEPS, bitwise=True)
+    launches = {n: EMB_LAUNCHES.get(n, 0) for n in counters()}
+    wire = WIRE_BYTES[EMB_PATH]
+    sent = [sum(r["sent"]) for r in res]
+    print(f"sharded: sharded_embedding_cpd_sparse ({EMB_K}, {EMB_ROWS}, "
+          f"{EMB_DIM}) table, K={EMB_K} ranks (gloo), ring, sparse rows "
+          f"(max_rows {EMB_MAX_ROWS}), {STEPS} steps, {wall:.1f} s with the "
+          f"spawn: launches per rank {nonzero(res[0]['launches'])}, isend "
+          f"bytes per "
+          f"rank {sent}, replica misses per round "
+          f"{res[0]['replica_misses']}, (max |Δparam|, elements apart) "
+          f"against the replayed round {report}")
+    for r in res:
+        if r["launches"] != launches or tuple(r["cycle"]) != wire:
+            raise AssertionError(f"sharded_embedding_cpd_sparse: launches "
+                                 f"{r['launches']}, cycle {r['cycle']}")
+    if sent != [wire[0] * (STEPS // P)] * EMB_K:
+        raise AssertionError(f"sharded_embedding_cpd_sparse: bytes {sent}")
+    misses = res[0]["replica_misses"]
+    if len(misses) != STEPS // P or any(misses):
+        raise AssertionError(f"sharded_embedding_cpd_sparse: replica "
+                             f"contract {misses}")
+
+
 def gloo_cuda_probe(mesh_rank):
     """Whether gloo's send/recv take a CUDA tensor (run apart from the
     script, in a child that may crash: ``--probe-gloo``)."""
@@ -3731,10 +4401,17 @@ def main(argv=None) -> int:
     noniid_phase(torch)
     elastic_phase(torch)
     topology_phase(torch)
-    sharded_olmo_phase(torch)
+    pd_olmo = sharded_olmo_phase(torch)
     sharded_resnet_phase(torch)
     sharded_hier_phase(torch)
     sharded_resume_phase(torch)
+    t0 = time.perf_counter()
+    sharded_cpd_olmo_phase(torch, pd_olmo)
+    sharded_resnet_cpd_phase(torch)
+    sharded_embedding_phase(torch)
+    print(f"sharded: the codec phases (sharded_olmo1b_cpd_sign, "
+          f"sharded_resnet_cpd, sharded_embedding_cpd_sparse) "
+          f"{time.perf_counter() - t0:.1f} s")
     if args.profile:
         for path in PATHS:
             profile_round(torch, path)

@@ -2,10 +2,13 @@
 runtime.
 
 The port of ``examples/pretrain_decentralized.py``: an OLMo-family model
-trained with PD-SGDM by ``--workers`` ranks (one worker each) through
+trained (PD-SGDM by default) by ``--workers`` ranks (one worker each) through
 ``build_train`` and ``ShardedTrainer``: fused p-step rounds, gossip by
 P2P between the ranks, checkpoints with the whole optimizer state, so
-``--resume`` continues bit for bit.  ``--node-size m`` switches to the
+``--resume`` continues bit for bit.  ``--optimizer`` takes any of the
+launcher's (``cpd_sgdm`` and ``choco_sgd`` ship the default sign codec's
+payload, each rank keeping a copy of each neighbour's x̂).
+``--node-size m`` switches to the
 two-level round (exact in-node mean, ``--topology`` between node
 leaders), ``--wire-dtype bfloat16`` halves the inter wire and
 ``--inter-codec`` compresses it; ``--json-out`` writes the reference's

@@ -44,8 +44,26 @@ line 9, and the stale consensus ``γ·gate·(W̃·x̂_buf − x̂_buf)`` is form
 round start and lands at its end; lines 7-9 stay at the round boundary
 (q encodes the round's own drift), commit-gated under membership.
 
-Not ported: the sharded backend with its ``xhat_nbrs`` copies and pruned
-exchanges (ROADMAP queue A item 12b, refused at construction).
+The sharded backend (:class:`~repro_torch.core.gossip.ShardedComm`, one
+worker per rank, a static shift graph of one axis): each rank stores x̂ for
+itself and a copy for each non-self shift, ``xhat_nbrs["ax{a}_sh{s:+d}"]``,
+moved only by the payloads it receives, so every copy keeps the bits of
+the x̂ of the worker it tracks (the replica contract).  Line 6 is
+``w₀·x̂ + Σ w·x̂_nbrs`` in ``nonself_shifts()`` order, from the stored copies
+(on the kernel layout one ``gossip_mix`` launch over the matrices); lines
+7-9 ship the codec payload to every neighbour in one P2P batch (the
+kernel wire cut to ``used_rows`` by ``rows_wire`` and received into held
+zero-tailed buffers; the per-leaf wire's :meth:`WireCodec.wire` entries;
+the f32 q without a packed wire), decode it once per source and add it to
+that source's copy; the owner adds its own decoded q.  Under membership
+round r's liveness is picked on the host: per-receiver coefficients from
+the shift entries, dead edges zeroed and their mass on the diagonal, a
+non-committing worker's x̂ kept and its payload pruned (its copy-holders
+decode zeros to exactly 0).  The sharded backend refuses overlap, the
+complete and the hierarchical graphs, schedules and, under membership,
+perm graphs, as the reference does (``cpdsgdm.py:79-116``); and a graph
+of more than one axis (a torus), where the sum over the per-axis shifts
+is not a row of W (ROADMAP C.9).
 """
 from __future__ import annotations
 
@@ -57,11 +75,13 @@ import torch
 
 from repro_torch.core.compression import Compressor, SignCompressor
 from repro_torch.core.gossip import (CommBackend, ShardedComm,
-                                     gossip_bytes_per_round, select_round,
+                                     gossip_bytes_per_round,
+                                     refuse_multi_axis, select_round,
                                      worker_mask_like)
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.topology import exchanges
-from repro_torch.core.wire import leaf_keys, make_codec, round_trip_tree
+from repro_torch.core.wire import (leaf_keys, make_codec, pack_tree,
+                                  unpack_tree)
 from repro_torch.kernels import LANE
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import tree_leaves, tree_map
@@ -82,18 +102,8 @@ class CPDSGDM(PDSGDM):
 
     def __init__(self, config: CPDSGDMConfig, comm: CommBackend,
                  compressor: Optional[Compressor] = None):
-        if config.overlap and isinstance(comm, ShardedComm):
-            raise ValueError(
-                "CPD-SGDM overlap=True is dense-only: the xhat_nbrs "
-                "error-compensation copies must stay bitwise consistent "
-                "with each owner's x̂ (Alg. 2 line 9), and a one-round-"
-                "stale consensus breaks that replica contract")
         if isinstance(comm, ShardedComm):
-            raise NotImplementedError(
-                "CPD-SGDM on the sharded backend (its per-neighbour "
-                "xhat_nbrs copies, committed payloads and pruned "
-                "exchanges) is not ported yet: ROADMAP queue A item 12b.  "
-                "Run it on DenseComm, or PD/MT/QG on the sharded backend")
+            self._check_sharded(config, comm)
         super().__init__(config, comm)
         self.compressor = (compressor if compressor is not None
                            else SignCompressor())
@@ -107,7 +117,8 @@ class CPDSGDM(PDSGDM):
                 "the delayed consensus + codec wire run on the tree path "
                 "(dense simulation only).")
         # elastic membership: the commit mask of every round of the joint
-        # cycle, on the host (bytes) and on the device (the x̂ gate)
+        # cycle, on the host (bytes, the sharded gate) and on the device
+        # (the dense x̂ gate)
         self._commit_np = self._commit_t = None
         if comm.membership is not None:
             self._commit_np = np.stack(
@@ -115,6 +126,42 @@ class CPDSGDM(PDSGDM):
                  for r in range(comm.round_cycle)])
             self._commit_t = torch.tensor(self._commit_np,
                                           device=comm.device)
+
+    @staticmethod
+    def _check_sharded(config, comm):
+        """The reference's refusals on the sharded backend
+        (``cpdsgdm.py:79-116``)."""
+        if config.overlap:
+            raise ValueError(
+                "CPD-SGDM overlap=True is dense-only: the xhat_nbrs "
+                "error-compensation copies must stay bitwise consistent "
+                "with each owner's x̂ (Alg. 2 line 9), and a one-round-"
+                "stale consensus breaks that replica contract")
+        name = comm.topology.name
+        if name == "complete":
+            raise ValueError(
+                "CPD-SGDM sharded backend needs a shift-structured topology "
+                "(ring/torus/exponential); 'complete' has no neighbour state.")
+        if name == "hierarchical":
+            raise ValueError(
+                "CPD-SGDM does not compose with the sharded hierarchical "
+                "backend: the xhat_nbrs error-compensation copies track "
+                "per-neighbour wires, and the two-level round (exact intra "
+                "mean + leader exchange) has no per-edge codec lane.  Use "
+                "PD/MT/QG with node_size (optionally with inter_codec), or "
+                "run CPD on a flat topology.")
+        if comm.period > 1:
+            raise ValueError(
+                "CPD-SGDM sharded backend requires a static topology: the "
+                "xhat_nbrs error-compensation copies track a fixed neighbour "
+                "set (Alg. 2 line 9).  Time-varying schedules run on the "
+                "dense backend, or use PD-SGDM on the sharded one.")
+        if comm.membership is not None and comm.topology.perms:
+            raise ValueError(
+                "CPD-SGDM sharded elastic membership needs a "
+                "shift-structured topology: perm graphs key no per-shift "
+                "xhat_nbrs copies to commit-gate.")
+        refuse_multi_axis("CPD-SGDM", comm)
 
     # -- elastic membership: commit masks -------------------------------------
     @staticmethod
@@ -137,11 +184,26 @@ class CPDSGDM(PDSGDM):
                             "_commit_at(r)")
 
     # -- state ---------------------------------------------------------------
+    @staticmethod
+    def _key(ax: int, sh: int) -> str:
+        return f"ax{ax}_sh{sh:+d}"
+
+    def _shifts(self) -> list:
+        """``(key, axis, shift, weight)`` of every non-self shift, in the
+        topology's order: the copies of the sharded backend."""
+        return [(self._key(ax, sh), ax, sh, w)
+                for (ax, sh, w) in self.comm.nonself_shifts()]
+
     def init(self, params) -> dict:
         state = super().init(params)
         # x̂₀ = x₀: the first round's q then encodes only the local drift
         state["xhat"] = tree_map(
             lambda x: x.detach().to(torch.float32, copy=True), params)
+        if self.sharded:
+            state["xhat_nbrs"] = {
+                key: tree_map(lambda x: x.detach().to(torch.float32,
+                                                      copy=True), params)
+                for (key, _ax, _sh, _w) in self._shifts()}
         return state
 
     # -- wire dispatch -------------------------------------------------------
@@ -167,13 +229,49 @@ class CPDSGDM(PDSGDM):
 
     # -- communication round (Alg. 2 lines 6-9) --------------------------------
     def comm_round(self, state, params):
-        return self._comm_round_at(state, params, self.round_index(state))
+        """Alg. 2 lines 6-9.  On the sharded backend under membership,
+        round r's liveness is picked on the host (the reference's
+        ``_comm_round_masked``, ``cpdsgdm.py:350-415``): the consensus over
+        the stored copies with the round's per-receiver coefficients, the
+        x̂ update commit-gated and the payloads pruned to committing
+        sources."""
+        r = self.round_index(state)
+        live = self.comm.stored_weights(r) if self.sharded else None
+        if live is None:
+            return self._comm_round_at(state, params, r)
+        diag, edges, _active = live
+        return self._comm_round_at(
+            state, params, r, diag=diag,
+            coeffs={self._key(ax, sh): cv for (ax, sh, cv, _ok) in edges},
+            commit=self._commit_np[self.comm.live_round(r, "comm_round")])
 
-    def _comm_round_at(self, state, params, r):
+    def _stored_consensus(self, xhat, nbrs, diag=None, coeffs=None):
+        """Line 6 on the sharded backend, from the stored copies:
+        ``w₀·x̂ + Σ w·x̂_nbrs[key]`` left to right in the shifts' order (the
+        reference's ``cpdsgdm.py:242-246``); under membership ``diag`` and
+        the per-key ``coeffs`` of the round."""
+        w0 = float(np.float32(self.comm.self_weight() if diag is None
+                              else diag))
+        mixhat = tree_map(lambda h: h * w0, xhat)
+        for (key, _ax, _sh, w) in self._shifts():
+            if coeffs is not None:
+                if key not in coeffs:        # a self-aliased shift
+                    continue
+                w = coeffs[key]
+            wf = float(np.float32(w))
+            mixhat = tree_map(lambda a, b: a + wf * b, mixhat, nbrs[key])
+        return mixhat
+
+    def _comm_round_at(self, state, params, r, *, diag=None, coeffs=None,
+                       commit=None):
         gamma = self.config.gamma
         xhat = state["xhat"]
         # line 6: consensus from the stored copies — zero communication
-        mixhat = self.comm.mix(xhat, r=r)
+        if self.sharded:
+            mixhat = self._stored_consensus(xhat, state["xhat_nbrs"], diag,
+                                            coeffs)
+        else:
+            mixhat = self.comm.mix(xhat, r=r)
         params_new = tree_map(
             lambda x, mh, h: (x.to(torch.float32)
                               + gamma * (mh - h)).to(x.dtype),
@@ -181,27 +279,67 @@ class CPDSGDM(PDSGDM):
         diff = tree_map(lambda x, h: x.to(torch.float32) - h, params_new,
                         xhat)
         new_state = dict(state)
-        self._compress_and_commit(new_state, xhat, diff, r)
+        self._compress_and_commit(new_state, xhat, diff, r, commit)
         return params_new, new_state
 
-    def _compress_and_commit(self, new_state, xhat, diff, r):
+    def _compress_and_commit(self, new_state, xhat, diff, r, commit=None):
         """Lines 7-9 on the drift ``diff``: ``new_state["xhat"]`` = x̂ + Q,
         where a worker that does not commit (under membership) keeps its x̂
-        bit for bit."""
+        bit for bit; on the sharded backend each neighbour's payload is
+        added to its copy (``commit``: the round's (K,) commit mask, the
+        sources whose payload ships)."""
         if self._kernel_wire():
-            self._comm_kernel_wire(new_state, xhat, diff)
+            self._comm_kernel_wire(new_state, xhat, diff, commit)
         elif self._payload_wire():
-            self._comm_payload_wire(new_state, xhat, diff, r)
+            self._comm_payload_wire(new_state, xhat, diff, r, commit)
         else:
             q = self._apply_Q(diff, r)
-            new_state["xhat"] = tree_map(
-                lambda h, qq: h + qq.to(torch.float32), xhat, q)
-        if self._commit_t is not None:
+            self._commit_self(new_state, xhat, q, commit)
+            if self.sharded:
+                self._add_to_copies(new_state, self.comm.exchange(
+                    q, *self._routes(commit)))
+        if self._commit_t is not None and not self.sharded:
             cm = self._commit_at(r)
             new_state["xhat"] = tree_map(
                 lambda h_new, h_old: torch.where(
                     worker_mask_like(cm, h_new), h_new, h_old),
                 new_state["xhat"], xhat)
+
+    def _commit_self(self, new_state, xhat, q, commit):
+        """The owner's line 9: x̂ + q, kept where this rank does not commit
+        (``commit`` on the sharded backend)."""
+        if commit is not None and not commit[self.comm._coord(0)]:
+            new_state["xhat"] = xhat
+            return
+        new_state["xhat"] = tree_map(lambda h, qq: h + qq.to(torch.float32),
+                                     xhat, q)
+
+    def _add_to_copies(self, new_state, decoded):
+        """Line 9 on each copy: ``x̂_nbrs[key] += q`` of the shift's
+        source (``decoded``: one f32 tree per shift, in their order)."""
+        nbrs = dict(new_state["xhat_nbrs"])
+        for (key, _ax, _sh, _w), q in zip(self._shifts(), decoded):
+            nbrs[key] = tree_map(lambda h, qq: h + qq.to(torch.float32),
+                                 nbrs[key], q)
+        new_state["xhat_nbrs"] = nbrs
+
+    def _routes(self, commit=None) -> tuple:
+        """The exchange of every copy's source, ``(axis, "shift", shift)``,
+        and with ``commit`` (under membership) the sources that ship, per
+        shift."""
+        routes = [(ax, "shift", sh) for (_k, ax, sh, _w) in self._shifts()]
+        return routes, (None if commit is None else [commit] * len(routes))
+
+    def _exchange_rows(self, payload, plan, commit=None) -> list:
+        """The kernel-wire payload (trimmed by ``rows_wire``) to every
+        neighbour and theirs back in one P2P batch, into the held buffers:
+        per shift the received payload at full extent, ready to unpack
+        (``rows_unwire`` without an allocation)."""
+        routes, ok = self._routes(commit)
+        wire = self.codec.rows_wire(payload, plan)
+        full, land = self._wire_buffers(payload, wire, routes)
+        self.comm.exchange(wire, routes, out=land, source_ok=ok)
+        return full
 
     # -- overlapped rounds (tree path) -------------------------------------------
     # x̂ moves only at round boundaries, so the stale consensus lands the
@@ -235,22 +373,41 @@ class CPDSGDM(PDSGDM):
                 "phase": torch.ones((), dtype=torch.int32,
                                     device=state["step"].device)}
 
-    def _comm_kernel_wire(self, new_state, xhat, diff):
+    def _comm_kernel_wire(self, new_state, xhat, diff, commit=None):
         """Lines 7-9 on the flatten-once layout from the tree path: one
-        codec pack of the stacked drift matrix and one unpack."""
+        codec pack of the (stacked) drift matrix and one unpack; on the
+        sharded backend the payload to the neighbours and one unpack per
+        source."""
         plan = kops.KernelPlan.for_tree(diff, worker_dim=True)
         mat = plan.flatten(diff)
         payload = self.codec.rows_pack(mat, counts=self.row_counts(plan, mat),
                                        plan=plan)
+        del mat
         q_self = plan.unflatten(self.codec.rows_unpack(payload, plan=plan),
                                 dtype=torch.float32)
-        new_state["xhat"] = tree_map(lambda h, q: h + q, xhat, q_self)
+        self._commit_self(new_state, xhat, q_self, commit)
+        if self.sharded:
+            got = self._exchange_rows(payload, plan, commit)
+            self._add_to_copies(new_state, [
+                plan.unflatten(self.codec.rows_unpack(g, plan=plan),
+                               dtype=torch.float32) for g in got])
 
-    def _comm_payload_wire(self, new_state, xhat, diff, r):
+    def _comm_payload_wire(self, new_state, xhat, diff, r, commit=None):
         """Lines 7-9 with per-leaf codec payloads, packed and unpacked per
-        stacked worker (the dense backend simulates the exchange)."""
-        q = round_trip_tree(self.codec, diff, r)
-        new_state["xhat"] = {name: h + q[name] for name, h in xhat.items()}
+        worker (the dense backend simulates the exchange; the sharded one
+        ships each payload's :meth:`WireCodec.wire` entries, rand-k's
+        values without their indices)."""
+        codec = self.codec
+        keys = leaf_keys(codec, diff, r)
+        payloads = pack_tree(codec, diff, keys)
+        q = unpack_tree(codec, payloads, diff, keys)
+        self._commit_self(new_state, xhat, q, commit)
+        if self.sharded:
+            got = self.comm.receive_payloads(
+                {n: codec.wire(p) for n, p in payloads.items()},
+                *self._routes(commit))
+            self._add_to_copies(new_state, [
+                unpack_tree(codec, g, diff, keys) for g in got])
 
     # -- kernel round (flatten-once matrix domain) ------------------------------
     @property
@@ -263,8 +420,11 @@ class CPDSGDM(PDSGDM):
 
     def mat_state(self, plan, state) -> dict:
         mats = super().mat_state(plan, state)
-        if self._kernel_wire():
+        if self.kernel_comm_supported:
             mats["xhat"] = plan.flatten(state["xhat"])
+            if self.sharded:
+                mats["xhat_nbrs"] = {k: plan.flatten(v) for k, v in
+                                     state["xhat_nbrs"].items()}
         return mats
 
     def unmat_state(self, plan, mats, state, step) -> dict:
@@ -272,16 +432,23 @@ class CPDSGDM(PDSGDM):
         if "xhat" in mats:
             new_state["xhat"] = plan.unflatten(mats["xhat"],
                                                dtype=torch.float32)
+        if "xhat_nbrs" in mats:
+            new_state["xhat_nbrs"] = {
+                k: plan.unflatten(v, dtype=torch.float32)
+                for k, v in mats["xhat_nbrs"].items()}
         return new_state
 
     def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
-        """Alg. 2 lines 6-9 on the kernel layout: the consensus ``W @ x̂``
-        (a matmul, not the gossip kernel), the drift, one codec pack and one
-        unpack; ``counts`` are the device row counts tiled over the
-        workers (the sparse codec reads each gathered row's count at its
-        own worker's row)."""
+        """Alg. 2 lines 6-9 on the kernel layout: the consensus (``W @ x̂``,
+        a matmul, on the dense backend; one ``gossip_mix`` launch over the
+        stored copies on the sharded one), the drift, one codec pack and
+        one unpack (and one per source on the sharded backend); ``counts``
+        are the device row counts tiled over the workers (the sparse codec
+        reads each gathered row's count at its own worker's row)."""
         if plan is None:
             raise ValueError("CPD-SGDM matrix comm needs the KernelPlan")
+        if self.sharded:
+            return self._sharded_round_mat(x_mat, mats, counts, plan)
         gamma = self.config.gamma
         xhat = mats["xhat"]
         mixhat = self.comm.mix(xhat, r=r)
@@ -290,6 +457,30 @@ class CPDSGDM(PDSGDM):
         new_mats = dict(mats)
         new_mats["xhat"] = xhat + self.codec.rows_unpack(payload, plan=plan)
         return x_new, new_mats
+
+    def _sharded_round_mat(self, x_mat, mats, counts, plan):
+        """The sharded round on the round's own matrices (the reference's
+        ``comm_round_mat``, ``cpdsgdm.py:583-624``), written in place: the
+        consensus ``w₀·x̂ + Σ w·x̂_nbrs`` in one ``gossip_mix`` launch, then
+        ``x + γ(mix − x̂)``, one pack of the drift, the payload to every
+        neighbour in one P2P batch, ``x̂ += unpack(own)`` and each copy
+        ``+= unpack(its source's)``."""
+        shifts = self._shifts()
+        xhat, nbrs = mats["xhat"], mats["xhat_nbrs"]
+        d = kops.gossip_mix_mat(
+            (xhat,) + tuple(nbrs[key] for (key, _a, _s, _w) in shifts),
+            (self.comm.self_weight(),) + tuple(w for (_k, _a, _s, w)
+                                               in shifts))
+        d.sub_(xhat).mul_(self.config.gamma)
+        x_new = x_mat.add_(d)
+        payload = self.codec.rows_pack(torch.sub(x_new, xhat, out=d),
+                                       counts=counts, plan=plan)
+        del d
+        xhat.add_(self.codec.rows_unpack(payload, plan=plan))
+        for (key, _a, _s, _w), got in zip(
+                shifts, self._exchange_rows(payload, plan)):
+            nbrs[key].add_(self.codec.rows_unpack(got, plan=plan))
+        return x_new, mats
 
     # -- comm-cost model ---------------------------------------------------------
     def bytes_per_comm_round(self, params, r: int = 0) -> int:

@@ -61,8 +61,8 @@ from repro_torch.core.topology import (MembershipSchedule, Topology,
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["CommBackend", "DenseComm", "HierarchicalComm", "ShardedComm",
-           "gossip_bytes_per_round", "hier_bytes_per_round", "select_round",
-           "worker_mask_like"]
+           "gossip_bytes_per_round", "hier_bytes_per_round",
+           "refuse_multi_axis", "select_round", "worker_mask_like"]
 
 ShiftKey = Tuple[int, int]  # (topology axis, shift)
 
@@ -358,6 +358,24 @@ def _as_dict(tree):
     return {"": tree}, lambda d: d[""]
 
 
+def refuse_multi_axis(what: str, comm) -> None:
+    """Refuse a mix over per-shift neighbour copies or payloads (CPD-SGDM's
+    ``xhat_nbrs``, MT's compressed correction) on a sharded graph of more
+    than one axis: there ``w₀·v + Σ w·v_shift`` over the per-axis shifts
+    is not a row of W (ROADMAP C.9)."""
+    top = comm.topology
+    sizes = tuple(int(n) for n in top.axis_sizes)
+    if len(sizes) > 1:
+        raise ValueError(
+            f"{what} on the sharded backend needs a one-axis shift graph "
+            f"(ring, exponential): on the {top.name!r} graph of axes "
+            f"{sizes} its mix over the per-shift neighbours, "
+            "w₀·v + Σ w·v_shift, is not a row of W — the weights sum to the "
+            "number of axes and W's diagonal neighbours are never received "
+            "(ROADMAP C.9).  Run it on a one-axis graph, or on the dense "
+            "backend.")
+
+
 @dataclasses.dataclass
 class ShardedComm(CommBackend):
     """One worker per rank of a process group, P2P between neighbours.
@@ -524,24 +542,56 @@ class ShardedComm(CommBackend):
         dst = [j for j, s in enumerate(arg) if int(s) == c]
         return self._rank_on(axis, dst[0]), self._rank_on(axis, arg[c])
 
-    def _receive_entries(self, payload: dict, axis: int, entries) -> list:
-        """Every array of ``payload`` through each exchange of ``entries``
-        (``(kind, arg)``) along ``axis``, all in one batch, entry j's leaf
-        i under tag ``j·n + i``; returns one dict per entry."""
+    def _axis_size(self, axis: int) -> int:
+        return int(self.mesh.axis_sizes[self.mesh.axis_index(
+            self.axis_names[axis])])
+
+    def exchange_ops(self, payload: dict, entries, out=None,
+                     source_ok=None, tag0: int = 0):
+        """The sends and receives of one exchange of every array of
+        ``payload`` (each in its own dtype) through each ``(axis, kind,
+        arg)`` entry of ``entries`` (:meth:`_ends`), entry j's array i
+        under tag ``tag0 + j·n + i``, for a caller that posts them in a
+        batch of its own; the receive buffers, one dict per entry, are the
+        second item.  ``out``: those buffers, held by the caller (fresh
+        ones otherwise).  ``source_ok``: per entry None or an (n,) bool
+        mask over the entry's axis, True where the edge out of that source
+        ships; a pruned edge's source sends nothing and its receiver gets
+        zeros (which every codec decodes to 0)."""
         names = list(payload)
-        sends, recvs, out = [], [], []
-        for j, (kind, arg) in enumerate(entries):
-            dst, src = self._ends(axis, kind, arg)
-            got = {}
+        sends, recvs, got = [], [], []
+        for j, (ax, kind, arg) in enumerate(entries):
+            dst, src = self._ends(ax, kind, arg)
+            ship = take = True
+            if source_ok is not None and source_ok[j] is not None:
+                ok = np.asarray(source_ok[j], dtype=bool)
+                c = self._coord(ax)
+                s = ((c + arg) % self._axis_size(ax) if kind == "shift"
+                     else int(arg[c]))
+                ship, take = bool(ok[c]), bool(ok[s])
+            bufs = (out[j] if out is not None else
+                    {k: torch.empty(payload[k].shape,
+                                    dtype=payload[k].dtype,
+                                    device=payload[k].device)
+                     for k in names})
             for i, k in enumerate(names):
-                t = payload[k].contiguous()
-                tag = j * len(names) + i
-                sends.append((t, dst, tag))
-                got[k] = torch.empty_like(t)
-                recvs.append((got[k], src, tag))
-            out.append(got)
-        self._p2p(sends, recvs)
-        return out
+                tag = tag0 + j * len(names) + i
+                if ship:
+                    sends.append((payload[k].contiguous(), dst, tag))
+                if take:
+                    recvs.append((bufs[k], src, tag))
+                else:
+                    bufs[k].zero_()
+            got.append(bufs)
+        return (sends, recvs), got
+
+    def exchange(self, payload: dict, entries, out=None,
+                 source_ok=None) -> list:
+        """:meth:`exchange_ops` posted as one P2P batch: what each entry's
+        source sent, one dict per entry, in their order."""
+        ops, got = self.exchange_ops(payload, entries, out, source_ok)
+        self._p2p(*ops)
+        return got
 
     def _wire_cast(self, x):
         """What ships: the neighbour payload in the wire dtype; the bf16
@@ -560,7 +610,7 @@ class ShardedComm(CommBackend):
     def receive_tree(self, tree, axis: int, shift: int):
         """Each leaf of worker (k+shift) on ``axis``, dtypes kept."""
         d, back = _as_dict(tree)
-        return back(self._receive_entries(d, axis, [("shift", shift)])[0])
+        return back(self.exchange(d, [(axis, "shift", shift)])[0])
 
     def receive_payload(self, payload: Dict[str, object], axis: int,
                         shift: int) -> Dict[str, object]:
@@ -574,20 +624,54 @@ class ShardedComm(CommBackend):
         """:meth:`receive_payload` with the edges from sources whose
         ``source_ok`` is False pruned: such a source ships nothing, and
         its receiver gets zeros (which every codec decodes to 0)."""
-        ok = np.asarray(source_ok, dtype=bool)
-        n = int(self.topology.axis_sizes[axis])
-        c = self._coord(axis)
-        dst, src = self._ends(axis, "shift", shift)
-        names = list(payload)
-        sends, recvs = [], []
-        got = {k: torch.zeros_like(v) for k, v in payload.items()}
-        for i, k in enumerate(names):
-            if ok[c]:
-                sends.append((payload[k].contiguous(), dst, i))
-            if ok[(c + shift) % n]:
-                recvs.append((got[k], src, i))
-        self._p2p(sends, recvs)
-        return got
+        return self.exchange(dict(payload), [(axis, "shift", shift)],
+                             source_ok=[source_ok])[0]
+
+    def receive_payloads(self, payloads: dict, entries,
+                         source_ok=None) -> list:
+        """Per-leaf codec payloads, ``{leaf: {array: tensor}}``, through
+        each ``(axis, kind, arg)`` entry, every array of every leaf in one
+        batch (:meth:`exchange`): one such dict per entry."""
+        flat = {(n, a): t for n, p in payloads.items() for a, t in p.items()}
+        out = []
+        for got in self.exchange(flat, entries, source_ok=source_ok):
+            per = {n: {} for n in payloads}
+            for (n, a), t in got.items():
+                per[n][a] = t
+            out.append(per)
+        return out
+
+    def stored_weights(self, r):
+        """Round ``r``'s weights of a consensus over per-shift copies under
+        its liveness, for this rank (``r`` a host int): None without a
+        membership schedule or where every worker of the round is active,
+        else ``(diag, edges, active)``.  ``edges`` holds one ``(axis,
+        shift, coeff, source_ok)`` per non-self shift that is not a
+        multiple of K (such a copy is the own value: its weight joins the
+        diagonal).  ``coeff`` is the shift's weight where this rank and
+        the shift's source are both active, else 0; ``source_ok`` the (K,)
+        sources whose edge along the shift has both ends active; ``diag``
+        is 1 minus the coefficients, all f32 as the reference rounds them
+        (``cpdsgdm.py:371-381``, ``tracking.py:301-315``); ``active``
+        whether this rank is."""
+        if self.membership is None:
+            return None
+        l = self.live_round(r, "stored_weights(r)")
+        act = np.asarray(self.active_at(l), dtype=bool)
+        if act.all():
+            return None
+        n = self.topology_at(l).n_workers
+        k = self._coord(0)
+        ks = np.arange(n)
+        off, edges = 0.0, []
+        for (ax, sh, w) in self.nonself_shifts():
+            if sh % n == 0:
+                continue
+            coeff = w if act[k] and act[(k + sh) % n] else 0.0
+            off += coeff
+            edges.append((ax, sh, float(np.float32(coeff)),
+                          act & act[(ks - sh) % n]))
+        return float(np.float32(1.0 - off)), edges, bool(act[k])
 
     def shift_views(self, tree) -> Dict[ShiftKey, object]:
         return {(ax, sh): self.receive_tree(tree, ax, sh)
@@ -620,10 +704,10 @@ class ShardedComm(CommBackend):
         y, back = _as_dict(tree)
         for ax in sorted(per_axis):
             entries = per_axis[ax]
-            remote = [(kind, arg) for (kind, arg, _w) in entries
+            remote = [(ax, kind, arg) for (kind, arg, _w) in entries
                       if not (kind == "shift" and arg == 0)]
             payload = {k: self._wire_cast(v) for k, v in y.items()}
-            got = iter(self._receive_entries(payload, ax, remote))
+            got = iter(self.exchange(payload, remote))
             views = [None if (kind == "shift" and arg == 0) else next(got)
                      for (kind, arg, _w) in entries]
             new = {}
@@ -652,46 +736,35 @@ class ShardedComm(CommBackend):
             return tree
         n = int(top.axis_sizes[0])
         k = self._coord(0)
-        entries, off_diag = [], 0.0   # (coeff, any pair, send?, recv?, ends)
+        ks = np.arange(n)
+        # per exchange: (coeff, any pair active, entry, the sources whose
+        # edge ships: both ends active)
+        entries, off_diag = [], 0.0
         for (_ax, sh, w) in top.shifts:
             if sh % n == 0:
                 continue
             coeff = w if act[k] and act[(k + sh) % n] else 0.0
-            anyp = any(act[s] and act[(s - sh) % n] for s in range(n))
-            send = bool(act[k] and act[(k - sh) % n])
-            entries.append((coeff, anyp, send, coeff != 0.0,
-                            self._ends(0, "shift", sh)))
+            ok = act & act[(ks - sh) % n]
+            entries.append((coeff, bool(ok.any()), (0, "shift", sh), ok))
             off_diag += coeff
         for (_ax, recv, w) in top.perms:
-            src = [int(s) for s in recv]
+            src = np.asarray(recv, dtype=np.int64)
+            dst = np.empty(n, dtype=np.int64)
+            dst[src] = ks
             coeff = w if src[k] != k and act[k] and act[src[k]] else 0.0
-            anyp = any(src[j] != j and act[j] and act[src[j]]
-                       for j in range(n))
-            dst = [j for j in range(n) if src[j] == k][0]
-            send = bool(dst != k and act[dst] and act[k])
-            entries.append((coeff, anyp, send, coeff != 0.0,
-                            self._ends(0, "perm", recv)))
+            ok = (dst != ks) & act & act[dst]
+            entries.append((coeff, bool(ok.any()), (0, "perm", recv), ok))
             off_diag += coeff
         diag = float(np.float32(1.0 - off_diag))
         x_d, back = _as_dict(tree)
-        names = list(x_d)
-        payload = {kk: self._wire_cast(v).contiguous()
-                   for kk, v in x_d.items()}
-        sends, recvs, views = [], [], []
-        for j, (coeff, anyp, send, rec, (dst, src)) in enumerate(entries):
-            got = {kk: torch.zeros_like(v) for kk, v in payload.items()}
-            for i, kk in enumerate(names):
-                tag = j * len(names) + i
-                if send:
-                    sends.append((payload[kk], dst, tag))
-                if rec:
-                    recvs.append((got[kk], src, tag))
-            views.append(got)
-        self._p2p(sends, recvs)
+        views = self.exchange(
+            {kk: self._wire_cast(v) for kk, v in x_d.items()},
+            [e for (_c, _a, e, _ok) in entries],
+            source_ok=[ok for (_c, _a, _e, ok) in entries])
         out = {}
         for kk, x in x_d.items():
             acc = x.to(torch.float32) * diag
-            for (coeff, anyp, _s, _r, _e), got in zip(entries, views):
+            for (coeff, anyp, _e, _ok), got in zip(entries, views):
                 if anyp:
                     acc = acc + self._unwire_cast(got[kk]) * float(
                         np.float32(coeff))
@@ -710,13 +783,17 @@ class ShardedComm(CommBackend):
                 f"device tensor: {call}")
         return int(r)
 
+    def live_round(self, r, call: str) -> int:
+        """Round ``r``'s place in the membership cycle, on the host."""
+        cyc = self.round_cycle
+        return 0 if cyc == 1 else self._host_round(
+            r, "a MembershipSchedule", call) % cyc
+
     def mix(self, tree, r=None):
         """Σⱼ w_kj x⁽ʲ⁾ for this rank's worker with round ``r``'s graph and
         liveness (``r`` a host int; a static graph ignores it)."""
         if self.membership is not None:
-            cyc = self.round_cycle
-            l = 0 if cyc == 1 else self._host_round(
-                r, "a MembershipSchedule", "mix(tree, r=...)") % cyc
+            l = self.live_round(r, "mix(tree, r=...)")
             return self._mix_with_masked(self.topology_at(l),
                                          self.active_at(l), tree)
         if self.period == 1:
@@ -727,9 +804,7 @@ class ShardedComm(CommBackend):
     def stale_mix(self, tree, r=None):
         if self.membership is None:
             return self.mix(tree, r=r)
-        cyc = self.round_cycle
-        l = 0 if cyc == 1 else self._host_round(
-            r, "a MembershipSchedule", "stale_mix(tree, r=...)") % cyc
+        l = self.live_round(r, "stale_mix(tree, r=...)")
         return self._mix_with_masked(self.topology_at(l),
                                      self.active_at(l + 1), tree)
 

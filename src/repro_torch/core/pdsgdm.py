@@ -414,12 +414,40 @@ class PDSGDM:
             bufs = self._recv[key] = (full, wire)
         return bufs
 
-    def _sharded_gossip_mat(self, x_mat, plan):
+    def _wire_buffers(self, payload, wire, routes) -> tuple:
+        """The receive buffers of a codec's kernel wire (``wire``: the
+        ``rows_wire`` cut of ``payload``), held per shift, array and
+        geometry: per ``(axis, "shift", shift)`` route the full-size arrays
+        the received payload decodes from (zero past the wire's rows, which
+        are never written) and the wire-shaped parts of them the exchange
+        lands in."""
+        full, land = [], []
+        for (ax, _kind, sh) in routes:
+            f, g = {}, {}
+            for name, arr in payload.items():
+                cut = tuple(wire[name].shape)
+                key = ("codec", ax, sh, name, tuple(arr.shape), cut,
+                       arr.dtype, arr.device)
+                bufs = self._recv.get(key)
+                if bufs is None:
+                    whole = torch.zeros(arr.shape, dtype=arr.dtype,
+                                        device=arr.device)
+                    part = (whole if cut == tuple(arr.shape)
+                            else whole[..., :cut[-2], :])
+                    bufs = self._recv[key] = (whole, part)
+                f[name], g[name] = bufs
+            full.append(f)
+            land.append(g)
+        return full, land
+
+    def _sharded_gossip_mat(self, x_mat, plan, ride=None):
         """The shift-structured wire on a ``ShardedComm``: per topology
         axis, the ``used_rows`` cut of the matrix ships in the wire dtype
         to every neighbour of the axis in one batch, lands in the held
         zero-tailed buffers, and the self view and the received views, in
-        the topology's order, go to one ``gossip_mix`` launch."""
+        the topology's order, go to one ``gossip_mix`` launch.  ``ride``:
+        ``(sends, recvs)`` of another payload (tags past the topology's
+        shifts) posted in the first axis's batch."""
         comm = self.comm
         top = comm.topology
         rows = x_mat.shape[-2]
@@ -441,6 +469,9 @@ class PDSGDM:
                 sends.append((payload, dst, j))
                 recvs.append((wire, src, j))
                 views.append((full, wire))
+            if ride is not None:
+                sends, recvs = sends + ride[0], recvs + ride[1]
+                ride = None
             comm._p2p(sends, recvs)
             for v in views:
                 if isinstance(v, tuple) and v[1].dtype != torch.float32:

@@ -1,9 +1,9 @@
 """MT-DSGDm and QG-DSGDm: momentum variants for non-IID workloads.
 
 Port of ``src/repro/core/tracking.py:84-654`` on the dense simulation
-backend and, with full-precision tracking, on the sharded backends.  Both keep PD-SGDM's periodic structure (p local steps, one
-gossip) and its fused round, on the tree and on the flatten-once kernel
-layout.
+backend and on the sharded backends.  Both keep PD-SGDM's periodic
+structure (p local steps, one gossip) and its fused round, on the tree
+and on the flatten-once kernel layout.
 
 * **MT-DSGDm** (Momentum Tracking, periodic form).  Each worker carries a
   tracking correction ``c`` and feeds it, not its raw gradient, into the
@@ -32,12 +32,11 @@ layout.
   x − η(μm + ĝ), and discards its m; the buffer update is plain elementwise
   torch, as the reference leaves it to XLA.  One tensor on the wire.
 
-Elastic membership (a ``DenseComm`` with a membership schedule): both mix
-with round r's masked W.  A straggler's masked row is ``e_k``, so MT's
-compressed tracking keeps its raw c, not its own Q(c), and the round runs
-on the tree at the boundary; QG's straggler folds its own round
-displacement into m, and needs no code.  Bytes: the correction wire ×
-the round's active edges per worker.
+Elastic membership: both mix with round r's masked W.  A straggler's
+masked row is ``e_k``, so MT's compressed tracking keeps its raw c, not
+its own Q(c), and the round runs on the tree at the boundary; QG's
+straggler folds its own round displacement into m, and needs no code.
+Bytes: the correction wire × the round's active edges per worker.
 
 Overlapped rounds (``overlap=True``): MT forms the stale tracking delta
 ``dc = gate·(W̃·c_buf − c_buf)`` beside ``dx`` at round start and drips
@@ -49,9 +48,24 @@ displacement into its buffer as in the synchronous form.  On a
 hierarchical graph MT's bytes double at every level (the ``(x, c)``
 pair).
 
-Not ported: MT's compressed tracking on the sharded backends, with its
-per-neighbour correction payloads (ROADMAP queue A item 12b, refused at
-construction).
+MT's compressed tracking on the sharded backend
+(:class:`~repro_torch.core.gossip.ShardedComm`, a static shift graph of
+one axis; the reference's ``_mix_c_sharded``, ``tracking.py:251-337``): each
+rank quantizes its own c, ships the codec payload to every neighbour and
+mixes the decoded corrections, ``w₀·Q(c) + Σ w·unpack(recv)`` (the self
+term quantized too, so the sharded and the dense rounds agree).  On the
+kernel layout one pack, one unpack per source and the owner's, the sum in
+one ``gossip_mix`` launch, and the payload (cut to ``used_rows``, received
+into held zero-tailed buffers) rides in the P2P batch of x's wire; on the
+tree the per-leaf payloads of every leaf go in one batch of their own.
+Under membership round r's liveness is picked on the host: an edge ships
+only if both its ends are active, its receiver's coefficient is the
+shift's weight (0 on a dead edge, the lost mass on the diagonal), and a
+straggler keeps its raw c.  The sharded backend refuses compressed
+tracking on a hierarchical or complete graph and on a schedule, as the
+reference does (``tracking.py:111-133``), and on a graph of more than one
+axis, where the sum over the per-axis shifts is not a row of W (ROADMAP
+C.9).
 """
 from __future__ import annotations
 
@@ -64,9 +78,10 @@ import torch
 from repro_torch.core.compression import Compressor
 from repro_torch.core.gossip import (CommBackend, ShardedComm,
                                      gossip_bytes_per_round,
-                                     worker_mask_like)
+                                     refuse_multi_axis, worker_mask_like)
 from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
-from repro_torch.core.wire import make_codec, round_trip_tree
+from repro_torch.core.wire import (leaf_keys, make_codec, pack_tree,
+                                  round_trip_tree, unpack_tree)
 from repro_torch.kernels import LANE
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import tree_leaves, tree_map
@@ -103,11 +118,27 @@ class MTDSGDm(PDSGDM):
                 "overlap=True: the in-flight correction payload would need "
                 "a second codec wire per round")
         if codec is not None and isinstance(comm, ShardedComm):
-            raise NotImplementedError(
-                "MT-DSGDm compressed tracking on the sharded backend (the "
-                "per-neighbour correction payloads) is not ported yet: "
-                "ROADMAP queue A item 12b.  Full-precision tracking "
-                "(compressor=None) runs on it")
+            if comm.topology.name == "hierarchical":
+                raise ValueError(
+                    "MT-DSGDm compressed tracking does not compose with the "
+                    "sharded hierarchical backend: the correction wire would "
+                    "need its own codec lane through the two-level round.  "
+                    "Use the hierarchical inter_codec for x compression, or "
+                    "run compressed tracking on a flat topology.")
+            if comm.topology.name == "complete":
+                raise ValueError(
+                    "MT-DSGDm compressed tracking on the sharded backend "
+                    "needs a shift-structured topology (ring/torus/"
+                    "exponential); 'complete' has no per-neighbour wire.")
+            if comm.period > 1:
+                raise ValueError(
+                    "MT-DSGDm compressed tracking requires a static "
+                    "topology on the sharded backend: the correction "
+                    "payload is exchanged per fixed neighbour.  Time-"
+                    "varying schedules run compressed tracking on the "
+                    "dense backend, or drop the compressor (full-precision "
+                    "c composes with schedules on both backends).")
+            refuse_multi_axis("MT-DSGDm compressed tracking", comm)
         super().__init__(config, comm)
         self.compressor = compressor
         self.codec = codec
@@ -185,11 +216,14 @@ class MTDSGDm(PDSGDM):
     # -- communication: gossip (x, c) ------------------------------------------
     def comm_round(self, state, params):
         r = self.round_index(state)
+        new_state = dict(state)
+        if self.codec is not None and self.sharded:
+            new_state["c"] = self._mix_c_sharded(state["c"], r)
+            return self.comm.mix(params, r=r), new_state
         c = state["c"]
         if self.codec is not None:
             # Q(c) per leaf and worker, with the shared (leaf, round) keys
             c = round_trip_tree(self.codec, c, r)
-        new_state = dict(state)
         new_state["c"] = self.comm.mix(c, r=r)
         am = self.comm.active_mask(r) if self.codec is not None else None
         if am is not None:
@@ -199,6 +233,36 @@ class MTDSGDm(PDSGDM):
                 lambda mc, cc: torch.where(worker_mask_like(am, mc), mc, cc),
                 new_state["c"], state["c"])
         return self.comm.mix(params, r=r), new_state
+
+    def _mix_c_sharded(self, c, r):
+        """The compressed correction mix on the sharded backend, per leaf
+        (the reference's ``_mix_c_sharded`` and ``_mix_c_sharded_masked``,
+        ``tracking.py:251-337``): ``w₀·Q(c) + Σ w·unpack(recv)`` in the
+        shifts' order, every leaf's payload to every neighbour in one P2P
+        batch.  Under membership round r's liveness, picked on the host:
+        an edge ships only if both its ends are active, the coefficients
+        and the diagonal are :meth:`ShardedComm.stored_weights`', and a
+        worker that is not active keeps its raw c."""
+        comm, codec = self.comm, self.codec
+        edges = [(ax, sh, w, None) for (ax, sh, w) in comm.nonself_shifts()]
+        diag, active = comm.self_weight(), True
+        live = comm.stored_weights(r)
+        if live is not None:
+            diag, edges, active = live
+        keys = leaf_keys(codec, c, r)
+        payloads = pack_tree(codec, c, keys)
+        w0 = float(np.float32(diag))
+        mixed = {name: w0 * q for name, q in
+                 unpack_tree(codec, payloads, c, keys).items()}
+        got = comm.receive_payloads(
+            {n: codec.wire(p) for n, p in payloads.items()},
+            [(ax, "shift", sh) for (ax, sh, _w, _ok) in edges],
+            [ok for (_ax, _sh, _w, ok) in edges])
+        for (_ax, _sh, w, _ok), recv in zip(edges, got):
+            wf = float(np.float32(w))
+            for name, q in unpack_tree(codec, recv, c, keys).items():
+                mixed[name] = mixed[name] + wf * q
+        return mixed if active else c
 
     # -- kernel round (flatten-once matrix domain) ------------------------------
     def _kernel_wire(self) -> bool:
@@ -267,15 +331,36 @@ class MTDSGDm(PDSGDM):
     def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
         """Dual gossip on the kernel layout: x and c mix matrix to matrix;
         compressed tracking packs c with the codec's rows kernels, unpacks
-        it and mixes the decoded matrix (the self term quantized too)."""
-        x_new = self._gossip_mat(x_mat, r, plan=plan)
+        it and mixes the decoded matrix (the self term quantized too).  On
+        the sharded backend each source's payload is decoded and the sum
+        ``w₀·Q(c) + Σ w·unpack(recv)`` is one ``gossip_mix`` launch; the
+        payload rides in the P2P batch of x's wire."""
         if self.codec is None:
-            c_new = self._gossip_mat(mats["c"], r, plan=plan)
+            return (self._gossip_mat(x_mat, r, plan=plan),
+                    {**mats, "c": self._gossip_mat(mats["c"], r, plan=plan)})
+        payload = self.codec.rows_pack(mats["c"], counts=counts, plan=plan)
+        q_self = self.codec.rows_unpack(payload, plan=plan)
+        if not self.sharded:
+            return (self._gossip_mat(x_mat, r, plan=plan),
+                    {**mats, "c": self._gossip_mat(q_self, r)})
+        if plan is None:
+            raise ValueError("MT-DSGDm matrix comm needs the KernelPlan")
+        comm = self.comm
+        nonself = comm.nonself_shifts()
+        routes = [(ax, "shift", sh) for (ax, sh, _w) in nonself]
+        wire = self.codec.rows_wire(payload, plan)
+        full, land = self._wire_buffers(payload, wire, routes)
+        ops, _ = comm.exchange_ops(wire, routes, out=land,
+                                   tag0=len(comm.topology.shifts))
+        if self._mat_wire_static():
+            x_new = self._sharded_gossip_mat(x_mat, plan, ride=ops)
         else:
-            payload = self.codec.rows_pack(mats["c"], counts=counts,
-                                           plan=plan)
-            c_new = self._gossip_mat(self.codec.rows_unpack(payload,
-                                                            plan=plan), r)
+            comm._p2p(*ops)
+            x_new = self._gossip_mat(x_mat, r, plan=plan)
+        decoded = [self.codec.rows_unpack(g, plan=plan) for g in full]
+        c_new = kops.gossip_mix_mat(
+            (q_self,) + tuple(decoded),
+            (comm.self_weight(),) + tuple(w for (_a, _s, w) in nonself))
         return x_new, {**mats, "c": c_new}
 
     # -- comm-cost model --------------------------------------------------------

@@ -68,7 +68,8 @@ __all__ = [
     "QSGDCodec", "SparseRowsCodec", "WireKey", "make_codec", "wire_key",
     "topk_rows", "topk_rows_unpack", "qsgd_rows", "qsgd_rows_unpack",
     "qsgd_bits", "sign_rows", "sign_rows_unpack", "sparse_row_select",
-    "topk_width", "payload_nbytes", "leaf_keys", "round_trip_tree",
+    "topk_width", "payload_nbytes", "leaf_keys", "pack_tree",
+    "round_trip_tree", "unpack_tree",
 ]
 
 Payload = Dict[str, torch.Tensor]
@@ -602,21 +603,34 @@ def leaf_keys(codec: WireCodec, tree: dict, r) -> dict:
     return keys
 
 
+def pack_tree(codec: WireCodec, tree: dict, keys: dict) -> dict:
+    """The per-leaf payload of every leaf of a worker-stacked ``tree``,
+    per worker (``torch.func.vmap``); ``keys`` from :func:`leaf_keys`."""
+    return {name: torch.func.vmap(lambda x, key=keys[name]:
+                                  codec.pack(x, key))(leaf)
+            for name, leaf in tree.items()}
+
+
+def unpack_tree(codec: WireCodec, payloads: dict, like: dict,
+                keys: dict) -> dict:
+    """The f32 decode of per-leaf ``payloads`` (worker-stacked, as
+    :func:`pack_tree` makes them, or received) to the leaves of ``like``."""
+    out = {}
+    for name, leaf in like.items():
+        shape = tuple(leaf.shape[1:])
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        out[name] = torch.func.vmap(
+            lambda p, key=keys[name]: codec.unpack(
+                p, n, shape, torch.float32, key=key))(payloads[name])
+    return out
+
+
 def round_trip_tree(codec: WireCodec, tree: dict, r) -> dict:
     """``unpack(pack(x))`` of every leaf of a worker-stacked ``tree``, per
     worker (``torch.func.vmap``), with round ``r``'s shared keys: what each
     worker decodes from the per-leaf payload of round ``r``."""
     keys = leaf_keys(codec, tree, r)
-
-    def one(leaf, key):
-        shape = tuple(leaf.shape[1:])
-        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-        payload = torch.func.vmap(lambda x: codec.pack(x, key))(leaf)
-        return torch.func.vmap(
-            lambda p: codec.unpack(p, n, shape, torch.float32,
-                                   key=key))(payload)
-
-    return {name: one(leaf, keys[name]) for name, leaf in tree.items()}
+    return unpack_tree(codec, pack_tree(codec, tree, keys), tree, keys)
 
 
 def payload_nbytes(payload: Payload) -> int:

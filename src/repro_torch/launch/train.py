@@ -28,9 +28,12 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--optimizer", default=None,
-                    help="pd_sgdm|mt_dsgdm|qg_dsgdm|c_sgdm|d_sgd|pd_sgd "
-                         "(cpd_sgdm/choco_sgd and MT's compressed tracking "
-                         "wait for the sharded backend's item 12b)")
+                    help="pd_sgdm|cpd_sgdm|choco_sgd|mt_dsgdm|qg_dsgdm|"
+                         "c_sgdm|d_sgd|pd_sgd; cpd_sgdm and choco_sgd ship "
+                         "the --compressor's payload, mt_dsgdm with "
+                         "--track-compressed ships its correction through "
+                         "it (both on a one-axis static graph: a ring or "
+                         "an exponential graph)")
     ap.add_argument("--p", type=int, default=None)
     ap.add_argument("--eta", type=float, default=None)
     ap.add_argument("--topology", default=None,

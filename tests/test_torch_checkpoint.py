@@ -132,16 +132,16 @@ def _mesh():
 @pytest.mark.parametrize("name,kw,keys", _OPTIMIZERS, ids=_OPT_IDS)
 def test_state_keys_cover_every_state_key(name, kw, keys):
     """``check_state_keys`` knows every entry of every family's sharded
-    state (the counterpart of ``_state_spec``'s check); CPD refuses the
-    sharded backend (item 12b, and dense-only with ``overlap``), so its
-    state is checked on the dense one."""
+    state (the counterpart of ``_state_spec``'s check): CPD's adds its
+    per-shift copies ``xhat_nbrs``; overlapped CPD is dense-only, so its
+    state is checked on the dense backend."""
     comm = ShardedComm(ring(8), axis_names=("w",), mesh=_mesh())
-    if name == "cpd_sgdm" or kw.get("compressor") and name == "mt_dsgdm":
-        err = (ValueError if kw.get("overlap") else NotImplementedError)
-        with pytest.raises(err, match="dense-only" if kw.get("overlap")
-                           else "12b"):
+    if name == "cpd_sgdm" and kw.get("overlap"):
+        with pytest.raises(ValueError, match="dense-only"):
             make_optimizer(name, comm, eta=0.05, mu=0.9, p=2, **_kw(kw))
         comm = DenseComm(ring(8), device="cpu")
+    elif name == "cpd_sgdm":
+        keys = keys | {"xhat_nbrs"}
     opt = make_optimizer(name, comm, eta=0.05, mu=0.9, p=2, **_kw(kw))
     params = {"layer.w": torch.empty((1, 12), device="meta")}
     state = opt.init(params)
@@ -150,6 +150,8 @@ def test_state_keys_cover_every_state_key(name, kw, keys):
     assert marks["step"] is False
     for k in keys - {"step", "mix"}:
         assert marks[k] is True
+    if "xhat_nbrs" in keys:
+        assert sorted(state["xhat_nbrs"]) == ["ax0_sh+1", "ax0_sh-1"]
     if "mix" in keys:
         assert marks["mix"]["phase"] is False
         assert all(v for kk, v in marks["mix"].items() if kk != "phase")
@@ -255,6 +257,10 @@ CASES = {
                    (4,)),
     "pd_onepeer": ("pd_sgdm", {"schedule": "one_peer_exp"}, 8, (2,)),
     "mt_onepeer": ("mt_dsgdm", {"schedule": "one_peer_exp"}, 8, (2,)),
+    # CPD sign with its per-shift copies, both layouts
+    "cpd": ("cpd_sgdm", {"compressor": "sign"}, 8, (4, 5)),
+    "cpd_kernel": ("cpd_sgdm", {"compressor": "sign", "use_kernel": True},
+                   8, (4, 5)),
 }
 
 
@@ -286,3 +292,47 @@ def test_resume_bit_identical(resumed, label):
         if label == "pd_overlap":
             # the restored in-flight payload was live (phase armed)
             assert int(res[4][1]["mix"]["phase"]) == 1
+
+
+# ------------------------------------------------ CPD's copies, K → K′
+CPD_KW = {"compressor": "sign", "use_kernel": True}
+
+
+@pytest.fixture(scope="module")
+def cpd_grown(tmp_path_factory):
+    """CPD sign on the kernel layout, 4 ranks, 4 steps, checkpointed at
+    the end; then restored into 6 ranks."""
+    d = str(tmp_path_factory.mktemp("cpd_k4"))
+    old = spawn_ranks(ranks.write_checkpoint, 4, (d, 4, "cpd_sgdm", CPD_KW),
+                      backend="gloo", device="cpu")
+    new = spawn_ranks(ranks.elastic_resume, 6, (d, "cpd_sgdm", CPD_KW),
+                      backend="gloo", device="cpu")
+    return old, new
+
+
+def _replica_contract(states):
+    """Every rank's copy ``ax0_sh{s}`` has the bits of the x̂ of rank
+    (k + s) mod K, on the ring of ``len(states)``."""
+    k = len(states)
+    for r, s in enumerate(states):
+        assert sorted(s["xhat_nbrs"]) == ["ax0_sh+1", "ax0_sh-1"]
+        for key, copy in s["xhat_nbrs"].items():
+            src = states[(r + int(key[len("ax0_sh"):])) % k]["xhat"]
+            for leaf, v in copy.items():
+                np.testing.assert_array_equal(v, src[leaf],
+                                              err_msg=f"rank {r} {key}")
+
+
+def test_cpd_restore_elastic_rederives_copies(cpd_grown):
+    """K = 4 → K′ = 6: survivors keep their x̂, joiners take their donors',
+    and every re-derived copy satisfies the replica contract on the new
+    ring (as it did on the old one at the checkpoint)."""
+    old, new = cpd_grown
+    _replica_contract([s for _, s in old])
+    _replica_contract([s for _, s in new])
+    for r, (params, state) in enumerate(new):
+        donor_p, donor_s = old[r % 4]
+        for leaf, v in state["xhat"].items():
+            np.testing.assert_array_equal(v, donor_s["xhat"][leaf])
+        for leaf, v in params.items():
+            np.testing.assert_array_equal(v, donor_p[leaf])

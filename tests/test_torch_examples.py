@@ -176,3 +176,26 @@ def test_torch_pretrain_claim_equal_loss(pretrain_records):
     flat, hier = pretrain_records["flat"], pretrain_records["hier"]
     assert hier["final_loss"] <= 1.05 * flat["final_loss"]
     assert flat["comm_mb"] / hier["comm_mb"] == 8.0
+
+
+def test_launcher_cpd_sign_bytes():
+    """``repro_torch.launch.train --optimizer cpd_sgdm --compressor sign``
+    in four gloo ranks on the CPU, the kernel layout, 8 steps (two rounds
+    of p = 4): finite losses, and the comm-MB of the reference's
+    ``bytes_per_round_cycle`` for the same model (the sign wire of the
+    smoke OLMo's every leaf, to both ring neighbours)."""
+    from repro.configs.registry import get_smoke_config as r_smoke
+    from repro.core import SignCompressor as RSign
+    from repro_torch.launch.train import main
+    out = main(["--arch", "olmo-1b", "--smoke", "--optimizer", "cpd_sgdm",
+                "--compressor", "sign", "--use-kernel", "--workers", "4",
+                "--dist-backend", "gloo", "--device", "cpu", "--steps",
+                str(STEPS)])
+    run = r_smoke("olmo-1b")
+    one = make_model(run.model).init(jax.random.PRNGKey(0))
+    ref = make_optimizer("cpd_sgdm", DenseComm(ring(4)), p=run.optim.p,
+                         compressor=RSign(block=1024), use_kernel=True)
+    cycle = ref.bytes_per_round_cycle(one)
+    assert out["steps"][-1] == STEPS - 1
+    assert all(math.isfinite(v) for v in out["loss"])
+    assert out["comm_mb"][-1] == (STEPS // run.optim.p) * cycle[0] / 2 ** 20

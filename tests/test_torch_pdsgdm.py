@@ -308,12 +308,12 @@ def test_schedules_match_reference(name, args):
 
 
 def test_optimizer_factory_refuses_what_this_slice_does_not_port():
-    """What the port refuses: an unknown optimizer, and on the sharded
-    backend CPD-SGDM and MT's compressed tracking (ROADMAP queue A item
-    12b; the rest of the sharded backend is tests/test_torch_sharded.py).
-    Overlapped rounds and hierarchical graphs are ported
-    (tests/test_torch_overlap.py, tests/test_torch_hierarchical.py) and
-    build as the reference's do."""
+    """What the port refuses: an unknown optimizer, and what the reference
+    refuses on the sharded backend (overlapped CPD-SGDM here; the others
+    are tests/test_torch_sharded.py's).  CPD-SGDM and MT's compressed
+    tracking build on it, as overlapped rounds and hierarchical graphs do
+    on the dense backend (tests/test_torch_sharded_cpd.py,
+    tests/test_torch_overlap.py, tests/test_torch_hierarchical.py)."""
     comm = DenseComm(ring(K), device="cpu")
     for name in ("pd_sgdm", "mt_dsgdm", "qg_dsgdm"):
         opt = make_optimizer(name, comm, overlap=True)
@@ -326,10 +326,11 @@ def test_optimizer_factory_refuses_what_this_slice_does_not_port():
     from repro_torch.launch.mesh import WorkerMesh
     sharded = ShardedComm(ring(K), axis_names=("w",), mesh=WorkerMesh(
         ("w",), (K,), 0, torch.device("cpu"), "gloo", {"w": None}))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        make_optimizer("cpd_sgdm", sharded)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        make_optimizer("mt_dsgdm", sharded, compressor=SignCompressor())
+    with pytest.raises(ValueError, match="dense-only"):
+        make_optimizer("cpd_sgdm", sharded, overlap=True)
+    assert make_optimizer("cpd_sgdm", sharded).sharded
+    assert make_optimizer("mt_dsgdm", sharded,
+                          compressor=SignCompressor()).sharded
     assert make_optimizer("pd_sgdm", sharded).sharded
     assert make_topology("hierarchical", (2, 4)).axis_sizes == (2, 4)
     assert make_schedule("hier_one_peer", (2, 4)).name == "hier_one_peer"

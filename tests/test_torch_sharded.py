@@ -29,9 +29,11 @@ asserts on its slice of the results:
 * the raw exchanges (``receive_payload`` keeps u8/i32/f32 payloads,
   ``shift_views``, ``receive_payload_committed`` ships nothing from a
   source that does not commit);
-* the refusals: CPD and MT's compressed tracking on the sharded backend
-  (item 12b), rand-k as the inter codec, membership on a two-axis mesh, a
-  model axis above 1, a device round index;
+* the refusals: the reference's for CPD-SGDM and MT's compressed
+  tracking on the sharded backend (overlap, the complete and the
+  hierarchical graphs, a schedule, perms under membership), rand-k as the
+  inter codec, membership on a two-axis mesh, a model axis above 1 (item
+  12b), a device round index;
 * the launcher, ``repro_torch.launch.train`` with four gloo ranks, and
   its ``--resume``.
 """
@@ -442,7 +444,17 @@ def test_refusals(run):
     for r in res:
         ref = r["refused"]
         assert all(v is not None for v in ref.values()), ref
-        assert "12b" in ref["cpd"] and "12b" in ref["mt_codec"]
+        # CPD-SGDM's and MT's compressed tracking: the reference's refusals
+        assert "dense-only" in ref["cpd_overlap"]
+        assert "'complete' has no neighbour state" in ref["cpd_complete"]
+        assert "sharded hierarchical" in ref["cpd_hier"]
+        assert "static topology" in ref["cpd_schedule"]
+        assert "perm graphs" in ref["cpd_perm_membership"]
+        assert "sharded hierarchical" in ref["mt_hier"]
+        assert "'complete' has no per-neighbour wire" in ref["mt_complete"]
+        assert "static topology" in ref["mt_schedule"]
+        assert not any("12b" in v for k, v in ref.items()
+                       if k.startswith(("cpd", "mt")))
         assert "12b" in ref["model_axis"]
         assert "randk" in ref["randk_inter"]
         assert "single worker axis" in ref["membership_2axis"]

@@ -13,10 +13,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelCfg, OptimCfg, ParallelCfg, RunCfg
-from repro_torch.core import (QSGDCompressor, RandKCompressor,
-                              SignCompressor, make_optimizer, make_schedule,
-                              make_topology, membership_from_events, ring,
-                              torus)
+from repro_torch.core import (CPDSGDM, CPDSGDMConfig, QSGDCompressor,
+                              RandKCompressor, SignCompressor, make_compressor,
+                              make_optimizer, make_schedule, make_topology,
+                              membership_from_events, ring, torus)
 from repro_torch.core.gossip import HierarchicalComm, ShardedComm
 from repro_torch.core.topology import hierarchical
 from repro_torch.core.wire import IdentityCodec, make_codec
@@ -206,12 +206,28 @@ def sharded_scenarios(mesh_rank, inp):
         out["rounds"][label] = {"params": np_tree(params),
                                 "bytes": box["n"]}
 
-    # refusals
-    from repro_torch.core import CPDSGDM, CPDSGDMConfig, MTDSGDMConfig, MTDSGDm
+    # refusals: the reference's, for CPD-SGDM and MT's compressed tracking
+    from repro_torch.core import MTDSGDMConfig, MTDSGDm, complete
+
+    def mt(comm):
+        return MTDSGDm(MTDSGDMConfig(), comm, SignCompressor())
     checks = {
-        "cpd": lambda: CPDSGDM(CPDSGDMConfig(), _comm("ring", meshes)),
-        "mt_codec": lambda: MTDSGDm(MTDSGDMConfig(), _comm("ring", meshes),
-                                    SignCompressor()),
+        "cpd_overlap": lambda: CPDSGDM(CPDSGDMConfig(overlap=True),
+                                       _comm("ring", meshes)),
+        "cpd_complete": lambda: CPDSGDM(CPDSGDMConfig(), ShardedComm(
+            complete(8), axis_names=("w",), mesh=meshes["ring"])),
+        "cpd_hier": lambda: CPDSGDM(CPDSGDMConfig(),
+                                    _comm("hier_flat", meshes)),
+        "cpd_schedule": lambda: CPDSGDM(CPDSGDMConfig(),
+                                        _comm("onepeer", meshes)),
+        "cpd_perm_membership": lambda: CPDSGDM(CPDSGDMConfig(), ShardedComm(
+            make_schedule("random_matching", (8,)).at(0), axis_names=("w",),
+            mesh=meshes["ring"],
+            membership=membership_from_events(8, 3, CHURN))),
+        "mt_hier": lambda: mt(_comm("hier_flat", meshes)),
+        "mt_complete": lambda: mt(ShardedComm(
+            complete(8), axis_names=("w",), mesh=meshes["ring"])),
+        "mt_schedule": lambda: mt(_comm("onepeer", meshes)),
         "randk_inter": lambda: _comm(
             "hier_flat", meshes,
             codec=make_codec(RandKCompressor(fraction=0.1))),
@@ -229,6 +245,50 @@ def sharded_scenarios(mesh_rank, inp):
             out["refused"][k] = None
         except (ValueError, NotImplementedError, TypeError) as err:
             out["refused"][k] = f"{type(err).__name__}: {err}"
+    return out
+
+
+def codec_family_opt(kind, name, kw, meshes):
+    """The optimizer of one codec family of ``test_torch_sharded_cpd.py``
+    on its sharded comm: ``kw`` as ``make_optimizer`` takes it, with the
+    compressor as ``(name, knobs)`` and ``packed_wire=False`` for CPD's
+    full-precision q."""
+    kw = dict(kw)
+    spec = kw.pop("compressor", None)
+    comp = make_compressor(spec[0], **spec[1]) if spec else None
+    packed = kw.pop("packed_wire", True)
+    memb = membership_from_events(8, 3, CHURN) if kind == "churn" else None
+    comm = _comm("ring" if kind == "churn" else kind, meshes,
+                 membership=memb)
+    if not packed:
+        return CPDSGDM(CPDSGDMConfig(packed_wire=False, **kw), comm, comp)
+    return make_optimizer(name, comm, compressor=comp, **kw)
+
+
+def codec_scenarios(mesh_rank, inp):
+    """Every family of ``test_torch_sharded_cpd.py`` in one set of eight
+    ranks: each round's params and state (x̂ and the copies) and the bytes
+    handed to ``isend`` over the rounds."""
+    rank, world, dev = mesh_rank
+    meshes = {"ring": make_mesh((8,), ("w",), device=dev)}
+    out = {}
+    gfn = _grads_fn()
+    for label, (kind, name, kw) in inp["families"].items():
+        opt = codec_family_opt(kind, name, kw, meshes)
+        params = mine(inp["params"], rank)
+        state = opt.init(params)
+        p = opt.config.p
+        per_round = []
+        with isend_bytes() as box:
+            for rnd in range(inp["rounds"]):
+                t = rnd * p
+                opt.host_step = t
+                batches = {k: torch.from_numpy(np.ascontiguousarray(
+                    v[t:t + p, rank:rank + 1])) for k, v in
+                    inp["batches"].items()}
+                params, state, _ = opt.round(state, params, gfn, batches)
+                per_round.append((np_tree(params), np_state(state)))
+        out[label] = {"rounds": per_round, "bytes": box["n"]}
     return out
 
 
@@ -286,25 +346,26 @@ def resume_scenarios(mesh_rank, cases):
     return out
 
 
-def elastic_resume(mesh_rank, ckpt_dir):
-    """Resume a K-worker checkpoint in these K′ ranks (a PD-SGDM tiny LM)
-    and return this rank's restored worker."""
+def elastic_resume(mesh_rank, ckpt_dir, opt_name="pd_sgdm", kw=None):
+    """Resume a K-worker checkpoint in these K′ ranks (a tiny LM of
+    ``opt_name``) and return this rank's restored worker."""
     rank, world, dev = mesh_rank
     mesh = make_mesh((world,), ("w",), device=dev)
-    pack = build_train(_run("pd_sgdm"), mesh)
+    pack = build_train(_run(opt_name, **dict(kw or {})), mesh)
     trainer = ShardedTrainer(pack, ckpt_dir=ckpt_dir)
     from repro_torch.checkpoint import latest_step
     params, state = trainer._restore(latest_step(ckpt_dir))
     return np_tree(params), np_state(state)
 
 
-def write_checkpoint(mesh_rank, ckpt_dir, steps):
-    """A PD-SGDM tiny-LM run of ``steps`` steps that checkpoints at its
-    end; returns this rank's final worker."""
+def write_checkpoint(mesh_rank, ckpt_dir, steps, opt_name="pd_sgdm",
+                     kw=None):
+    """A tiny-LM run of ``opt_name`` for ``steps`` steps that checkpoints
+    at its end; returns this rank's final worker."""
     from repro_torch.data.synthetic import LMStreamCfg, lm_batch
     rank, world, dev = mesh_rank
     mesh = make_mesh((world,), ("w",), device=dev)
-    pack = build_train(_run("pd_sgdm"), mesh)
+    pack = build_train(_run(opt_name, **dict(kw or {})), mesh)
     data = LMStreamCfg(vocab=TINY["vocab"], seq_len=8, batch=2,
                        n_workers=world)
     out = ShardedTrainer(pack, ckpt_dir=ckpt_dir, ckpt_every=steps).train(
