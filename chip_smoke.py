@@ -11,6 +11,11 @@
                                        # and time it beside this one
     python3 chip_smoke.py --probe-gloo # only ask whether gloo's send/recv
                                        # take a CUDA tensor
+    python3 chip_smoke.py --phases kernels,sharded_olmo1b_tp2
+                                       # only the named phases (PHASES, in
+                                       # the script's order), printing the
+                                       # ones it skipped; the kernels line
+                                       # needs "kernels" and "training"
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all at once) and then, with TF32 off for convolutions and
@@ -175,12 +180,26 @@ matmuls:
    the churn path's within the bar) and ``sharded_embedding_cpd_sparse``
    (the (65,536 × 64) table from one draw, 4 ranks, the sparse-rows
    codec: the row gather and scatter on the sharded path, held the same
-   way); the three print their wall together.
+   way); the three print their wall together; ``sharded_olmo1b_tp2``
+   (PD-SGDM on OLMo-1B's widths at 2 of 16 layers, f32, seq 2,048, batch
+   1, K = 2 workers × a model axis of 2: each rank its tensor-parallel
+   shards, 4 ranks; two rounds with ``remat="full"`` and the same two
+   with ``"none"``: per rank and round 4 momentum and 1 gossip launches
+   on its own kernel plan and 613,416,960 B to ``isend``; each round
+   within 4.8e-7 of the same round at a model axis of 1 from the same
+   start; "full" against "none"; each rank's allocator and gradient
+   peaks and s/round for both) and ``pretrain_sweep_rows`` (the port's
+   example, ``--quick``, 8 steps, 4 workers × a model axis of 2 = 8
+   ranks, the flat ring and hierarchical(2, 2) with the bf16 inter wire:
+   ``bytes_per_comm_round`` equal to ``BENCH_pretrain.json``'s
+   ``train_flat``/``train_hier`` rows and ``claim_equal_loss``).  The
+   sharded LM paths run the reference's default ``remat="full"``.
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, the MoE,
 MLA and SSD layers, the four figure phases' and the elastic and topology
-phases' rows, verdicts and wall seconds, the sharded phases' rows, one JSON line ``{"kernels":
+phases' rows, verdicts and wall seconds, the sharded phases' rows, each
+phase's wall seconds, one JSON line ``{"kernels":
 [...]}`` (``momentum_update`` with its in-place time, and with
 ``gossip_mix`` a ``full_width`` row for each path of ``FULL_WIDTH``)
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -3039,11 +3058,12 @@ def reset_counters() -> dict:
 
 def lm_run(path: str, *, inter_codec="none", node_size=0,
            hyper=FULL_HYPER):
-    """The RunCfg of an LM path on the sharded runtime, kernel layout."""
+    """The RunCfg of an LM path on the sharded runtime, kernel layout, with
+    the reference's default ``remat="full"``."""
     from repro_torch.configs.base import OptimCfg, ParallelCfg, RunCfg
     return RunCfg(model=lm_model(path).cfg,
-                  parallel=ParallelCfg(profile="A", remat="none",
-                                       topology="ring", node_size=node_size,
+                  parallel=ParallelCfg(profile="A", topology="ring",
+                                       node_size=node_size,
                                        inter_codec=inter_codec),
                   optim=OptimCfg(name="pd_sgdm", use_kernel=True,
                                  weight_decay=hyper.get("weight_decay", 0.0),
@@ -3825,7 +3845,8 @@ def replay_cpd_olmo_rounds(torch, path, stream, mesh_rank, held) -> list:
     """Each round of this rank's worker of ``sharded_olmo1b_cpd_sign``
     replayed from its start (x0 for round 0, then the round before's
     result in ``held``): the dense backend's local steps of the one worker
-    (the momentum kernel on the same grads), then the sharded formula with
+    (the rank's gradient: plain autograd under the run's ``remat``; the
+    momentum kernel on the same grads), then the sharded formula with
     the plain versions: the consensus over x̂ and the two copies (each the
     x̂ of the worker it tracks, by the checksums), x + γ(mix − x̂), the sign
     codec of the drift, x̂ + q.  Held against the round's result in
@@ -3838,8 +3859,11 @@ def replay_cpd_olmo_rounds(torch, path, stream, mesh_rank, held) -> list:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import (gossip_mix_ref, sign_pack_rows_ref,
                                          sign_unpack_ref)
+    from repro_torch.launch.runtime import worker_grad_fn
     from repro_torch.train.trainer import _stack_batches
     rank, world, dev = mesh_rank
+    # the rank's own gradient: plain autograd, the run's remat
+    grads_fn = worker_grad_fn(lm_model(path), lm_run(path).parallel.remat)
     x0 = lm_model(path).init(torch.Generator(device=dev).manual_seed(0),
                              device=dev)
     one = {n: v.unsqueeze(0) for n, v in x0.items()}
@@ -3873,8 +3897,7 @@ def replay_cpd_olmo_rounds(torch, path, stream, mesh_rank, held) -> list:
             views = [xh] + [start.pop(k).to(dev) for (k, _w) in nbrs]
         batches = _stack_batches([{k: v[rank:rank + 1] for k, v in
                                    stream(t + i).items()} for i in range(P)])
-        params, state, _ = dopt.round(state, params,
-                                      lm_grads_fn(torch, path), batches,
+        params, state, _ = dopt.round(state, params, grads_fn, batches,
                                       gossip=False)
         x_loc = plan.flatten(params)
         del params, state
@@ -3938,6 +3961,8 @@ def sharded_cpd_olmo_phase(torch, pd_stats):
           f"ShardedTrainer, {wall:.1f} s with the spawn and the checks")
     print(f"sharded: {name} losses (the ranks' mean) "
           + " ".join(f"{v:.4f}" for v in root["losses"]))
+    pd_stats = pd_stats or [{"peak_mib": float("nan"),
+                             "s_per_round": []}] * len(stats)
     for s, pd in zip(stats, pd_stats):
         print(f"sharded: {name} rank {s['rank']}: peak {s['peak_mib']:.1f} "
               f"MiB (PD's {pd['peak_mib']:.1f}), s/round (gloo's host-staged"
@@ -4306,6 +4331,317 @@ def sharded_embedding_phase(torch):
                              f"contract {misses}")
 
 
+# Tensor parallelism inside a worker: PD-SGDM on OLMo-1B's published widths
+# over a 2 × 2 mesh (K = 2 workers × a model axis of 2, 4 gloo ranks on the
+# card), each rank its shards of the worker (launch/sharding.py), and the
+# port's pretraining example on the reference's own mesh (4 workers × 2).
+TP_K, TP_AXIS, TP_ROUNDS = 2, 2, 2
+# OLMo-1B at 2 of its 16 layers (one would leave the recomputation little
+# to save), f32, seq 2,048 (its published context), batch 1 a worker
+TP_OLMO = dict(arch="olmo-1b", cuts=dict(n_layers=2), seq=2048, batch=1)
+# ROADMAP C.6: the bar of a round against the same round elsewhere
+TP_BAR = 4.8e-7
+# a rank's plan: half of each leaf, whole 1,024-lane rows (the embedding's
+# and the head's 25,152 × 2,048, and per layer 4 × 4,096 + 2 × 16,384 rows
+# of the attention and the MLP): 149,760 rows, handed once a round to the
+# one neighbour of ring(2); a worker's two ranks, 1,226,833,920 B, are the
+# reference's one-plan figure (no leaf is replicated under the
+# non-parametric LayerNorm, and no shard has a tail row)
+TP_RANK_ROWS = 149_760
+TP_RANK_BYTES = TP_RANK_ROWS * 1024 * 4
+TP_LAUNCHES = {"momentum_update": P, "gossip_mix": 1}
+SWEEP_STEPS = 8
+# the sweep's training rows (benchmarks/pretrain_sweep.py:20-31): the flat
+# ring, and hierarchical(2, 2) with the bf16 inter wire, on 4 workers
+SWEEP_RUNS = {"flat": [], "hier": ["--node-size", "2", "--wire-dtype",
+                                   "bfloat16"]}
+
+
+def tp_run(remat: str):
+    """The RunCfg of ``sharded_olmo1b_tp2``: OLMo-1B at ``TP_OLMO``'s cuts,
+    PD-SGDM at the full-width step on the kernel layout."""
+    from repro_torch.configs.base import OptimCfg, ParallelCfg, RunCfg
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(TP_OLMO["arch"]).model,
+                              param_dtype="float32", compute_dtype="float32",
+                              **TP_OLMO["cuts"])
+    return RunCfg(model=cfg,
+                  parallel=ParallelCfg(profile="A", remat=remat,
+                                       topology="ring"),
+                  optim=OptimCfg(name="pd_sgdm", use_kernel=True,
+                                 **FULL_HYPER))
+
+
+def tp_stream():
+    from repro_torch.data.synthetic import LMStreamCfg, lm_batch
+    cfg = LMStreamCfg(vocab=tp_run("none").model.vocab,
+                      seq_len=TP_OLMO["seq"], batch=TP_OLMO["batch"],
+                      n_workers=TP_K, seed=0)
+    return lambda t: lm_batch(cfg, t, DEVICE)
+
+
+def per_worker_grads_fn(torch, model, remat: str = "none"):
+    """The K stacked workers' gradients worker by worker, each in plain
+    autograd (``worker_grad_fn``): a model axis of 1, as a sharded rank
+    takes its gradient, on the dense backend."""
+    from repro_torch.launch.runtime import worker_grad_fn
+    one = worker_grad_fn(model, remat)
+
+    def grads_fn(params, batch):
+        k = next(iter(params.values())).shape[0]
+        outs = [one({n: v[w:w + 1] for n, v in params.items()},
+                    {n: v[w:w + 1] for n, v in batch.items()})
+                for w in range(k)]
+        return (torch.stack([o[0] for o in outs]).mean(),
+                {n: torch.cat([o[1][n] for o in outs]) for n in params})
+    return grads_fn
+
+
+def tp_rank_gradient_peak(torch, pack, remat, params, batch, dev) -> float:
+    """One step's gradient of this rank above its params (MiB): the peak
+    of its plain-autograd gradient, the grads it returns included."""
+    from repro_torch.launch.runtime import worker_grad_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync(torch, dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, grads = worker_grad_fn(pack.model, remat)(params, batch)
+    sync(torch, dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del grads
+    return peak / 2 ** 20
+
+
+def tp_olmo_rank(mesh_rank):
+    """A rank of ``sharded_olmo1b_tp2``: two rounds through
+    ``ShardedTrainer`` with ``remat="full"``, then the same two with
+    ``"none"`` (each rank its shards of one worker); per round its
+    launches, bytes and wall, the two settings' results compared on the
+    rank, each setting's peaks; then (rank 0) each "full" round from its
+    start, gathered whole, against the same round with a model axis of 1
+    (``DenseComm(ring(2))``, gradients worker by worker)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import DenseComm, make_optimizer, ring
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.runtime import build_train
+    from repro_torch.train.trainer import ShardedTrainer, gather_workers
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    on_card = dev.type == "cuda"
+    mesh = make_mesh((TP_K,), ("data",), device=dev, model_axis=TP_AXIS)
+    stream = tp_stream()
+    stats = {"rank": rank}
+    ends, held = {}, []
+    for remat in ("full", "none"):
+        pack = build_train(tp_run(remat), mesh)
+        rounds = []
+        watch_rounds(torch, pack, rounds)
+        trainer = ShardedTrainer(pack)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters()
+        out = trainer.train(0, lambda t: pack.worker_batch(stream(t)),
+                            TP_ROUNDS * P, log_every=P, verbose=False)
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        plan = kops.KernelPlan.for_tree(out["params"], worker_dim=True)
+        ends[remat] = [plan.flatten(r["end"]).cpu() for r in rounds]
+        if remat == "full":
+            held = [(r["start"][0], r["start"][1]["m"], r["end"], r["t"])
+                    for r in rounds]
+        stats[remat] = {
+            "peak_mib": peak / 2 ** 20,
+            "s_per_round": [r["s"] for r in rounds],
+            "launches": [r["launches"] for r in rounds],
+            "sent": [r["sent"] for r in rounds],
+            "rank_cycle": trainer.rank_bytes_per_round_cycle(),
+            "worker_cycle": trainer.bytes_per_round_cycle(),
+            "used": plan.used_rows, "losses": out["history"].loss}
+        del rounds, out, plan
+        if on_card:
+            stats[remat]["gradient_peak_mib"] = tp_rank_gradient_peak(
+                torch, pack, remat, pack.init_fn(0)[0],
+                pack.worker_batch(stream(0)), dev)
+        stats[remat]["copy_mib"] = sum(
+            v.numel() * 4 for v in pack.params_struct.values()) / 2 ** 20
+        if remat == "full":
+            # the rounds' starts and ends, whole, on rank 0's host
+            layout, tplan = pack.layout, pack.plan
+            held = [(gather_workers(x, True, layout, tplan),
+                     gather_workers(m, True, layout, tplan),
+                     gather_workers(e, True, layout, tplan), t)
+                    for (x, m, e, t) in held]
+        del pack, trainer
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    stats["remat_gaps"] = [float((a - b).abs().max()) for a, b in
+                           zip(ends["full"], ends["none"])]
+    stats["remat_bitwise"] = all(torch.equal(a, b) for a, b in
+                                 zip(ends["full"], ends["none"]))
+    del ends
+    if rank != 0:
+        dist.barrier()
+        return stats
+    # each round against the same round at a model axis of 1
+    model = tp_run("none")
+    from repro_torch.models import make_model
+    grads_fn = per_worker_grads_fn(torch, make_model(model.model))
+    dopt = make_optimizer("pd_sgdm", DenseComm(ring(TP_K), device=dev),
+                          use_kernel=True, **FULL_HYPER)
+    from repro_torch.train.trainer import _stack_batches
+    gaps = []
+    for (x, m, want, t) in held:
+        params = {n: v.to(dev) for n, v in x.items()}
+        state = dopt.init(params)
+        state["m"] = {n: v.to(dev) for n, v in m.items()}
+        state["step"].fill_(t)
+        batches = _stack_batches([stream(t + i) for i in range(P)])
+        params, state, _ = dopt.round(state, params, grads_fn, batches)
+        gaps.append(max(float((params[n] - want[n].to(dev)).abs().max())
+                        for n in params))
+        del params, state
+    stats["round_gaps"] = gaps
+    dist.barrier()
+    return stats
+
+
+def sharded_tp_phase(torch):
+    """``sharded_olmo1b_tp2``: PD-SGDM at OLMo-1B's published widths (2 of
+    16 layers, f32, seq 2,048, batch 1) on K = 2 workers × a model axis of
+    2, 4 ranks on the card, the kernel layout: two rounds with
+    ``remat="full"`` and the same two with ``"none"``; per rank and round
+    p momentum and 1 gossip launches on its own shards and
+    ``TP_RANK_BYTES`` to ``isend``; each round within ``TP_BAR`` of the
+    same round with a model axis of 1 from the same start; "full" against
+    "none"; each rank's allocator and gradient peaks and s/round for
+    both."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats = spawn(tp_olmo_rank, TP_K * TP_AXIS)
+    wall = time.perf_counter() - t0
+    root = stats[0]
+    name = "sharded_olmo1b_tp2"
+    print(f"sharded: {name} PD-SGDM on OLMo-1B's widths, "
+          f"{TP_OLMO['cuts']['n_layers']} of 16 layers, f32, seq "
+          f"{TP_OLMO['seq']}, batch {TP_OLMO['batch']}, K={TP_K} workers × "
+          f"model axis {TP_AXIS} ({TP_K * TP_AXIS} ranks on one card, gloo),"
+          f" ring, p={P}, {TP_ROUNDS} rounds with remat='full' and "
+          f"{TP_ROUNDS} with 'none' through ShardedTrainer, {wall:.1f} s "
+          "with the spawn and the checks")
+    for remat in ("full", "none"):
+        print(f"sharded: {name} remat={remat} losses (the workers' mean) "
+              + " ".join(f"{v:.4f}" for v in root[remat]["losses"]))
+        for s in stats:
+            r = s[remat]
+            print(f"sharded: {name} remat={remat} rank {s['rank']}: peak "
+                  f"{r['peak_mib']:.1f} MiB, gradient_peak "
+                  f"{r.get('gradient_peak_mib', 0.0):.1f} MiB above the "
+                  f"params ({r['copy_mib']:.1f} MiB a copy), s/round "
+                  "(gloo's host-staged wire) "
+                  + ", ".join(f"{v:.4f}" for v in r["s_per_round"])
+                  + f", launches {[nonzero(lc) for lc in r['launches']]}, "
+                  f"isend bytes {r['sent']}")
+        print(f"sharded: {name} remat={remat} peak summed over the ranks "
+              f"{sum(s[remat]['peak_mib'] for s in stats):.1f} MiB")
+    print(f"sharded: {name} bytes a round: {TP_RANK_BYTES:,} a rank "
+          f"({TP_RANK_ROWS:,} rows), {root['full']['worker_cycle'][0]:,} a "
+          f"worker (the reference's one-plan figure)")
+    print(f"sharded: {name} max |Δparam| per round against a model axis of "
+          f"1 from the same start {root['round_gaps']} (bar {TP_BAR}); "
+          "remat 'full' against 'none': "
+          + ("bit for bit" if all(s["remat_bitwise"] for s in stats) else
+             f"max |Δ| per rank {[s['remat_gaps'] for s in stats]}"))
+    for s in stats:
+        for remat in ("full", "none"):
+            r = s[remat]
+            for lc in r["launches"]:
+                if lc != {**{n: 0 for n in lc}, **TP_LAUNCHES}:
+                    raise AssertionError(f"{name}: launches {lc}")
+            if (r["used"] != TP_RANK_ROWS
+                    or tuple(r["rank_cycle"]) != (TP_RANK_BYTES,)
+                    or r["sent"] != [TP_RANK_BYTES] * TP_ROUNDS
+                    or tuple(r["worker_cycle"]) != (TP_AXIS * TP_RANK_BYTES,)):
+                raise AssertionError(
+                    f"{name}: rank {s['rank']} used rows {r['used']}, isend "
+                    f"bytes {r['sent']}, cycles {r['rank_cycle']} / "
+                    f"{r['worker_cycle']}, expected {TP_RANK_BYTES}")
+            if not all(math.isfinite(v) for v in r["losses"]):
+                raise AssertionError(f"{name}: losses {r['losses']}")
+        if max(s["remat_gaps"]) > TP_BAR:
+            raise AssertionError(f"{name}: remat 'full' against 'none' "
+                                 f"{s['remat_gaps']}")
+    if len(root["round_gaps"]) != TP_ROUNDS or max(
+            root["round_gaps"]) > TP_BAR:
+        raise AssertionError(f"{name}: rounds against a model axis of 1 "
+                             f"{root['round_gaps']}, bar {TP_BAR}")
+    return stats
+
+
+def pretrain_sweep_phase(torch):
+    """``pretrain_sweep_rows``: ``benchmarks/pretrain_sweep.py``'s training
+    rows through the port's example (``examples/torch_pretrain_decentralized.py
+    --quick``, 8 steps, its default 4 workers × a model axis of 2, 8 ranks
+    on the card), the flat ring and hierarchical(2, 2) with the bf16 inter
+    wire: each run's ``bytes_per_comm_round`` equal to the committed
+    ``BENCH_pretrain.json``'s row, and ``claim_equal_loss`` (the hier final
+    loss within 5 % of the flat one)."""
+    import tempfile
+    with open(os.path.join(ROOT, "benchmarks", "BENCH_pretrain.json")) as f:
+        rows = {r["name"]: r["derived"] for r in json.load(f)["rows"]}
+    recs = {}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in env.get(
+            "PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sweep_") as d:
+        for tag, extra in SWEEP_RUNS.items():
+            out = os.path.join(d, f"{tag}.json")
+            t1 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples",
+                                              "torch_pretrain_decentralized.py"),
+                 "--quick", "--steps", str(SWEEP_STEPS), "--device", DEVICE,
+                 "--json-out", out] + extra,
+                capture_output=True, text=True, timeout=400, cwd=ROOT,
+                env=env)
+            if r.returncode != 0:
+                raise AssertionError(f"pretrain_sweep_rows {tag}: rc "
+                                     f"{r.returncode}\n{r.stdout[-2000:]}\n"
+                                     f"{r.stderr[-4000:]}")
+            with open(out) as f:
+                recs[tag] = json.load(f)
+            rec = recs[tag]
+            print(f"sweep: pretrain_sweep_rows {tag}: {rec['model']}, "
+                  f"{rec['workers']} workers × model axis "
+                  f"{rec['model_axis']}, {rec['steps']} steps, loss "
+                  f"{rec['first_loss']:.4f} -> {rec['final_loss']:.4f}, "
+                  f"{rec['tokens_per_s']:.0f} tok/s, comm "
+                  f"{rec['comm_mb']:.4f} MB/worker, bytes per round "
+                  f"{rec['bytes_per_comm_round']:,} a worker (the "
+                  f"reference's), per rank {rec['bytes_per_rank']}, "
+                  f"{time.perf_counter() - t1:.1f} s with the spawn")
+    missed = []
+    for tag, rec in recs.items():
+        want = rows[f"pretrain/train_{tag}"]["bytes_per_comm_round"]
+        if rec["bytes_per_comm_round"] != want or not (
+                math.isfinite(rec["first_loss"])
+                and math.isfinite(rec["final_loss"])):
+            missed.append((tag, rec["bytes_per_comm_round"], want))
+    flat, hier = recs["flat"]["final_loss"], recs["hier"]["final_loss"]
+    ok = hier <= 1.05 * flat
+    print(f"sweep: pretrain_sweep_rows claim_equal_loss: hier final {hier:.4f}"
+          f" against flat {flat:.4f} (within 5 %: {ok}), comm reduction "
+          f"{recs['flat']['comm_mb'] / recs['hier']['comm_mb']:.2f}x")
+    if not ok:
+        missed.append(("claim_equal_loss", hier, flat))
+    verdict("sweep: pretrain_sweep_rows", missed, t0)
+
+
 def gloo_cuda_probe(mesh_rank):
     """Whether gloo's send/recv take a CUDA tensor (run apart from the
     script, in a child that may crash: ``--probe-gloo``)."""
@@ -4318,6 +4654,82 @@ def gloo_cuda_probe(mesh_rank):
         return None
     dist.recv(t, 0)
     return t.cpu().tolist()
+
+
+def _kernels(torch, ctx):
+    ops, bw, peak = ctx["ops"], ctx["bw"], ctx["f32_peak"]
+    t = ctx["timings"]
+    t.update(kernel_phase(torch, ops, bw, peak))
+    t.update(codec_kernel_phase(torch, ops, bw, peak))
+    t.update(topk_kernel_phase(torch, ops, bw, peak))
+    t.update(row_kernel_phase(torch, ops, bw, peak, ctx["variants"]))
+    for path in FULL_WIDTH:
+        for name, row in full_width_kernel_phase(torch, ops, bw, peak,
+                                                 path).items():
+            ctx["full_width"].setdefault(name, []).append(row)
+
+
+def _training(torch, ctx):
+    ctx["runs"] = {path: training_phase(torch, path) for path in PATHS}
+
+
+def _parity(torch, ctx):
+    for path in PATHS:
+        parity_phase(torch, path)
+
+
+def _layers(torch, ctx):
+    moe_layer_phase(torch)
+    mla_layer_phase(torch)
+    ssd_layer_phase(torch)
+
+
+def _sharded_olmo(torch, ctx):
+    ctx["pd_olmo"] = sharded_olmo_phase(torch)
+
+
+def _codec_olmo(torch, ctx):
+    sharded_cpd_olmo_phase(torch, ctx["pd_olmo"])
+
+
+# every phase by name, in the order a plain invocation runs them; the
+# kernels line needs "kernels" and "training"
+PHASES = {
+    "kernels": _kernels,
+    "training": _training,
+    "parity": _parity,
+    "layers": _layers,
+    "dispatch": lambda torch, ctx: gossip_dispatch_phase(torch),
+    "fig1": lambda torch, ctx: fig1_phase(torch),
+    "fig2": lambda torch, ctx: fig2_phase(torch),
+    "fig3": lambda torch, ctx: fig3_phase(torch),
+    "noniid": lambda torch, ctx: noniid_phase(torch),
+    "elastic": lambda torch, ctx: elastic_phase(torch),
+    "topology": lambda torch, ctx: topology_phase(torch),
+    "sharded_olmo1b": _sharded_olmo,
+    "sharded_resnet_pd": lambda torch, ctx: sharded_resnet_phase(torch),
+    "sharded_tinylm_hier_sign": lambda torch, ctx: sharded_hier_phase(torch),
+    "sharded_resume": lambda torch, ctx: sharded_resume_phase(torch),
+    "sharded_olmo1b_cpd_sign": _codec_olmo,
+    "sharded_resnet_cpd": lambda torch, ctx: sharded_resnet_cpd_phase(torch),
+    "sharded_embedding_cpd_sparse":
+        lambda torch, ctx: sharded_embedding_phase(torch),
+    "sharded_olmo1b_tp2": lambda torch, ctx: sharded_tp_phase(torch),
+    "pretrain_sweep_rows": lambda torch, ctx: pretrain_sweep_phase(torch),
+}
+
+
+def select_phases(spec: str) -> list:
+    """The phases of ``--phases`` (comma-separated names, or "all"), in
+    the script's order; an unknown name raises."""
+    if spec == "all":
+        return list(PHASES)
+    names = [n.strip() for n in spec.split(",") if n.strip()]
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; choose from "
+                         f"{', '.join(PHASES)}")
+    return [n for n in PHASES if n in names]
 
 
 def main(argv=None) -> int:
@@ -4334,6 +4746,9 @@ def main(argv=None) -> int:
     ap.add_argument("--probe-gloo", action="store_true",
                     help="only ask whether gloo's send/recv take a CUDA "
                          "tensor (two ranks; a crash is the answer no)")
+    ap.add_argument("--phases", default="all",
+                    help="comma-separated phases to run, in the script's "
+                         "order (default all): " + ", ".join(PHASES))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4365,6 +4780,11 @@ def main(argv=None) -> int:
                   f"{type(err).__name__}: {err}")
         return 0
     bw, f32_peak = peaks(torch.cuda.get_device_name(0))
+    chosen = select_phases(args.phases)
+    skipped = [n for n in PHASES if n not in chosen]
+    if skipped:
+        print(f"phases: running {', '.join(chosen)}; skipped "
+              f"{', '.join(skipped)}")
 
     t0 = time.perf_counter()
     logs = build.build()
@@ -4377,45 +4797,34 @@ def main(argv=None) -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    timings = kernel_phase(torch, ops, bw, f32_peak)
-    timings.update(codec_kernel_phase(torch, ops, bw, f32_peak))
-    timings.update(topk_kernel_phase(torch, ops, bw, f32_peak))
-    variants = [(label, build_variant(path)) for label, path in
-                (v.split("=", 1) for v in args.gather_variant)]
-    timings.update(row_kernel_phase(torch, ops, bw, f32_peak, variants))
-    full_width = {}
-    for path in FULL_WIDTH:
-        for name, row in full_width_kernel_phase(torch, ops, bw, f32_peak,
-                                                 path).items():
-            full_width.setdefault(name, []).append(row)
-    runs = {path: training_phase(torch, path) for path in PATHS}
-    for path in PATHS:
-        parity_phase(torch, path)
-    moe_layer_phase(torch)
-    mla_layer_phase(torch)
-    ssd_layer_phase(torch)
-    gossip_dispatch_phase(torch)
-    fig1_phase(torch)
-    fig2_phase(torch)
-    fig3_phase(torch)
-    noniid_phase(torch)
-    elastic_phase(torch)
-    topology_phase(torch)
-    pd_olmo = sharded_olmo_phase(torch)
-    sharded_resnet_phase(torch)
-    sharded_hier_phase(torch)
-    sharded_resume_phase(torch)
-    t0 = time.perf_counter()
-    sharded_cpd_olmo_phase(torch, pd_olmo)
-    sharded_resnet_cpd_phase(torch)
-    sharded_embedding_phase(torch)
-    print(f"sharded: the codec phases (sharded_olmo1b_cpd_sign, "
-          f"sharded_resnet_cpd, sharded_embedding_cpd_sparse) "
-          f"{time.perf_counter() - t0:.1f} s")
+    ctx = {"ops": ops, "bw": bw, "f32_peak": f32_peak, "timings": {},
+           "full_width": {}, "runs": None, "pd_olmo": None,
+           "variants": [(label, build_variant(path)) for label, path in
+                        (v.split("=", 1) for v in args.gather_variant)]}
+    walls = {}
+    for name in chosen:
+        t0 = time.perf_counter()
+        PHASES[name](torch, ctx)
+        walls[name] = time.perf_counter() - t0
+    codec = ("sharded_olmo1b_cpd_sign", "sharded_resnet_cpd",
+             "sharded_embedding_cpd_sparse")
+    if all(n in walls for n in codec):
+        print(f"sharded: the codec phases ({', '.join(codec)}) "
+              f"{sum(walls[n] for n in codec):.1f} s")
+    print("phases: wall s " + ", ".join(f"{n} {w:.1f}"
+                                        for n, w in walls.items()))
     if args.profile:
         for path in PATHS:
             profile_round(torch, path)
-        gather_in_round(torch, variants)
+        gather_in_round(torch, ctx["variants"])
+    timings, full_width, runs = ctx["timings"], ctx["full_width"], ctx["runs"]
+    if not timings or runs is None:
+        print("phases: no kernels line (the kernel and training phases "
+              "make it)")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     kernels = []
     for name, (src, tpu) in SOURCES.items():

@@ -2,17 +2,21 @@
 runtime.
 
 The port of ``examples/pretrain_decentralized.py``: an OLMo-family model
-trained (PD-SGDM by default) by ``--workers`` ranks (one worker each) through
-``build_train`` and ``ShardedTrainer``: fused p-step rounds, gossip by
-P2P between the ranks, checkpoints with the whole optimizer state, so
-``--resume`` continues bit for bit.  ``--optimizer`` takes any of the
+trained (PD-SGDM by default) by ``--workers`` workers of ``--model-axis``
+ranks each (default 2, the reference's ``make_mesh((devices // 2, 2),
+("data", "model"))``: 8 ranks for 4 workers, tensor-parallel inside each)
+through ``build_train`` and ``ShardedTrainer``: fused p-step rounds,
+gossip by P2P between the workers' ranks, checkpoints with the whole
+optimizer state, so ``--resume`` continues bit for bit.  ``--optimizer`` takes any of the
 launcher's (``cpd_sgdm`` and ``choco_sgd`` ship the default sign codec's
 payload, each rank keeping a copy of each neighbour's x̂).
 ``--node-size m`` switches to the
 two-level round (exact in-node mean, ``--topology`` between node
 leaders), ``--wire-dtype bfloat16`` halves the inter wire and
 ``--inter-codec`` compresses it; ``--json-out`` writes the reference's
-run record (loss endpoints, tokens/s, comm-MB, bytes per round).
+run record (loss endpoints, tokens/s, comm-MB, bytes per round: the
+reference's per-worker figure, and ``bytes_per_rank``, what each rank
+hands to ``isend``).
 
 The default model has about 100M params (12 layers, d_model 768, vocab
 32,768) at seq 256; ``--quick`` shrinks it to 4 layers, d_model 128,
@@ -21,6 +25,8 @@ vocab 4,096, seq 64, 30 steps at most.
   PYTHONPATH=src python examples/torch_pretrain_decentralized.py --quick
   PYTHONPATH=src python examples/torch_pretrain_decentralized.py \\
       --quick --node-size 2 --wire-dtype bfloat16 --device cpu
+  PYTHONPATH=src python examples/torch_pretrain_decentralized.py \\
+      --quick --model-axis 1 --device cpu       # one rank a worker
 """
 import argparse
 import json
@@ -31,6 +37,8 @@ import time
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--model-axis", type=int, default=2,
+                    help="ranks per worker, tensor-parallel inside it")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--optimizer", default="pd_sgdm")
@@ -91,13 +99,15 @@ def rank_main(mesh_rank, args) -> dict:
 
     rank, world, device = mesh_rank
     mcfg, run, seq, gbatch, steps = setup(args)
-    mesh = make_mesh((world,), ("data",), device=device)
+    mesh = make_mesh((args.workers,), ("data",), device=device,
+                     model_axis=args.model_axis)
     pack = build_train(run, mesh)
     K = pack.layout.n_workers
     verbose = rank == 0
     if verbose:
         print(f"model={mcfg.name} params={mcfg.params_count() / 1e6:.1f}M "
-              f"workers={K} optimizer={run.optim.name} p={run.optim.p} "
+              f"workers={K} model_axis={args.model_axis} "
+              f"optimizer={run.optim.name} p={run.optim.p} "
               f"seq={seq} global_batch={gbatch} topology={args.topology} "
               f"node_size={args.node_size} wire_dtype={args.wire_dtype} "
               f"backend={args.dist_backend} device={device}", flush=True)
@@ -115,6 +125,7 @@ def rank_main(mesh_rank, args) -> dict:
                         "comm_mb": h.comm_mb},
             "steps_run": out["steps_run"], "wall_s": elapsed,
             "bytes_per_comm_round": trainer.bytes_per_round(),
+            "rank_bytes": trainer.rank_bytes_per_round_cycle()[0],
             "workers": K}
 
 
@@ -125,8 +136,9 @@ def main(argv=None) -> dict:
         from repro_torch.kernels import build
         build.build()
     from repro_torch.launch.spawn import spawn_ranks
-    res = spawn_ranks(rank_main, args.workers, (args,),
-                      backend=args.dist_backend, device=args.device)[0]
+    ranks = spawn_ranks(rank_main, args.workers * args.model_axis, (args,),
+                        backend=args.dist_backend, device=args.device)
+    res = ranks[0]
     h = res["history"]
     if not h["loss"]:               # --resume with a checkpoint at/past --steps
         print("no steps run")
@@ -147,6 +159,8 @@ def main(argv=None) -> dict:
         "final_loss": h["loss"][-1], "tokens_per_s": tokens_per_s,
         "comm_mb": comm_mb,
         "bytes_per_comm_round": res["bytes_per_comm_round"],
+        "model_axis": args.model_axis,
+        "bytes_per_rank": [r["rank_bytes"] for r in ranks],
         "wall_s": elapsed,
     }
     if args.json_out:

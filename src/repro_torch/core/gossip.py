@@ -40,7 +40,10 @@ worker is active uses the topology's own W, bit for bit.
   is staged through preallocated pinned host buffers; with NCCL the card's
   tensors go to the library as they are.  ``sent_bytes`` and
   ``reduced_bytes`` count what this rank handed to ``isend`` and to
-  ``all_reduce``.
+  ``all_reduce``.  Under tensor parallelism (a ``"model"`` mesh axis) a
+  worker spans several ranks: each exchanges its own shards with the
+  ranks of its model coordinate in the neighbour workers, and the
+  collectives over workers run in the group of that coordinate.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import MODEL_AXIS
 from repro_torch.core.topology import (MembershipSchedule, Topology,
                                        TopologySchedule, active_edge_count,
                                        hierarchical_inter_shifts,
@@ -430,9 +434,19 @@ class ShardedComm(CommBackend):
                              "process group (repro_torch.launch.mesh."
                              "make_mesh)")
         m = self.mesh
-        if m.world_size != self.topology.n_workers:
-            raise ValueError(f"{m.world_size} ranks for "
+        for name in m.axis_names:
+            if name not in self.axis_names and name != MODEL_AXIS:
+                raise ValueError(f"mesh axis {name!r} carries no topology "
+                                 f"axis of {self.axis_names}")
+        n_workers = int(math.prod(m.axis_sizes[m.axis_index(a)]
+                                  for a in self.axis_names
+                                  if a in m.axis_names))
+        if n_workers != self.topology.n_workers:
+            raise ValueError(f"{n_workers} workers on the mesh for "
                              f"{self.topology.n_workers} workers")
+        # the ranks of every worker that share this one's model coordinate
+        self._workers = (None if len(self.axis_names) == len(m.axis_names)
+                         else m.worker_group)
         for i, name in enumerate(self.axis_names):
             if name not in m.axis_names:
                 raise ValueError(f"axis {name!r} not in the mesh's "
@@ -448,19 +462,12 @@ class ShardedComm(CommBackend):
         self.device = m.device
         self.sent_bytes = 0        # bytes handed to isend by this rank
         self.reduced_bytes = 0     # bytes handed to all_reduce
-        self._host: dict = {}      # pinned staging buffers (gloo on a card)
         self._full_counts: dict = {}
 
     # -- the wire ------------------------------------------------------------
     def _pinned(self, key, t):
-        """The pinned host buffer of ``key`` for a tensor shaped as ``t``,
-        allocated once per key, shape and dtype."""
-        key = key + (tuple(t.shape), t.dtype)
-        buf = self._host.get(key)
-        if buf is None:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host[key] = buf
-        return buf
+        """The mesh's pinned host buffer of ``key`` for ``t``'s shape."""
+        return self.mesh.pinned(key, t)
 
     def _p2p(self, sends, recvs):
         """One exchange: ``sends`` ``[(tensor, dst, tag)]`` and ``recvs``
@@ -510,15 +517,7 @@ class ShardedComm(CommBackend):
         """In-place ``all_reduce`` (sum) of ``t`` over ``group``, staged as
         :meth:`_p2p` stages its payloads."""
         self.reduced_bytes += t.numel() * t.element_size()
-        if not self.mesh.staged:
-            dist.all_reduce(t, group=group)
-            return t
-        h = self._pinned(("reduce",), t)
-        h.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        dist.all_reduce(h, group=group)
-        t.copy_(h, non_blocking=True)
-        return t
+        return self.mesh.all_reduce(t, group)
 
     def _peer(self, axis: int, shift: int) -> int:
         return self.mesh.peer(self.axis_names[axis], shift)
@@ -680,11 +679,12 @@ class ShardedComm(CommBackend):
     # -- mixing --------------------------------------------------------------
     def _mean_all(self, tree):
         """The exact mean over every worker (``complete``): an
-        ``all_reduce`` sum over the process group, divided by K."""
+        ``all_reduce`` sum over the workers' ranks of this model
+        coordinate (the process group without a model axis), over K."""
         K = self.topology.n_workers
 
         def f(x):
-            t = self._all_reduce(x.to(torch.float32).clone(), None)
+            t = self._all_reduce(x.to(torch.float32).clone(), self._workers)
             return (t / K).to(x.dtype)
         return tree_map(f, tree)
 
@@ -866,17 +866,23 @@ class HierarchicalComm(ShardedComm):
         self._bind_mesh()
         n, m = self.n_nodes, self.node_size
         if len(self.axis_names) == 1:
-            if self.mesh.axis_names != self.axis_names:
-                raise ValueError(f"the flat layout needs a one-axis mesh "
-                                 f"{self.axis_names}; got "
-                                 f"{self.mesh.axis_names}")
+            mesh = self.mesh
+            if tuple(a for a in mesh.axis_names
+                     if a != MODEL_AXIS) != self.axis_names:
+                raise ValueError(f"the flat layout needs a one-axis worker "
+                                 f"mesh {self.axis_names}; got "
+                                 f"{mesh.axis_names}")
             self._node_group = None
             if m > 1:
-                # collective: every rank builds every node's group, in order
-                for i in range(n):
-                    g = dist.new_group([i * m + j for j in range(m)])
-                    if self.mesh.rank // m == i:
-                        self._node_group = g
+                # collective: every rank builds every node's group of every
+                # model coordinate, in order
+                for c in range(mesh.model_size):
+                    for i in range(n):
+                        g = dist.new_group([mesh.worker_rank(i * m + j, c)
+                                            for j in range(m)])
+                        if (mesh.worker // m == i
+                                and mesh.model_coord == c):
+                            self._node_group = g
         else:
             intra = self.axis_names[1]
             self._node_group = self.mesh.groups.get(intra)
@@ -927,15 +933,16 @@ class HierarchicalComm(ShardedComm):
 
             return node_avg, recv, (lambda acc: acc)
 
-        me = self.mesh.rank
+        me = self.mesh.worker
         leader = me % m == 0
         i = me // m
+        at = self.mesh.worker_rank
 
         def recv(payload, sh, j):
             # leaders only: the other members receive zeros, which the
             # rebroadcast overwrites
-            return exchange(payload, ((i - sh) % n) * m,
-                            ((i + sh) % n) * m, j, active=leader)
+            return exchange(payload, at(((i - sh) % n) * m),
+                            at(((i + sh) % n) * m), j, active=leader)
 
         def rebroadcast(acc):
             if m == 1:

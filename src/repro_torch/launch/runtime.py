@@ -1,14 +1,19 @@
 """The sharded runtime: ``build_comm`` and ``build_train``/``TrainPack``.
 
 Port of ``src/repro/launch/runtime.py:112-445`` (training; ``build_serve``
-waits for ROADMAP queue A item 13, ``make_shd`` for item 12b).  Where the
-reference shard_maps the optimizer over the worker axes of a device mesh,
-the port runs one worker per rank: each rank builds its worker with a
-leading worker dim of 1 (the ``(1, rows, 1024)`` shard the reference's
-``shard_map`` sees) and its gradients come from the dense path's
-``torch.func.vmap(grad_and_value)`` over that dim.  Every rank draws x₀
-from the same seed (the paper's identical x₀); each draws its own
-worker's batches.
+waits for ROADMAP queue A item 13).  Where the reference shard_maps the
+optimizer over the worker axes of a device mesh, the port runs one rank
+per device: each rank builds its worker with a leading worker dim of 1
+(the ``(1, rows, 1024)`` shard the reference's ``shard_map`` sees), and
+under tensor parallelism (a ``"model"`` mesh axis, profile A) only its
+shards of the worker's leaves (:mod:`repro_torch.launch.sharding`), on
+which it runs its own kernel plan and its own gossip with the ranks of
+its model coordinate.  A rank's gradient is plain autograd over its one
+worker (:func:`worker_grad_fn`): the worker dim squeezed, ``model.loss``
+with ``run.parallel.remat``, ``torch.autograd.grad``, the dim restored;
+the TP collectives and ``remat``'s recomputation run there, and neither
+runs under ``torch.func``.  Every rank draws x₀ from the same seed (the
+paper's identical x₀); each draws its own worker's batches.
 
 ``TrainPack.train_round(params, state, batches, t)`` is p local steps and
 one gossip round: the kernel round or the tree round, as
@@ -19,8 +24,8 @@ a one-step kernel round (so a tail launches what ``SimTrainer``'s does),
 else (and with overlapped rounds, whose per-step form forms the stale
 correction at every step) ``opt.step``.  Both take the host step ``t``:
 the sharded comm picks round r's exchanges on the host, and the trainer
-knows t.
-``remat`` changes no value and is not applied (item 12b).
+knows t.  The reference's ``make_shd`` hints change no value and have no
+counterpart (``launch/sharding.py``).
 """
 from __future__ import annotations
 
@@ -34,12 +39,13 @@ from repro_torch.core import make_compressor, make_optimizer
 from repro_torch.core.gossip import HierarchicalComm, ShardedComm
 from repro_torch.core.topology import (hierarchical, make_schedule,
                                        make_topology, torus)
-from repro_torch.launch.mesh import Layout, make_layout
+from repro_torch.launch.mesh import MODEL_AXIS, Layout, make_layout
 from repro_torch.models import make_model
+from repro_torch.models.layers import TPGroup
 from repro_torch.tree import tree_map
 
 __all__ = ["STATE_KEYS", "TrainPack", "build_comm", "build_train",
-           "check_state_keys", "make_steps"]
+           "check_state_keys", "make_steps", "worker_grad_fn"]
 
 # every optimizer state entry the checkpoint knows: True where the entry is
 # worker-stacked (mirrors params), False where it is one scalar for all
@@ -175,6 +181,15 @@ class TrainPack:
     init_fn: Callable          # (seed) -> (params, opt_state)
     train_step: Callable       # (params, state, batch, t) -> (.., loss)
     train_round: Callable      # (params, state, batches[p], t) -> (.., losses)
+    plan: object = None        # the TP plan (None: the rank is its worker)
+    worker_struct: dict = None  # the whole worker's params, (1, ...), meta
+    worker_state_struct: dict = None
+
+    def __post_init__(self):
+        # a rank that holds its whole worker: the structs are the rank's
+        if self.worker_struct is None:
+            self.worker_struct = self.params_struct
+            self.worker_state_struct = self.state_struct
 
     def worker_batch(self, batch: dict) -> dict:
         """This rank's worker of a batch drawn for all K workers (leading
@@ -189,16 +204,15 @@ def build_train(run: RunCfg, mesh, model_cfg: Optional[ModelCfg] = None,
     mcfg = model_cfg or run.model
     layout = make_layout(run.parallel, mesh)
     device = mesh.device
-    model = make_model(mcfg)
+    tp = None
+    if layout.tp_axis is not None:
+        group = mesh.groups[MODEL_AXIS]
+        tp = TPGroup(mesh.model_size, mesh.model_coord,
+                     lambda t, op: mesh.all_reduce(t, group, op))
+    model = make_model(mcfg, tp=tp)
     comm = build_comm(run, layout, membership=membership)
     opt = _make_optimizer(run, comm)
-
-    grad = torch.func.vmap(torch.func.grad_and_value(
-        lambda p, b: model.loss(p, b)[0]))
-
-    def gfn(params, batch):
-        grads, losses = grad(params, batch)
-        return losses.mean(), grads
+    gfn = worker_grad_fn(model, run.parallel.remat)
 
     def init_fn(seed: int):
         gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -206,16 +220,38 @@ def build_train(run: RunCfg, mesh, model_cfg: Optional[ModelCfg] = None,
                   model.init(gen, device=device).items()}
         return params, opt.init(params)
 
+    def struct(whole: bool) -> dict:
+        return {k: torch.empty((1,) + tuple(s), dtype=model.leaf_dtype(k),
+                               device="meta")
+                for k, s in model.param_shapes(whole=whole).items()}
+
     train_step, train_round = make_steps(opt, gfn)
-    params_struct = {k: torch.empty((1,) + tuple(s),
-                                    dtype=model.leaf_dtype(k), device="meta")
-                     for k, s in model.param_shapes().items()}
+    params_struct, worker_struct = struct(False), struct(True)
     state_struct = opt.init(params_struct)
     return TrainPack(model=model, opt=opt, layout=layout, device=device,
                      params_struct=params_struct, state_struct=state_struct,
                      state_keys=check_state_keys(state_struct),
                      init_fn=init_fn, train_step=train_step,
-                     train_round=train_round)
+                     train_round=train_round, plan=model.plan,
+                     worker_struct=worker_struct,
+                     worker_state_struct=opt.init(worker_struct))
+
+
+def worker_grad_fn(model, remat: str = "none"):
+    """The gradient of one worker with a leading worker dim of 1, in plain
+    autograd: ``gfn(params, batch) -> (loss, grads)`` with the dim
+    squeezed for ``model.loss`` (``remat`` passed on) and restored on the
+    grads; a leaf the loss does not reach gets zeros, as
+    ``torch.func.grad`` gives it."""
+    def gfn(params, batch):
+        p = {k: v[0].detach().requires_grad_(True) for k, v in params.items()}
+        b = {k: v[0] for k, v in batch.items()}
+        with torch.enable_grad():
+            loss = model.loss(p, b, remat=remat)[0]
+            grads = torch.autograd.grad(loss, list(p.values()),
+                                        materialize_grads=True)
+        return loss.detach(), {k: g.unsqueeze(0) for k, g in zip(p, grads)}
+    return gfn
 
 
 def make_steps(opt, gfn):

@@ -5,14 +5,19 @@ with ``torch.multiprocessing`` (start method ``spawn``: CUDA does not
 survive ``fork``), joins them through ``tcp://localhost:<free port>``,
 calls ``fn(mesh_rank, *args)`` in each (``mesh_rank`` is
 ``(rank, world_size, device)``) and returns each rank's return value, in
-rank order, through ``torch.save`` files in a temporary directory.  A
-rank that raises makes ``spawn_ranks`` raise; nothing is caught.  A CPU
-rank runs torch on one thread, so that N ranks do not starve each other
-(or other processes) of cores.
+rank order, through ``torch.save`` files in a temporary directory.  The
+function and its arguments reach the ranks through a file there too: a
+spawn start writes what it hands a child into a pipe, and a payload past
+the pipe's buffer blocks the parent until that child has started, so the
+ranks would start one after another.  A rank that raises makes
+``spawn_ranks`` raise; nothing is caught.  A CPU rank runs torch on one
+thread, so that N ranks do not starve each other (or other processes) of
+cores.
 """
 from __future__ import annotations
 
 import os
+import pickle
 import socket
 import tempfile
 
@@ -28,13 +33,14 @@ def free_port() -> int:
         return int(s.getsockname()[1])
 
 
-def _rank_main(rank, fn, world_size, backend, device, init_method, out_dir,
-               args):
+def _rank_main(rank, world_size, backend, device, init_method, out_dir):
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_workers
     if torch.device(device).type == "cpu":
         torch.set_num_threads(1)
+    with open(os.path.join(out_dir, "call.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
     r, w, dev = init_workers(backend, rank=rank, world_size=world_size,
                              init_method=init_method, device=device)
     try:
@@ -52,9 +58,11 @@ def spawn_ranks(fn, world_size: int, args=(), *, backend: str = "gloo",
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(prefix="ranks_") as out_dir:
         init_method = f"tcp://127.0.0.1:{free_port()}"
-        mp.start_processes(_rank_main, args=(fn, world_size, backend, device,
-                                             init_method, out_dir,
-                                             tuple(args)),
+        with open(os.path.join(out_dir, "call.pkl"), "wb") as f:
+            pickle.dump((fn, tuple(args)), f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+        mp.start_processes(_rank_main, args=(world_size, backend, device,
+                                             init_method, out_dir),
                            nprocs=world_size, join=True,
                            start_method="spawn")
         return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),

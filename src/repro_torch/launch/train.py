@@ -4,11 +4,14 @@
       --optimizer pd_sgdm --steps 50 --workers 4 --dist-backend gloo
 
 Port of ``src/repro/launch/train.py``, with the reference's flags;
-``--devices``/``--data-axis``/``--model-axis`` become ``--workers N`` (one
-worker per rank, on one worker axis) and a model axis of 1.  Under ``torchrun`` every rank joins the process group from the
-environment.  Without it, ``--workers N`` spawns N ranks from this
-process (start method ``spawn``); with ``--device cuda`` the parent builds
-the CUDA kernels first, so that N ranks do not run nvcc at once.
+``--devices``/``--data-axis`` become ``--workers N`` (N workers on one
+worker axis) and ``--model-axis M`` is the reference's: each worker spans
+M ranks, tensor-parallel inside it (profile A; 1 by default, one rank a
+worker).  Under ``torchrun`` every rank joins the process group from the
+environment, and the world is N × M.  Without it, ``--workers N`` spawns
+N × M ranks from this process (start method ``spawn``); with ``--device
+cuda`` the parent builds the CUDA kernels first, so that the ranks do
+not run nvcc at once.
 ``--dist-backend`` is ``nccl`` (one GPU per rank) or ``gloo`` (any host;
 ranks that share one card all run on ``cuda:0``).  ``--smoke`` selects
 the reduced config.  Rank 0 prints the log; every rank logs the same
@@ -66,8 +69,10 @@ def parse_args(argv=None):
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--workers", type=int, default=0,
-                    help="spawn this many ranks (one worker each) when not "
-                         "under torchrun")
+                    help="spawn this many workers (--model-axis ranks "
+                         "each) when not under torchrun")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks per worker, tensor-parallel inside it")
     ap.add_argument("--dist-backend", default="gloo", choices=("nccl",
                                                                "gloo"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -119,15 +124,20 @@ def rank_main(mesh_rank, args) -> dict:
 
     rank, world, device = mesh_rank
     run = run_config(args)
-    mesh = make_mesh((world,), ("data",), device=device)
+    if world % args.model_axis:
+        raise SystemExit(f"{world} ranks do not split into workers of "
+                         f"--model-axis {args.model_axis}")
+    mesh = make_mesh((world // args.model_axis,), ("data",), device=device,
+                     model_axis=args.model_axis)
     pack = build_train(run, mesh)
     K = pack.layout.n_workers
     o = run.optim
     verbose = rank == 0
     if verbose:
         print(f"arch={args.arch} optimizer={o.name} p={o.p} workers={K} "
-              f"kernel={o.use_kernel} overlap={o.overlap} "
-              f"backend={args.dist_backend} device={device}", flush=True)
+              f"model_axis={args.model_axis} kernel={o.use_kernel} "
+              f"overlap={o.overlap} backend={args.dist_backend} "
+              f"device={device}", flush=True)
 
     def batch_fn(t):
         return pack.worker_batch(train_batch_arrays(
@@ -167,7 +177,7 @@ def main(argv=None):
         from repro_torch.kernels import build
         build.build()
     from repro_torch.launch.spawn import spawn_ranks
-    return spawn_ranks(rank_main, args.workers, (args,),
+    return spawn_ranks(rank_main, args.workers * args.model_axis, (args,),
                        backend=args.dist_backend, device=args.device)[0]
 
 

@@ -27,6 +27,15 @@ qk_rope_dim`` (scale its ``-0.5`` power), the values ``v_head_dim`` wide:
 :func:`attend_full` / :func:`attend_blockwise` on a ``dataclasses.replace``d
 cfg, as the reference runs them.
 
+Under tensor parallelism (``tp``, :class:`~repro_torch.models.layers.TPGroup`)
+GQA runs Megatron's split: ``wq``, ``wk``, ``wv`` column-parallel, so each
+rank holds ``n_heads/tp`` query and ``n_kv_heads/tp`` KV heads (whole
+query groups; the window and the blockwise path are per head), and ``wo``
+row-parallel, its partial products summed over the worker's ranks.  MLA
+under a model axis above 1 is refused (ROADMAP queue A item 12b.4): the
+reference's contiguous column split of ``wdq``/``wdkv`` cuts the latent,
+which every head reads whole.
+
 Prefill, decode and the KV caches, the MLA ones too (reference
 ``:168-244``, ``:303-353``), wait for the port's serving (ROADMAP queue A
 item 13).
@@ -39,7 +48,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_rope, dense, rmsnorm
+from repro_torch.models.layers import (apply_rope, copy_to_model, dense,
+                                       rmsnorm, row_dense, tp_active)
 
 __all__ = ["AttnCfg", "attention_apply", "attend_full", "attend_blockwise",
            "mla_apply", "NEG_INF"]
@@ -144,17 +154,25 @@ def attend_blockwise(q, k, v, cfg: AttnCfg, q_positions, k_positions):
 
 
 def attention_apply(params, x, cfg: AttnCfg, cos, sin, positions=None,
-                    force_blockwise: Optional[bool] = None):
+                    force_blockwise: Optional[bool] = None, tp=None):
     """Self-attention of ``x`` (b, s, d) with params ``{"wq", "wk", "wv",
-    "wo"}`` (each ``{"w"}``, q/k/v with ``"b"`` under ``qkv_bias``)."""
+    "wo"}`` (each ``{"w"}``, q/k/v with ``"b"`` under ``qkv_bias``);
+    under ``tp`` this rank's heads of each, the output summed over the
+    worker's ranks."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    if tp_active(tp):
+        x = copy_to_model(x, tp)
+        cfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size,
+                                  n_kv_heads=cfg.n_kv_heads // tp.size)
     q, k, v = _qkv(params, x, cfg, cos, sin, positions)
     blockwise = (s >= cfg.blockwise_threshold if force_blockwise is None
                  else force_blockwise)
     attend = attend_blockwise if blockwise else attend_full
     out = attend(q, k, v, cfg, positions, positions)
+    if tp_active(tp):
+        return row_dense(params["wo"], out.reshape(b, s, -1), tp)
     return dense(params["wo"], out.reshape(b, s, -1))
 
 

@@ -20,16 +20,84 @@ Conventions kept from the reference:
 
 Initial values match the reference's distributions, not its bits: a
 standard normal truncated to [−2, 2] in f32 times ``scale``, then cast.
+
+Tensor parallelism inside a worker (profile A's model axis; which leaf
+splits is :mod:`repro_torch.launch.sharding`'s plan): a :class:`TPGroup`
+names the ranks of one worker and their ``all_reduce``, and two autograd
+functions carry the Megatron pair of collectives,
+
+* :func:`copy_to_model`: identity forward, ``all_reduce`` of the gradient
+  backward (the replicated input of a column-parallel product);
+* :func:`reduce_from_model`: ``all_reduce`` forward, identity backward (the
+  partial sums of a row-parallel product);
+
+on which :func:`row_dense`, the vocab-parallel :func:`embed` (a masked
+lookup, then the sum: exact, one summand is non-zero) and
+:func:`vocab_parallel_nll` (the max and Σexp reduced, the label's logit
+picked on the rank that owns it) are built.  With ``tp`` None or of size 1
+every function is the one-rank formula, op for op.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 __all__ = [
     "dense", "rmsnorm", "layernorm", "nonparametric_layernorm", "embed",
-    "rope_freqs", "apply_rope", "mlp", "truncated_normal",
+    "rope_freqs", "apply_rope", "mlp", "truncated_normal", "TPGroup",
+    "copy_to_model", "reduce_from_model", "row_dense", "vocab_parallel_nll",
 ]
+
+
+# ------------------------------------------------------------------ TP group
+@dataclasses.dataclass(frozen=True, eq=False)
+class TPGroup:
+    """The ranks of one worker on the model axis: ``size`` of them, this
+    one at ``index``; ``all_reduce(t, op)`` reduces ``t`` in place over
+    them (the mesh's, staged through host buffers on a card under gloo)."""
+    size: int
+    index: int
+    all_reduce: Callable
+
+
+def tp_active(tp) -> bool:
+    return tp is not None and tp.size > 1
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.contiguous().clone(),
+                                 dist.ReduceOp.SUM), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.contiguous().clone(), dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over the worker's ranks."""
+    return _CopyToModel.apply(x, tp) if tp_active(tp) else x
+
+
+def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The sum of ``x`` over the worker's ranks; the gradient as it is."""
+    return _ReduceFromModel.apply(x, tp) if tp_active(tp) else x
 
 
 def truncated_normal(shape, dtype, scale: float,
@@ -46,6 +114,17 @@ def truncated_normal(shape, dtype, scale: float,
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``x @ w (+ b)`` accumulated in f32, cast back to ``x``'s dtype."""
     y = torch.matmul(x.to(torch.float32), p["w"].to(torch.float32))
+    if "b" in p:
+        y = y + p["b"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def row_dense(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """:func:`dense` of a row-parallel ``w`` (its rows split over the
+    worker's ranks, ``x`` their columns): the partial products summed over
+    the ranks in f32, then the bias and the cast."""
+    y = reduce_from_model(torch.matmul(x.to(torch.float32),
+                                       p["w"].to(torch.float32)), tp)
     if "b" in p:
         y = y + p["b"].to(torch.float32)
     return y.to(x.dtype)
@@ -78,9 +157,38 @@ def nonparametric_layernorm(x: torch.Tensor, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------- embed
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``p["table"]`` at integer ``tokens``."""
-    return F.embedding(tokens.long(), p["table"])
+def embed(p: dict, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Rows of ``p["table"]`` at integer ``tokens``; under ``tp`` the table
+    holds this rank's slice of the vocab: the rows it owns, zeros for the
+    rest, summed over the worker's ranks."""
+    if not tp_active(tp):
+        return F.embedding(tokens.long(), p["table"])
+    n = p["table"].shape[0]
+    t = tokens.long() - tp.index * n
+    own = (t >= 0) & (t < n)
+    rows = F.embedding(t.clamp(0, n - 1), p["table"])
+    rows = torch.where(own[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return reduce_from_model(rows, tp)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       tp) -> torch.Tensor:
+    """``−log softmax(logits)[label]`` (labels clamped at 0) where each
+    rank holds its slice of the vocab's f32 ``logits``: the max and Σexp
+    over the vocab reduced over the worker's ranks, the label's logit
+    taken on the rank that owns it (zero elsewhere) and summed."""
+    n = logits.shape[-1]
+    m = logits.detach().amax(-1, keepdim=True)
+    m = tp.all_reduce(m.contiguous(), dist.ReduceOp.MAX)
+    z = logits - m
+    sumexp = reduce_from_model(torch.exp(z).sum(-1), tp)
+    t = labels.clamp_min(0) - tp.index * n
+    own = (t >= 0) & (t < n)
+    picked = z.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
+    picked = torch.where(own, picked,
+                         torch.zeros((), dtype=z.dtype, device=z.device))
+    return torch.log(sumexp) - reduce_from_model(picked, tp)
 
 
 # ---------------------------------------------------------------------------- rope
@@ -104,11 +212,15 @@ def apply_rope(x, cos, sin, positions):
 
 
 # ---------------------------------------------------------------------------- mlp
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP when ``p`` has ``wg``, else GELU (tanh form)."""
+def mlp(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Gated SiLU MLP when ``p`` has ``wg``, else GELU (tanh form); under
+    ``tp`` ``wi``/``wg`` column-parallel and ``wo`` row-parallel."""
+    x = copy_to_model(x, tp)
     h = dense(p["wi"], x)
     if "wg" in p:
         h = F.silu(dense(p["wg"], x).to(torch.float32)).to(x.dtype) * h
     else:
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    if tp_active(tp):
+        return row_dense(p["wo"], h, tp)
     return dense(p["wo"], h)

@@ -29,6 +29,12 @@ The grouped dispatch (``n_groups`` G > 1) sorts each group of N/G tokens
 on its own at capacity ``C(N/G)`` and runs the experts on the groups'
 buffers side by side, ``(E, G·C, d)``; with G = 1 it is the global sort.
 ``N % G ≠ 0`` falls back to one group, as in the reference.
+
+Under tensor parallelism (``tp``) the experts' f dim is split over the
+worker's ranks (``wi``/``wg`` (E, d, f/tp), ``wo`` (E, f/tp, d)): every
+rank routes and dispatches the same tokens with the replicated router,
+runs its slice of every expert's FFN, and the partial outputs are summed
+over the ranks before the combine.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense
+from repro_torch.models.layers import (copy_to_model, dense,
+                                       reduce_from_model)
 
 __all__ = ["MoECfg", "moe_apply", "capacity", "route", "dispatch"]
 
@@ -117,10 +124,11 @@ def _combine(out_buf, meta, n: int):
     return y.reshape(G, n, d)
 
 
-def _expert_ffn(params, buf):
+def _expert_ffn(params, buf, tp=None):
     """buf: (E, T, d) → (E, T, d); gated SiLU (GELU's tanh form when
-    ungated), accumulated in f32."""
-    x32 = buf.to(torch.float32)
+    ungated), accumulated in f32; under ``tp`` this rank's slice of f, the
+    output summed over the worker's ranks in f32."""
+    x32 = copy_to_model(buf, tp).to(torch.float32)
     h = torch.matmul(x32, params["wi"].to(torch.float32))
     if "wg" in params:
         h = F.silu(torch.matmul(x32, params["wg"].to(torch.float32))) * h
@@ -128,7 +136,7 @@ def _expert_ffn(params, buf):
         h = F.gelu(h, approximate="tanh")
     h = h.to(buf.dtype)
     out = torch.matmul(h.to(torch.float32), params["wo"].to(torch.float32))
-    return out.to(buf.dtype)
+    return reduce_from_model(out, tp).to(buf.dtype)
 
 
 def route(params, xf, cfg: MoECfg):
@@ -141,9 +149,10 @@ def route(params, xf, cfg: MoECfg):
     return gates, top_w, top_e
 
 
-def moe_apply(params, x, cfg: MoECfg):
+def moe_apply(params, x, cfg: MoECfg, tp=None):
     """x: (b, s, d) → (y, aux_loss); ``params`` as the reference's
-    ``{"router": {"w"}, "wi", "wg", "wo"}``."""
+    ``{"router": {"w"}, "wi", "wg", "wo"}`` (under ``tp`` the experts'
+    slices of f)."""
     b, s, d = x.shape
     N = b * s
     E, k = cfg.n_experts, cfg.top_k
@@ -164,6 +173,6 @@ def moe_apply(params, x, cfg: MoECfg):
     buf, meta = dispatch(xf.reshape(G, n, d), top_w.reshape(G, n, k),
                          top_e.reshape(G, n, k), C, cfg)
     ebuf = buf.transpose(0, 1).reshape(E, G * C, d)       # expert-major
-    out = _expert_ffn(params, ebuf).reshape(E, G, C, d).transpose(0, 1)
+    out = _expert_ffn(params, ebuf, tp).reshape(E, G, C, d).transpose(0, 1)
     y = _combine(out, meta, n).reshape(N, d)
     return y.reshape(b, s, d).to(x.dtype), aux

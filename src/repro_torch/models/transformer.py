@@ -12,11 +12,28 @@ the FFN ``dense``, ``moe`` (:mod:`repro_torch.models.moe`), ``dense+moe``
 is the same per-position loop.  The inputs are ``tokens``, ``embeds``
 (audio: precomputed frame embeddings, ``batch["embeds"]``) or ``vlm``
 (precomputed ``patch_embeds`` before the token embeddings; the loss pads
-the labels with −1 over the image prefix).  Still to come:
+the labels with −1 over the image prefix).
 
-* the serving methods (KV and SSM caches, prefill, decode; reference
-  ``:234-429``) — ROADMAP queue A item 13;
-* ``remat`` and the sharding hints (``shd``) — item 12.
+``remat="full"`` (the reference's ``jax.checkpoint`` of each repeat,
+``:198-205``) wraps each repeat's pass over the block pattern in
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: the
+backward recomputes that pass instead of keeping its activations.  It
+runs under plain autograd (the sharded runtime's gradient); under
+``torch.func`` it raises, since those transforms do not support the
+saved-tensor hooks the checkpoint is built on.
+
+Under tensor parallelism (``make_model(cfg, tp=...)``, a
+:class:`~repro_torch.models.layers.TPGroup` of the worker's ranks) the
+model holds this rank's shards of the leaves that
+:func:`repro_torch.launch.sharding.tp_plan` splits: the embedding and
+head over the vocab (a masked lookup, and the vocab-parallel cross
+entropy), GQA by heads, the MLP and the MoE experts by ``d_ff``;
+``init`` draws the whole leaves and keeps this rank's slices, so x₀ is
+the one-rank model's.  MLA and the Mamba-2 mixer are refused under a
+model axis above 1 (ROADMAP queue A item 12b.4).  The sharding hints
+(``shd``) change no value and are not needed (``launch/sharding.py``).
+Still to come: the serving methods (KV and SSM caches, prefill, decode;
+reference ``:234-429``) — ROADMAP queue A item 13.
 
 Params are a flat dict named by the reference's key paths
 (``embed.table``, ``blocks.pos0.attn.wq.w`` with a leading ``n_repeats``
@@ -37,6 +54,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
@@ -47,10 +65,13 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnCfg
-from repro_torch.models.layers import (embed, layernorm, mlp,
-                                       nonparametric_layernorm, rmsnorm,
-                                       rope_freqs, truncated_normal)
+from repro_torch.models.layers import (copy_to_model, embed, layernorm,
+                                       mlp, nonparametric_layernorm, rmsnorm,
+                                       rope_freqs, tp_active,
+                                       truncated_normal, vocab_parallel_nll)
 from repro_torch.tree import leaf_order
+
+REMAT = ("none", "full")
 
 __all__ = ["Model", "make_model"]
 
@@ -111,8 +132,11 @@ class _Layer(nn.Module):
     ``mlp`` and/or ``moe``, stacked over the repeats."""
 
     def __init__(self, cfg: ModelCfg, a: AttnCfg, s: mamba_lib.Mamba2Cfg,
-                 m: moe_lib.MoECfg, spec: LayerSpec, device=None):
+                 m: moe_lib.MoECfg, spec: LayerSpec, device=None,
+                 tp: Optional[dict] = None):
         super().__init__()
+        # the TP group each module runs split over (None: replicated)
+        self.tp = tp or {}
         if spec.mixer not in ("attn", "mla", "mamba"):
             raise ValueError(spec.mixer)
         if spec.ffn not in ("dense", "moe", "dense+moe", "none"):
@@ -170,15 +194,17 @@ class _Layer(nn.Module):
             self.moe = _Params(shapes, lead, device)
             self.moe.router = _dense(d, E, lead, device)
 
-    def forward(self, x, i: int, cos, sin, positions):
-        """Repeat ``i`` of this position (reference ``_apply_layer``):
-        ``(x, aux)``, aux zero without an MoE FFN."""
+    def forward(self, lp: dict, x, cos, sin, positions):
+        """This position with params ``lp`` (one repeat's, ``_tree(self,
+        i)``; reference ``_apply_layer``): ``(x, aux)``, aux zero without
+        an MoE FFN."""
         nap = _norm_apply(self.cfg)
-        lp = _tree(self, i)
+        tp = self.tp
         h = nap(lp["norm_mix"], x)
         if self.spec.mixer == "attn":
             mix = attn_lib.attention_apply(lp["attn"], h, self.attn_cfg,
-                                           cos, sin, positions)
+                                           cos, sin, positions,
+                                           tp=tp.get("attn"))
         elif self.spec.mixer == "mla":
             mix = attn_lib.mla_apply(lp["attn"], h, self.attn_cfg, cos, sin,
                                      positions)
@@ -190,10 +216,11 @@ class _Layer(nn.Module):
             return x, aux
         h = nap(lp["norm_ffn"], x)
         if self.spec.ffn == "dense":
-            return x + mlp(lp["mlp"], h), aux
-        out, aux = moe_lib.moe_apply(lp["moe"], h, self.moe_cfg)
+            return x + mlp(lp["mlp"], h, tp.get("mlp")), aux
+        out, aux = moe_lib.moe_apply(lp["moe"], h, self.moe_cfg,
+                                     tp.get("moe"))
         if self.spec.ffn == "dense+moe":
-            out = mlp(lp["mlp"], h) + out
+            out = mlp(lp["mlp"], h, tp.get("mlp")) + out
         return x + out, aux
 
 
@@ -202,16 +229,18 @@ class _Net(nn.Module):
     ``batch`` → ``(logits f32, aux)``."""
 
     def __init__(self, cfg: ModelCfg, a: AttnCfg, s: mamba_lib.Mamba2Cfg,
-                 m: moe_lib.MoECfg, compute_dtype: torch.dtype, device=None):
+                 m: moe_lib.MoECfg, compute_dtype: torch.dtype, device=None,
+                 tp: Optional[dict] = None):
         super().__init__()
         if cfg.input_mode not in ("tokens", "embeds", "vlm"):
             raise ValueError(cfg.input_mode)
         self.cfg, self.attn_cfg, self.compute_dtype = cfg, a, compute_dtype
+        self.tp = tp or {}
         self.embed = _Params({"table": (cfg.vocab, cfg.d_model)}, (), device)
         self.blocks = nn.Module()
         for pos, spec in enumerate(cfg.pattern):
             self.blocks.add_module(f"pos{pos}",
-                                   _Layer(cfg, a, s, m, spec, device))
+                                   _Layer(cfg, a, s, m, spec, device, tp))
         self.final_norm = _norm(cfg, (), device)
         if not cfg.tie_embeddings:
             self.lm_head = _dense(cfg.d_model, cfg.vocab, (), device)
@@ -223,12 +252,13 @@ class _Net(nn.Module):
         cd, mode = self.compute_dtype, self.cfg.input_mode
         if mode == "embeds":
             return batch["embeds"].to(cd)
-        x = embed(_tree(self.embed), batch["tokens"]).to(cd)
+        x = embed(_tree(self.embed), batch["tokens"],
+                  self.tp.get("vocab")).to(cd)
         if mode == "vlm":
             x = torch.cat([batch["patch_embeds"].to(cd), x], dim=1)
         return x
 
-    def forward(self, batch):
+    def forward(self, batch, remat: str = "none"):
         cfg = self.cfg
         x = self._embed_inputs(batch)
         b, s, _ = x.shape
@@ -236,26 +266,42 @@ class _Net(nn.Module):
                               else self.attn_cfg.head_dim, s, cfg.rope_theta,
                               device=x.device)
         positions = torch.arange(s, device=x.device).expand(b, s)
+        layers = [getattr(self.blocks, f"pos{pos}")
+                  for pos in range(len(cfg.pattern))]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_repeats):
-            block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-            for pos in range(len(cfg.pattern)):
-                x, a = getattr(self.blocks, f"pos{pos}")(x, i, cos, sin,
-                                                         positions)
-                block_aux = block_aux + a
+            # repeat i's params are sliced outside the checkpointed pass,
+            # so its recomputation reads the same tensors
+            lps = [_tree(layer, i) for layer in layers]
+
+            def block(x, lps=lps):
+                block_aux = torch.zeros((), dtype=torch.float32,
+                                        device=x.device)
+                for layer, lp in zip(layers, lps):
+                    x, a = layer(lp, x, cos, sin, positions)
+                    block_aux = block_aux + a
+                return x, block_aux
+
+            if remat == "full":
+                x, block_aux = torch.utils.checkpoint.checkpoint(
+                    block, x, use_reentrant=False)
+            else:
+                x, block_aux = block(x)
             aux = aux + block_aux
         x = _norm_apply(cfg)(_tree(self.final_norm), x)
         head = (self.embed.table.T if cfg.tie_embeddings
                 else self.lm_head.w)
+        x = copy_to_model(x, self.tp.get("vocab"))
         logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
         return logits, aux
 
 
 class Model:
     """Functional model: ``init``, ``apply`` (logits) and ``loss`` over a
-    flat param dict."""
+    flat param dict; under ``tp`` (a ``TPGroup`` of size > 1) each dict
+    holds this rank's shards (:attr:`plan`)."""
 
-    def __init__(self, cfg: ModelCfg):
+    def __init__(self, cfg: ModelCfg, tp=None):
         self.cfg = cfg
         self.param_dtype = torch_dtype(cfg.param_dtype)
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
@@ -276,14 +322,41 @@ class Model:
             d_model=cfg.d_model, d_state=cfg.ssm_state,
             headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
             chunk=cfg.ssm_chunk)
+        self.tp = tp if tp_active(tp) else None
+        self.plan = None
+        splits = {}
+        if self.tp is not None:
+            from repro_torch.launch.sharding import tp_plan
+            refused = sorted({sp.mixer for sp in cfg.pattern}
+                             & {"mla", "mamba"})
+            if refused:
+                raise NotImplementedError(
+                    f"tensor parallelism over a model axis of {tp.size} for "
+                    f"the {' and '.join(refused)} mixer is not ported yet "
+                    "(ROADMAP queue A item 12b.4): its in-proj concatenates "
+                    "components that the reference's contiguous column "
+                    "split does not align with")
+            whole = _Net(cfg, self.attn_cfg, self.mamba_cfg, self.moe_cfg,
+                         self.compute_dtype, device="meta")
+            self.plan = tp_plan(cfg, _shapes(whole), tp.size, tp.index)
+            sp = self.plan.splits
+            for unit, leaf in (("vocab", "embed.table"),
+                               ("attn", ".attn.wq.w"), ("mlp", ".mlp.wi.w"),
+                               ("moe", ".moe.wi")):
+                if any(v is not None for n, v in sp.items()
+                       if n.endswith(leaf)):
+                    splits[unit] = self.tp
         self.net = _Net(cfg, self.attn_cfg, self.mamba_cfg, self.moe_cfg,
-                        self.compute_dtype, device="meta")
+                        self.compute_dtype, device="meta", tp=splits)
 
     # ------------------------------------------------------------------ init
-    def param_shapes(self) -> dict:
-        """``{name: shape}`` of one worker's params, in leaf order."""
-        shapes = {n: tuple(t.shape) for n, t in self.net.named_parameters()}
-        return {n: shapes[n] for n in leaf_order(shapes)}
+    def param_shapes(self, whole: bool = False) -> dict:
+        """``{name: shape}`` of one worker's params, in leaf order: this
+        rank's shards under TP, the whole leaves with ``whole``."""
+        shapes = _shapes(self.net)
+        if self.plan is None or whole:
+            return shapes
+        return {n: self.plan.shard_shape(n) for n in shapes}
 
     def leaf_dtype(self, name: str) -> torch.dtype:
         """The dtype :meth:`init` gives leaf ``name``: ``param_dtype``, but
@@ -311,7 +384,7 @@ class Model:
         gdev = generator.device
         f32 = torch.float32
         params = {}
-        for name, shape in self.param_shapes().items():
+        for name, shape in self.param_shapes(whole=True).items():
             leaf = name.rsplit(".", 1)[-1]
             ssm = name.rsplit(".", 2)[-2] == "mamba"
             dtype = self.leaf_dtype(name)
@@ -329,27 +402,48 @@ class Model:
             else:
                 scale = 1.0 if leaf == "table" else shape[-2] ** -0.5
                 t = truncated_normal(shape, dtype, scale, generator)
+            if self.plan is not None and self.plan.split_dim(name) is not None:
+                t = self.plan.shard(name, t).clone()
             params[name] = t.to(device)
         return params
 
     # ----------------------------------------------------------------- forward
-    def apply(self, params: dict, batch: dict):
-        """Full-sequence forward.  Returns ``(logits f32, aux_loss)``."""
-        return torch.func.functional_call(self.net, params, (batch,))
+    def apply(self, params: dict, batch: dict, remat: str = "none"):
+        """Full-sequence forward.  Returns ``(logits f32, aux_loss)``; under
+        TP with the vocab split, this rank's slice of the logits.
+        ``remat="full"`` recomputes each repeat's pass in the backward
+        (plain autograd only)."""
+        if remat not in REMAT:
+            raise ValueError(f"remat {remat!r} not in {REMAT}")
+        if remat == "full" and \
+                torch._C._functorch.peek_interpreter_stack() is not None:
+            raise RuntimeError(
+                "remat='full' under a torch.func transform (vmap, grad): "
+                "torch.func does not support saved-tensor hooks, which "
+                "torch.utils.checkpoint is built on; take the gradient with "
+                "torch.autograd.grad (the sharded runtime's one worker per "
+                "rank) or use remat='none'")
+        return torch.func.functional_call(self.net, params, (batch,),
+                                          {"remat": remat})
 
-    def loss(self, params: dict, batch: dict):
+    def loss(self, params: dict, batch: dict, remat: str = "none"):
         """Next-token cross entropy over ``labels`` (−1 = masked), the mean
         over ``max(#labels, 1)``: ``(ce + aux, {"ce", "aux"})``.  Under the
         ``vlm`` input mode the labels cover the text positions only: they
-        are padded with −1 over the image prefix."""
-        logits, aux = self.apply(params, batch)
+        are padded with −1 over the image prefix.  With the vocab split
+        over the worker's ranks, the vocab-parallel cross entropy."""
+        logits, aux = self.apply(params, batch, remat=remat)
         labels = batch["labels"].long()
         if self.cfg.input_mode == "vlm":
             labels = F.pad(labels, (logits.shape[-2] - labels.shape[-1], 0),
                            value=-1)
         mask = (labels >= 0).to(torch.float32)
-        logp = F.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        vocab_tp = self.net.tp.get("vocab")
+        if vocab_tp is not None:
+            nll = vocab_parallel_nll(logits, labels, vocab_tp)
+        else:
+            logp = F.log_softmax(logits, dim=-1)
+            nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
         ce = torch.sum(nll * mask) / torch.sum(mask).clamp_min(1.0)
         return ce + aux, {"ce": ce, "aux": aux}
 
@@ -361,5 +455,10 @@ class Model:
     init_cache = prefill = prefill_fast = decode_step = _serving
 
 
-def make_model(cfg: ModelCfg) -> Model:
-    return Model(cfg)
+def _shapes(net: nn.Module) -> dict:
+    shapes = {n: tuple(t.shape) for n, t in net.named_parameters()}
+    return {n: shapes[n] for n in leaf_order(shapes)}
+
+
+def make_model(cfg: ModelCfg, tp=None) -> Model:
+    return Model(cfg, tp=tp)

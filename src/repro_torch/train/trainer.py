@@ -19,12 +19,14 @@ worker-stacked params.
 in every rank: whole rounds through ``pack.train_round``, a tail or an
 off-boundary resume through ``pack.train_step``.  Losses stay on the
 device until a log block flushes; the flush is the one collective of the
-log path (the ranks' mean loss per step, so every rank logs the same
-global loss).  Comm MB come from ``bytes_per_round_cycle``.  With
-``ckpt_every`` rank 0 gathers the K workers' slices and writes the
-K-stacked trees (the same files as a dense run's); ``resume=True``
-restores through ``restore_elastic`` (K→K′ too) and continues bit for bit
-from a round boundary, or on the per-step path until the next one.
+log path (the workers' mean loss per step, so every rank logs the same
+global loss).  Comm MB come from ``bytes_per_round_cycle``, the
+reference's per-worker figure.  With ``ckpt_every`` rank 0 gathers the K
+workers' slices, under tensor parallelism each reassembled from its
+ranks' shards, and writes the K-stacked whole trees (the same files as a
+dense run's, whatever the model axis); ``resume=True`` restores through
+``restore_elastic`` (K→K′ too) and continues bit for bit from a round
+boundary, or on the per-step path until the next one.
 """
 from __future__ import annotations
 
@@ -181,29 +183,40 @@ class SimTrainer:
         return params, state, hist
 
 
-def gather_workers(tree, keys, layout):
+def gather_workers(tree, keys, layout, plan=None):
     """The K-stacked tree on rank 0 (None elsewhere): each worker-stacked
     leaf (``keys``: the ``check_state_keys`` marks, True for every params
     leaf) gathered from every rank with ``dist.gather``, through the host
-    under gloo; the other leaves as rank 0 holds them.  Collective."""
+    under gloo, and under tensor parallelism each worker's leaf
+    reassembled from its ranks' shards by the TP ``plan`` (the leaf's name
+    is its innermost key); the other leaves as rank 0 holds them.
+    Collective."""
     mesh = layout.mesh
     root = mesh.rank == 0
     on_host = mesh.backend == "gloo"
+    tp = layout.tp_size
 
-    def gather(leaf):
+    def gather(leaf, name):
         t = leaf.detach().contiguous()
         if on_host:
             t = t.cpu()
         bufs = ([torch.empty_like(t) for _ in range(mesh.world_size)]
                 if root else None)
         dist.gather(t, bufs, dst=0)
-        return torch.cat(bufs).cpu() if root else None
+        if not root:
+            return None
+        if tp > 1:
+            bufs = [plan.unshard(name, bufs[w * tp:(w + 1) * tp])
+                    for w in range(len(bufs) // tp)]
+        return torch.cat(bufs).cpu()
 
-    def walk(sub, mark):
+    def walk(sub, mark, name=None):
         if isinstance(sub, dict):
-            return {k: walk(v, mark[k] if isinstance(mark, dict) else mark)
-                    for k, v in sub.items()}
-        return gather(sub) if mark else (sub.detach().cpu() if root else None)
+            return {k: walk(v, mark[k] if isinstance(mark, dict) else mark,
+                            k) for k, v in sub.items()}
+        if mark:
+            return gather(sub, name)
+        return sub.detach().cpu() if root else None
 
     return walk(tree, keys)
 
@@ -213,7 +226,7 @@ class ShardedTrainer:
 
     * the hot path is ``pack.train_round`` (p local steps + one gossip);
     * losses stay on the device until a log block flushes, and the flush
-      averages them over the ranks (one ``all_reduce``): every rank logs
+      averages them over the workers (one ``all_reduce``): every rank logs
       the same global loss;
     * comm MB come from the optimizer's ``bytes_per_round_cycle``;
     * checkpoints hold params and the whole optimizer state, K-stacked
@@ -228,11 +241,25 @@ class ShardedTrainer:
         self.ckpt_every = ckpt_every
 
     def bytes_per_round(self) -> int:
-        from repro_torch.launch.runtime import per_worker
-        return self.pack.opt.bytes_per_comm_round(
-            per_worker(self.pack.params_struct))
+        """The reference's per-worker bytes of round 0: the byte model on
+        the whole worker's tree, one plan."""
+        return self.bytes_per_round_cycle()[0]
 
     def bytes_per_round_cycle(self) -> tuple:
+        """The reference's per-worker bytes over one schedule cycle (the
+        comm-MB of the log)."""
+        from repro_torch.launch.runtime import per_worker
+        return self.pack.opt.bytes_per_round_cycle(
+            per_worker(self.pack.worker_struct))
+
+    def rank_bytes_per_round_cycle(self) -> tuple:
+        """What this rank hands to ``isend`` a round, over one cycle: the
+        byte model on its own shards and plan.  With a model axis of 1 it
+        is :meth:`bytes_per_round_cycle`; above 1 a worker's figure is the
+        sum over its ranks, which exceeds the reference's one-plan figure
+        by every replicated leaf (each rank ships its copy, as each device
+        of the reference's ``shard_map`` does) and, on the kernel layout,
+        by the tail rows of each shard's last 1,024-lane row."""
         from repro_torch.launch.runtime import per_worker
         return self.pack.opt.bytes_per_round_cycle(
             per_worker(self.pack.params_struct))
@@ -261,15 +288,21 @@ class ShardedTrainer:
         w = pack.layout.worker_index
         out = elastic.restore_elastic(
             self.ckpt_dir, step,
-            params_template=self._stacked(pack.params_struct, K),
-            state_template=self._stacked(pack.state_struct, K),
+            params_template=self._stacked(pack.worker_struct, K),
+            state_template=self._stacked(pack.worker_state_struct, K),
             comm=pack.opt.comm, device=pack.device)
+        plan = pack.plan
 
-        def mine(sub, mark):
+        def mine(sub, mark, name=None):
             if isinstance(sub, dict):
                 return {k: mine(v, mark[k] if isinstance(mark, dict)
-                                else mark) for k, v in sub.items()}
-            return sub[w:w + 1].contiguous() if mark else sub
+                                else mark, k) for k, v in sub.items()}
+            if not mark:
+                return sub
+            sub = sub[w:w + 1]
+            if plan is not None:
+                sub = plan.shard(name, sub)
+            return sub.clone(memory_format=torch.contiguous_format)
         return (mine(out["params"], True),
                 mine(out["opt_state"], pack.state_keys))
 
@@ -277,21 +310,25 @@ class ShardedTrainer:
         """Rank 0 writes the K-stacked params and state of ``step``; every
         rank takes part in the gather and waits for the write."""
         from repro_torch.checkpoint import checkpoint as ckpt
-        layout = self.pack.layout
-        p = gather_workers(params, True, layout)
-        s = gather_workers(state, self.pack.state_keys, layout)
+        layout, plan = self.pack.layout, self.pack.plan
+        p = gather_workers(params, True, layout, plan)
+        s = gather_workers(state, self.pack.state_keys, layout, plan)
         if layout.mesh.rank == 0:
             ckpt.save(self.ckpt_dir, step, params=p, opt_state=s)
         dist.barrier()
 
     def _global_losses(self, losses) -> list:
-        """The ranks' mean of each step's loss: one ``all_reduce``."""
-        mesh = self.pack.layout.mesh
+        """The workers' mean of each step's loss: one ``all_reduce`` over
+        the ranks of this model coordinate (a worker's ranks share its
+        loss)."""
+        layout = self.pack.layout
+        mesh = layout.mesh
         t = losses.detach().to(torch.float32)
         if mesh.backend == "gloo":
             t = t.cpu()
-        dist.all_reduce(t)
-        return (t / mesh.world_size).tolist()
+        dist.all_reduce(t, group=mesh.worker_group if layout.tp_axis
+                        else None)
+        return (t / layout.n_workers).tolist()
 
     def train(self, seed: int, batch_fn: Callable[[int], dict], steps: int,
               log_every: int = 10, verbose: bool = True,

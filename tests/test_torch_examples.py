@@ -123,8 +123,9 @@ PRETRAIN_RUNS = {"flat": [],
 
 @pytest.fixture(scope="module")
 def pretrain_records(tmp_path_factory):
-    """``examples/torch_pretrain_decentralized.py --quick`` in four gloo
-    ranks on the CPU, flat and on the sweep's hier row
+    """``examples/torch_pretrain_decentralized.py --quick``, 4 workers of
+    2 ranks (its default model axis), in eight gloo ranks on the CPU, flat
+    and on the sweep's hier row
     (``benchmarks/pretrain_sweep.py:126``), each run's JSON record."""
     import json
     import subprocess
@@ -152,7 +153,8 @@ def test_torch_pretrain_decentralized(pretrain_records, tag):
     ``BENCH_pretrain.json``'s ``train_flat``/``train_hier`` rows, exactly
     (16,262,144 and 2,032,768 B: the ring's two f32 neighbours of the
     2,032,768-param lm-5m, and the bf16 inter wire of hierarchical(2, 2)
-    shipped by the leaders, over the node); finite losses over 8 steps."""
+    shipped by the leaders, over the node) and each rank's share under
+    the model axis of 2; finite losses over 8 steps."""
     import json
     rec = pretrain_records[tag]
     with open(BENCH_PRETRAIN) as f:
@@ -164,6 +166,13 @@ def test_torch_pretrain_decentralized(pretrain_records, tag):
     assert round(rec["comm_mb"], 4) == want["comm_mb"]
     assert (rec["model"], rec["workers"], rec["steps"]) == (
         want["model"], want["workers"], want["steps"])
+    # the example's default model axis of 2 (the reference's mesh): each
+    # of the 8 ranks ships its own shards, and a worker's two ranks each
+    # ship the 9 × 128 replicated RMSNorm scales (9,216 B more a worker on
+    # the ring's two f32 neighbours, 1,152 on the amortized bf16 inter)
+    assert rec["model_axis"] == 2
+    assert rec["bytes_per_rank"] == [{"flat": 8_135_680,
+                                      "hier": 1_016_960}[tag]] * 8
     assert math.isfinite(rec["first_loss"]) and math.isfinite(
         rec["final_loss"])
     assert rec["final_loss"] < rec["first_loss"]

@@ -32,8 +32,8 @@ asserts on its slice of the results:
 * the refusals: the reference's for CPD-SGDM and MT's compressed
   tracking on the sharded backend (overlap, the complete and the
   hierarchical graphs, a schedule, perms under membership), rand-k as the
-  inter codec, membership on a two-axis mesh, a model axis above 1 (item
-  12b), a device round index;
+  inter codec, membership on a two-axis mesh, profile B and ``inner="dp"``
+  on a model axis of 2 (item 12b.4), a device round index;
 * the launcher, ``repro_torch.launch.train`` with four gloo ranks, and
   its ``--resume``.
 """
@@ -455,7 +455,8 @@ def test_refusals(run):
         assert "static topology" in ref["mt_schedule"]
         assert not any("12b" in v for k, v in ref.items()
                        if k.startswith(("cpd", "mt")))
-        assert "12b" in ref["model_axis"]
+        assert "12b.4" in ref["model_axis"] and "FSDP" in ref["model_axis"]
+        assert "12b.4" in ref["model_axis_inner_dp"]
         assert "randk" in ref["randk_inter"]
         assert "single worker axis" in ref["membership_2axis"]
         assert "host" in ref["sharded_r_tensor"]

@@ -208,6 +208,8 @@ def sharded_scenarios(mesh_rank, inp):
 
     # refusals: the reference's, for CPD-SGDM and MT's compressed tracking
     from repro_torch.core import MTDSGDMConfig, MTDSGDm, complete
+    from repro_torch.launch.mesh import make_layout
+    tp_mesh = make_mesh((4,), ("w",), device=dev, model_axis=2)
 
     def mt(comm):
         return MTDSGDm(MTDSGDMConfig(), comm, SignCompressor())
@@ -234,8 +236,12 @@ def sharded_scenarios(mesh_rank, inp):
         "membership_2axis": lambda: ShardedComm(
             torus((2, 4)), axis_names=("a", "b"), mesh=meshes["torus"],
             membership=membership_from_events(8, 3, CHURN)),
-        "model_axis": lambda: make_mesh((8,), ("w",), device=dev,
-                                        model_axis=2),
+        # a model axis of 2 (4 workers of 2 ranks) takes profile A's
+        # tensor parallelism; FSDP inside a worker and inner="dp" wait
+        "model_axis": lambda: make_layout(ParallelCfg(profile="B"),
+                                          tp_mesh),
+        "model_axis_inner_dp": lambda: make_layout(ParallelCfg(inner="dp"),
+                                                   tp_mesh),
         "sharded_r_tensor": lambda: _comm("onepeer", meshes).mix(
             x, r=torch.tensor(1)),
     }
