@@ -183,17 +183,28 @@ matmuls:
    way); the three print their wall together; ``sharded_olmo1b_tp2``
    (PD-SGDM on OLMo-1B's widths at 2 of 16 layers, f32, seq 2,048, batch
    1, K = 2 workers × a model axis of 2: each rank its tensor-parallel
-   shards, 4 ranks; two rounds with ``remat="full"`` and the same two
-   with ``"none"``: per rank and round 4 momentum and 1 gossip launches
+   shards, 4 ranks; ``TP_ROUNDS`` rounds with ``remat="full"`` and as
+   many with ``"none"``: per rank and round 4 momentum and 1 gossip launches
    on its own kernel plan and 613,416,960 B to ``isend``; each round
    within 4.8e-7 of the same round at a model axis of 1 from the same
    start; "full" against "none"; each rank's allocator and gradient
-   peaks and s/round for both) and ``pretrain_sweep_rows`` (the port's
-   example, ``--quick``, 8 steps, 4 workers × a model axis of 2 = 8
-   ranks, the flat ring and hierarchical(2, 2) with the bf16 inter wire:
-   ``bytes_per_comm_round`` equal to ``BENCH_pretrain.json``'s
-   ``train_flat``/``train_hier`` rows and ``claim_equal_loss``).  The
-   sharded LM paths run the reference's default ``remat="full"``.
+   peaks and s/round for both; then the same ranks under ``inner="dp"``,
+   ``sharded_olmo1b_dp2``: batch 2 a worker, a sequence a rank, each
+   rank the whole worker, 1,226,833,920 B to ``isend``, a worker's two
+   ranks bit-identical after every round), ``pretrain_sweep_rows`` (the
+   port's example, ``--quick``, 8 steps, 4 workers × a model axis of 2 =
+   8 ranks, the flat ring and hierarchical(2, 2) with the bf16 inter
+   wire: ``bytes_per_comm_round`` equal to ``BENCH_pretrain.json``'s
+   ``train_flat``/``train_hier`` rows and ``claim_equal_loss``),
+   ``sharded_qwen2_72b_fsdp`` (PD-SGDM on Qwen2-72B's widths under its
+   own profile B, one layer, vocab 4,000, 2 pods × an FSDP axis of 2, 4
+   ranks, one round: each rank's FSDP shards, 1,886,527,488 B to
+   ``isend``) and ``sharded_mla_ssd_tp2`` (MiniCPM3-4B's MLA and
+   Mamba2-1.3B's SSD, 2 layers each, split by heads over a model axis of
+   2, two rounds each); the ``SPLIT`` paths hold their launches and
+   bytes per rank and round and each round within 4.8e-7 of one rank per
+   worker from the same start, and print each rank's peaks and s/round.
+   The sharded LM paths run the reference's default ``remat="full"``.
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, the MoE,
@@ -3029,6 +3040,7 @@ HIER_SIGN = (2, 2)          # hierarchical(2, 2): 2 nodes of 2 ranks
 RESUME_K, RESUME_K2, RESUME_STEPS = 4, 6, 12
 RESUME_STOPS = (6, 8)       # off a round boundary, and on one
 ROUND_BAR = dict(rtol=1e-3, atol=1e-4)    # the kernel-round bar
+GATHER_TAG = 1 << 22        # the tag of ``gather_to_root``'s messages
 
 
 def rank_setup(torch, dev):
@@ -3110,14 +3122,19 @@ def watch_rounds(torch, pack, rounds: list, keep: bool = True):
 
 def gather_to_root(torch, t):
     """``t`` (this rank's, on the card) gathered to rank 0 through the host,
-    stacked on the worker dim; None on the other ranks."""
+    stacked on the worker dim; None on the other ranks.  Point to point:
+    gloo's ``gather`` moves a sixth of the bytes a second."""
     import torch.distributed as dist
     t = t.detach().cpu().contiguous()
-    root = dist.get_rank() == 0
-    bufs = [torch.empty_like(t) for _ in range(dist.get_world_size())] \
-        if root else None
-    dist.gather(t, bufs, dst=0)
-    return torch.cat(bufs) if root else None
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if rank != 0:
+        dist.isend(t, 0, tag=GATHER_TAG).wait()
+        return None
+    bufs = [t] + [torch.empty_like(t) for _ in range(1, world)]
+    for q in [dist.irecv(bufs[r], r, tag=GATHER_TAG)
+              for r in range(1, world)]:
+        q.wait()
+    return torch.cat(bufs)
 
 
 def dense_round(torch, path, opt, params, state, stream, t0):
@@ -4335,7 +4352,9 @@ def sharded_embedding_phase(torch):
 # over a 2 × 2 mesh (K = 2 workers × a model axis of 2, 4 gloo ranks on the
 # card), each rank its shards of the worker (launch/sharding.py), and the
 # port's pretraining example on the reference's own mesh (4 workers × 2).
-TP_K, TP_AXIS, TP_ROUNDS = 2, 2, 2
+# one round each: the script's time budget went to the split-worker
+# phases (a second round, 2.3-2.9 s, measured the steady round)
+TP_K, TP_AXIS, TP_ROUNDS = 2, 2, 1
 # OLMo-1B at 2 of its 16 layers (one would leave the recomputation little
 # to save), f32, seq 2,048 (its published context), batch 1 a worker
 TP_OLMO = dict(arch="olmo-1b", cuts=dict(n_layers=2), seq=2048, batch=1)
@@ -4414,8 +4433,8 @@ def tp_rank_gradient_peak(torch, pack, remat, params, batch, dev) -> float:
 
 
 def tp_olmo_rank(mesh_rank):
-    """A rank of ``sharded_olmo1b_tp2``: two rounds through
-    ``ShardedTrainer`` with ``remat="full"``, then the same two with
+    """A rank of ``sharded_olmo1b_tp2``: ``TP_ROUNDS`` rounds through
+    ``ShardedTrainer`` with ``remat="full"``, then as many with
     ``"none"`` (each rank its shards of one worker); per round its
     launches, bytes and wall, the two settings' results compared on the
     rank, each setting's peaks; then (rank 0) each "full" round from its
@@ -4508,11 +4527,18 @@ def tp_olmo_rank(mesh_rank):
     return stats
 
 
+def tp_dp_rank(mesh_rank):
+    """A rank of ``sharded_olmo1b_tp2``: ``tp_olmo_rank``, then the same
+    ranks under ``inner="dp"`` (``split_rank``)."""
+    return {"tp": tp_olmo_rank(mesh_rank),
+            "dp": split_rank(mesh_rank, ["sharded_olmo1b_dp2"])}
+
+
 def sharded_tp_phase(torch):
     """``sharded_olmo1b_tp2``: PD-SGDM at OLMo-1B's published widths (2 of
     16 layers, f32, seq 2,048, batch 1) on K = 2 workers × a model axis of
-    2, 4 ranks on the card, the kernel layout: two rounds with
-    ``remat="full"`` and the same two with ``"none"``; per rank and round
+    2, 4 ranks on the card, the kernel layout: ``TP_ROUNDS`` rounds with
+    ``remat="full"`` and as many with ``"none"``; per rank and round
     p momentum and 1 gossip launches on its own shards and
     ``TP_RANK_BYTES`` to ``isend``; each round within ``TP_BAR`` of the
     same round with a model axis of 1 from the same start; "full" against
@@ -4521,15 +4547,16 @@ def sharded_tp_phase(torch):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    stats = spawn(tp_olmo_rank, TP_K * TP_AXIS)
+    both = spawn(tp_dp_rank, TP_K * TP_AXIS)
     wall = time.perf_counter() - t0
+    stats = [s["tp"] for s in both]
     root = stats[0]
     name = "sharded_olmo1b_tp2"
     print(f"sharded: {name} PD-SGDM on OLMo-1B's widths, "
           f"{TP_OLMO['cuts']['n_layers']} of 16 layers, f32, seq "
           f"{TP_OLMO['seq']}, batch {TP_OLMO['batch']}, K={TP_K} workers × "
           f"model axis {TP_AXIS} ({TP_K * TP_AXIS} ranks on one card, gloo),"
-          f" ring, p={P}, {TP_ROUNDS} rounds with remat='full' and "
+          f" ring, p={P}, {TP_ROUNDS} round(s) with remat='full' and "
           f"{TP_ROUNDS} with 'none' through ShardedTrainer, {wall:.1f} s "
           "with the spawn and the checks")
     for remat in ("full", "none"):
@@ -4578,7 +4605,350 @@ def sharded_tp_phase(torch):
             root["round_gaps"]) > TP_BAR:
         raise AssertionError(f"{name}: rounds against a model axis of 1 "
                              f"{root['round_gaps']}, bar {TP_BAR}")
+    # the same model under inner="dp": the model axis splits the batch
+    split_report(["sharded_olmo1b_dp2"], [s["dp"] for s in both])
     return stats
+
+
+# the paths whose worker spans several ranks in other ways than
+# ``sharded_olmo1b_tp2``'s TP of GQA: profile B's FSDP inside a worker
+# (Qwen2-72B under its own profile B), TP of the MLA and SSD mixers, and
+# profile A's ``inner="dp"``.  Each: the arch, its cuts, seq and batch a
+# worker, the parallel config beside remat "full" and the ring, the mesh
+# (named axes, the model axis) and the used rows of a rank's plan (the
+# rank's shards at 4 B, handed once a round to its one ring(2)
+# neighbour; ``tests/test_torch_fsdp.py`` holds them against the plan on
+# meta tensors)
+SPLIT = {
+    # Qwen2-72B (arXiv:2407.10671): d_model 8,192, 64 heads, 8 KV heads,
+    # d_ff 29,568, QKV bias, rope θ 1e6; 1 of 80 layers and the vocab cut
+    # to 4,000 (at 152,064 the embedding and the head are 4.98 GB a leaf
+    # in f32), as Mixtral's full-width path cuts them; 943.2 M params a
+    # worker, 3.77 GB a copy, a rank's half 1.89 GB; K = 2 pods × an FSDP
+    # axis of 2, one sequence a data rank; one round (a round moves about
+    # 23 GB a rank through gloo's staging: 35-60 s on the card)
+    "sharded_qwen2_72b_fsdp": dict(
+        arch="qwen2-72b", cuts=dict(n_layers=1, vocab=4000), seq=256,
+        batch=2, parallel=dict(profile="B"),
+        mesh=((2, 2), ("pod", "data"), 1), rows=460_578, rounds=1),
+    # MiniCPM3-4B's MLA at its full-width path's vocab, 2 of 62 layers:
+    # 40 heads, 20 a rank; the latents' projections and norms whole
+    "sharded_mla_tp2": dict(
+        arch="minicpm3-4b", cuts=dict(n_layers=2, vocab=36_724), seq=256,
+        batch=2, parallel=dict(profile="A"), mesh=((2,), ("data",), 2),
+        rows=155_666),
+    # Mamba2-1.3B's SSD, 2 of 48 layers, seq 1,024 (four chunks): 64
+    # heads, 32 a rank; B and C (one group) whole
+    "sharded_ssd_tp2": dict(
+        arch="mamba2-1.3b", cuts=dict(n_layers=2), seq=1024, batch=1,
+        parallel=dict(profile="A"), mesh=((2,), ("data",), 2),
+        rows=126_324),
+    # OLMo-1B at ``TP_OLMO``'s cuts under inner="dp": each rank of a
+    # worker holds the whole worker and takes one of its two sequences,
+    # and hands isend the worker's whole plan
+    "sharded_olmo1b_dp2": dict(
+        arch="olmo-1b", cuts=dict(n_layers=2), seq=2048, batch=2,
+        parallel=dict(profile="A", inner="dp"), mesh=((2,), ("data",), 2),
+        rows=299_520, rounds=1),
+}
+SPLIT_ROUNDS = 2            # a path's rounds unless it sets its own
+SPLIT_LAUNCHES = {"momentum_update": P, "gossip_mix": 1}
+
+
+def split_run(path: str):
+    """The RunCfg of a ``SPLIT`` path: the arch at its cuts in f32, PD-SGDM
+    at the full-width step on the kernel layout, ``remat="full"``."""
+    from repro_torch.configs.base import OptimCfg, ParallelCfg, RunCfg
+    from repro_torch.configs.registry import get_config
+    spec = SPLIT[path]
+    cfg = dataclasses.replace(get_config(spec["arch"]).model,
+                              param_dtype="float32", compute_dtype="float32",
+                              **spec["cuts"])
+    return RunCfg(model=cfg,
+                  parallel=ParallelCfg(remat="full", topology="ring",
+                                       **spec["parallel"]),
+                  optim=OptimCfg(name="pd_sgdm", use_kernel=True,
+                                 **FULL_HYPER))
+
+
+def split_stream(path: str, k: int):
+    from repro_torch.data.synthetic import LMStreamCfg, lm_batch
+    spec = SPLIT[path]
+    cfg = LMStreamCfg(vocab=spec["cuts"].get(
+        "vocab", split_run(path).model.vocab), seq_len=spec["seq"],
+        batch=spec["batch"], n_workers=k, seed=0)
+    return lambda t: lm_batch(cfg, t, DEVICE)
+
+
+def f32_ulp(torch, value: float) -> float:
+    """The spacing of f32 numbers at ``|value|``."""
+    v = torch.tensor(abs(value), dtype=torch.float32)
+    return float(torch.nextafter(v, torch.tensor(math.inf)) - v)
+
+
+def split_check(torch, path, held, k, dev):
+    """Each held round (its end, whole, on the host) against the same
+    round with one rank per worker (``DenseComm(ring(k))``, gradients
+    worker by worker), from the round's captured start: round 0 from x₀
+    (drawn again from seed 0, as every rank drew it) and zero momentum,
+    round r from round r − 1's held end.  Returns max |Δparam| per
+    round, and per round where it sits (its leaf, the value there and
+    that value's f32 ulp, the four largest leaves' gaps)."""
+    from repro_torch.core import DenseComm, make_optimizer, ring
+    from repro_torch.models import make_model
+    from repro_torch.train.trainer import _stack_batches
+    run = split_run(path)
+    model = make_model(run.model)
+    grads_fn = per_worker_grads_fn(torch, model)
+    dopt = make_optimizer("pd_sgdm", DenseComm(ring(k), device=dev),
+                          use_kernel=True, **FULL_HYPER)
+    stream = split_stream(path, k)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = {n: v.unsqueeze(0).expand((k,) + v.shape).contiguous()
+         for n, v in model.init(gen, device=dev).items()}
+    m = None
+    gaps, worst = [], []
+    for (t, want_x, want_m) in held:
+        state = dopt.init(x)
+        if m is not None:
+            state["m"] = m
+        state["step"].fill_(t)
+        batches = _stack_batches([stream(t + i) for i in range(P)])
+        got, state, _ = dopt.round(state, x, grads_fn, batches)
+        del state, batches
+        per = {n: (got[n] - want_x[n].to(dev)).abs() for n in got}
+        leaf = max(per, key=lambda n: float(per[n].max()))
+        at = int(per[leaf].argmax())
+        value = float(want_x[leaf].reshape(-1)[at])
+        gaps.append(float(per[leaf].max()))
+        # where the largest gap sits: its leaf, the value there and that
+        # value's f32 ulp, and the next leaves' largest gaps
+        worst.append({
+            "leaf": leaf, "value": value,
+            "ulp": f32_ulp(torch, value),
+            "leaves": dict(sorted(((n, float(v.max()))
+                                   for n, v in per.items()),
+                                  key=lambda kv: -kv[1])[:4])})
+        del got, per
+        # the next round starts where this one ended on the ranks
+        x = {n: v.to(dev) for n, v in want_x.items()}
+        m = ({n: v.to(dev) for n, v in want_m.items()}
+             if want_m is not None else None)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return gaps, worst
+
+
+def split_rank(mesh_rank, paths):
+    """A rank of the ``SPLIT`` paths ``paths``, one after another: two
+    rounds of each through ``ShardedTrainer`` (per round its launches,
+    bytes, wall and the checksums of its end on this rank), the
+    allocator peak and one step's ``gradient_peak``; each round's end
+    (and, but for the last, its momentum) gathered whole to rank 0's
+    host as it ends; then every rank frees the card and rank 0 holds each
+    round against one rank per worker (``split_check``) while the others
+    wait."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.runtime import build_train
+    from repro_torch.train.trainer import ShardedTrainer, gather_workers
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    on_card = dev.type == "cuda"
+    out = {}
+    for path in paths:
+        spec = SPLIT[path]
+        n_rounds = spec.get("rounds", SPLIT_ROUNDS)
+        sizes, names, model_axis = spec["mesh"]
+        mesh = make_mesh(sizes, names, device=dev, model_axis=model_axis)
+        pack = build_train(split_run(path), mesh)
+        lay = pack.layout
+        stream = split_stream(path, lay.n_workers)
+        rounds, held = [], []
+        stats = {"rank": rank, "worker": lay.worker_index,
+                 "inner": lay.inner_index()}
+        opt, grad_fn = pack.opt, pack.grad_fn
+
+        def peak_grad_fn(params, batch):
+            # the round's first step: its gradient's peak above all the
+            # round holds at the step's start (one more step would cost
+            # a step's whole wire)
+            if not on_card or "gradient_peak_mib" in stats:
+                return grad_fn(params, batch)
+            sync(torch, dev)
+            stats["peak_before"] = torch.cuda.max_memory_allocated(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = grad_fn(params, batch)
+            sync(torch, dev)
+            stats["gradient_peak_mib"] = (
+                torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+            return out
+
+        def kernel_round(params, state, batches, t):
+            opt.host_step = int(t)
+            return opt.round(state, params, peak_grad_fn, batches)
+        pack.train_round = kernel_round
+        watch_rounds(torch, pack, rounds, keep=False)
+        inner = pack.train_round
+
+        def train_round(params, state, batches, t, inner=inner):
+            res = inner(params, state, batches, t)
+            last = t + P >= n_rounds * P
+            rounds[-1]["sums"] = bit_checksum(torch, res[0])
+            held.append((t, gather_workers(res[0], True, lay, pack.plan),
+                         None if last else gather_workers(
+                             res[1]["m"], True, lay, pack.plan)))
+            return res
+        pack.train_round = train_round
+        trainer = ShardedTrainer(pack)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters()
+        res = trainer.train(0, lambda t: pack.worker_batch(stream(t)),
+                            n_rounds * P, log_every=P, verbose=False)
+        peak = max(torch.cuda.max_memory_allocated(dev),
+                   stats.pop("peak_before")) if on_card else 0
+        plan = kops.KernelPlan.for_tree(res["params"], worker_dim=True)
+        stats.update({
+            "peak_mib": peak / 2 ** 20,
+            "s_per_round": [r["s"] for r in rounds],
+            "launches": [r["launches"] for r in rounds],
+            "sent": [r["sent"] for r in rounds],
+            "sums": [r["sums"] for r in rounds],
+            "rank_cycle": trainer.rank_bytes_per_round_cycle(),
+            "worker_cycle": trainer.bytes_per_round_cycle(),
+            "used": plan.used_rows, "losses": res["history"].loss,
+            "copy_mib": sum(v.numel() * 4 for v in
+                            pack.params_struct.values()) / 2 ** 20})
+        del plan
+        k = lay.n_workers
+        del res, pack, trainer, rounds, opt, grad_fn
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            t0 = time.perf_counter()
+            stats["round_gaps"], stats["round_worst"] = split_check(
+                torch, path, held, k, dev)
+            stats["check_s"] = time.perf_counter() - t0
+        del held
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        dist.barrier()
+        out[path] = stats
+    return out
+
+
+def split_phase(torch, paths, label):
+    """Spawn the ranks of ``paths`` (one mesh size) and hold each path
+    (``split_report``)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizes, _, model_axis = SPLIT[paths[0]]["mesh"]
+    world = math.prod(sizes) * model_axis
+    t0 = time.perf_counter()
+    stats = spawn(split_rank, world, paths)
+    print(f"sharded: {label}: {world} ranks on one card (gloo), "
+          f"{time.perf_counter() - t0:.1f} s with the spawn and the checks")
+    split_report(paths, stats)
+    return stats
+
+
+def split_report(paths, stats):
+    """Hold each ``SPLIT`` path of the ranks' ``stats``: per rank and round
+    ``SPLIT_LAUNCHES`` on its shards and its plan's used rows at 4 B to
+    ``isend``; each round within ``TP_BAR`` of the same round with one
+    rank per worker from the same start; the ranks of a worker
+    bit-identical where they hold replicas (``inner="dp"``); finite
+    losses.  Prints each rank's peak, ``gradient_peak`` (one step's
+    gradient above what the round holds at its start) and s/round."""
+    for path in paths:
+        spec, run = SPLIT[path], split_run(path)
+        n_rounds = spec.get("rounds", SPLIT_ROUNDS)
+        per = [s[path] for s in stats]
+        root = per[0]
+        want = spec["rows"] * 1024 * 4
+        print(f"sharded: {path} PD-SGDM on {spec['arch']}'s widths, cuts "
+              f"{spec['cuts']}, f32, seq {spec['seq']}, batch "
+              f"{spec['batch']} a worker, mesh {spec['mesh'][1]} "
+              f"{spec['mesh'][0]} × model axis {spec['mesh'][2]}, "
+              f"{run.parallel.profile}/{run.parallel.inner}, remat "
+              f"'{run.parallel.remat}', ring, p={P}, {n_rounds} "
+              f"round(s); losses (the workers' mean) "
+              + " ".join(f"{v:.4f}" for v in root["losses"]))
+        for s in per:
+            print(f"sharded: {path} rank {s['rank']} (worker {s['worker']},"
+                  f" inner place {s['inner']}): peak {s['peak_mib']:.1f} "
+                  f"MiB, gradient_peak {s.get('gradient_peak_mib', 0.0):.1f}"
+                  f" MiB above the round's state ({s['copy_mib']:.1f} MiB a "
+                  "copy),"
+                  " s/round " + ", ".join(f"{v:.4f}"
+                                          for v in s["s_per_round"])
+                  + f", launches {[nonzero(lc) for lc in s['launches']]}, "
+                  f"isend bytes {s['sent']}")
+        print(f"sharded: {path} peak summed over the ranks "
+              f"{sum(s['peak_mib'] for s in per):.1f} MiB; bytes a round "
+              f"{want:,} a rank ({spec['rows']:,} rows), "
+              f"{root['worker_cycle'][0]:,} a worker (the reference's "
+              f"one-plan figure)")
+        print(f"sharded: {path} max |Δparam| per round against one rank "
+              f"per worker from the same start {root['round_gaps']} (bar "
+              f"{TP_BAR}; the check {root['check_s']:.1f} s)")
+        for r, w in enumerate(root["round_worst"]):
+            print(f"sharded: {path} round {r}: the largest gap in "
+                  f"{w['leaf']} at a value of {w['value']!r} (f32 ulp "
+                  f"{w['ulp']!r}); the largest leaves' gaps {w['leaves']}")
+        for s in per:
+            for lc in s["launches"]:
+                if lc != {**{n: 0 for n in lc}, **SPLIT_LAUNCHES}:
+                    raise AssertionError(f"{path}: launches {lc}")
+            if (s["used"] != spec["rows"]
+                    or tuple(s["rank_cycle"]) != (want,)
+                    or s["sent"] != [want] * n_rounds):
+                raise AssertionError(
+                    f"{path}: rank {s['rank']} used rows {s['used']}, isend "
+                    f"bytes {s['sent']}, cycle {s['rank_cycle']}, expected "
+                    f"{want}")
+            if not all(math.isfinite(v) for v in s["losses"]):
+                raise AssertionError(f"{path}: losses {s['losses']}")
+        if run.parallel.inner == "dp":
+            # the ranks of a worker hold the same bits after every round
+            by_worker = {}
+            for s in per:
+                by_worker.setdefault(s["worker"], []).append(s["sums"])
+            split = [w for w, sums in by_worker.items()
+                     if any(x != sums[0] for x in sums)]
+            print(f"sharded: {path} a worker's ranks bit-identical after "
+                  f"every round: {not split}")
+            if split:
+                raise AssertionError(f"{path}: workers {split} diverged")
+        if len(root["round_gaps"]) != n_rounds or max(
+                root["round_gaps"]) > TP_BAR:
+            raise AssertionError(f"{path}: rounds against one rank per "
+                                 f"worker {root['round_gaps']}, bar {TP_BAR}")
+
+
+def sharded_fsdp_phase(torch):
+    """``sharded_qwen2_72b_fsdp``: PD-SGDM at Qwen2-72B's published widths
+    under its own profile B, 2 pods on ring(2) × an FSDP axis of 2 (4
+    ranks on the card): per layer each rank all-gathers its shards inside
+    the repeat's pass (again in the recomputation) and sums the gradient
+    back over the data axis leaf by leaf."""
+    return split_phase(torch, ["sharded_qwen2_72b_fsdp"],
+                       "sharded_qwen2_72b_fsdp")
+
+
+def sharded_mla_ssd_phase(torch):
+    """``sharded_mla_ssd_tp2``: MiniCPM3-4B's MLA and Mamba2-1.3B's SSD
+    split by heads over a model axis of 2 (K = 2, 4 ranks, one spawn)."""
+    return split_phase(torch, ["sharded_mla_tp2", "sharded_ssd_tp2"],
+                       "sharded_mla_ssd_tp2")
 
 
 def pretrain_sweep_phase(torch):
@@ -4716,6 +5086,8 @@ PHASES = {
         lambda torch, ctx: sharded_embedding_phase(torch),
     "sharded_olmo1b_tp2": lambda torch, ctx: sharded_tp_phase(torch),
     "pretrain_sweep_rows": lambda torch, ctx: pretrain_sweep_phase(torch),
+    "sharded_qwen2_72b_fsdp": lambda torch, ctx: sharded_fsdp_phase(torch),
+    "sharded_mla_ssd_tp2": lambda torch, ctx: sharded_mla_ssd_phase(torch),
 }
 
 

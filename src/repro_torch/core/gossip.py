@@ -37,13 +37,14 @@ worker is active uses the topology's own W, bit for bit.
   ``all_reduce``.  Round ``r``'s P2P pairs depend on ``r``, so the
   sharded ``mix`` takes ``r`` as a host int (the trainer's ``t // p``); a
   static graph needs none.  On a card with the gloo backend each payload
-  is staged through preallocated pinned host buffers; with NCCL the card's
+  is staged through the mesh's pinned host buffers; with NCCL the card's
   tensors go to the library as they are.  ``sent_bytes`` and
   ``reduced_bytes`` count what this rank handed to ``isend`` and to
-  ``all_reduce``.  Under tensor parallelism (a ``"model"`` mesh axis) a
-  worker spans several ranks: each exchanges its own shards with the
-  ranks of its model coordinate in the neighbour workers, and the
-  collectives over workers run in the group of that coordinate.
+  ``all_reduce``.  Where a worker spans several ranks (the mesh axes off
+  the topology: TP, FSDP or the inner data-parallel axis) each rank
+  exchanges its own shards with the ranks at its inner place in the
+  neighbour workers, and the collectives over workers run in the group
+  of that place.
 """
 from __future__ import annotations
 
@@ -56,7 +57,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.launch.mesh import MODEL_AXIS
 from repro_torch.core.topology import (MembershipSchedule, Topology,
                                        TopologySchedule, active_edge_count,
                                        hierarchical_inter_shifts,
@@ -434,19 +434,18 @@ class ShardedComm(CommBackend):
                              "process group (repro_torch.launch.mesh."
                              "make_mesh)")
         m = self.mesh
-        for name in m.axis_names:
-            if name not in self.axis_names and name != MODEL_AXIS:
-                raise ValueError(f"mesh axis {name!r} carries no topology "
-                                 f"axis of {self.axis_names}")
+        # the mesh axes off the topology's split each worker (its TP, FSDP
+        # or inner data-parallel ranks): a worker is a line over them
+        self._inner = tuple(a for a in m.axis_names
+                            if a not in self.axis_names)
         n_workers = int(math.prod(m.axis_sizes[m.axis_index(a)]
                                   for a in self.axis_names
                                   if a in m.axis_names))
         if n_workers != self.topology.n_workers:
             raise ValueError(f"{n_workers} workers on the mesh for "
                              f"{self.topology.n_workers} workers")
-        # the ranks of every worker that share this one's model coordinate
-        self._workers = (None if len(self.axis_names) == len(m.axis_names)
-                         else m.worker_group)
+        # the ranks of every worker that share this one's inner coordinates
+        self._workers = m.group(self.axis_names)
         for i, name in enumerate(self.axis_names):
             if name not in m.axis_names:
                 raise ValueError(f"axis {name!r} not in the mesh's "
@@ -465,57 +464,16 @@ class ShardedComm(CommBackend):
         self._full_counts: dict = {}
 
     # -- the wire ------------------------------------------------------------
-    def _pinned(self, key, t):
-        """The mesh's pinned host buffer of ``key`` for ``t``'s shape."""
-        return self.mesh.pinned(key, t)
-
     def _p2p(self, sends, recvs):
-        """One exchange: ``sends`` ``[(tensor, dst, tag)]`` and ``recvs``
-        ``[(out, src, tag)]``, posted at once through
-        ``dist.batch_isend_irecv`` and waited for; a receive from this rank
-        itself (an axis of size 1, an aliased shift) copies the matching
-        send.  Staged on a card under gloo: each send is copied to a
-        pinned host buffer, the stream synchronized, and each receive
-        lands in one and is copied back."""
-        me = self.mesh.rank
-        own = {tag: t for (t, dst, tag) in sends if dst == me}
-        for (out, src, tag) in recvs:
-            if src == me:
-                out.copy_(own[tag])
-        sends = [s for s in sends if s[1] != me]
-        recvs = [r for r in recvs if r[1] != me]
-        if not sends and not recvs:
-            return
-        staged = self.mesh.staged
-        ops, back, hosted = [], [], {}
-        for (t, dst, tag) in sends:
-            if staged:
-                # one host copy of a payload that goes to several peers
-                h = hosted.get(id(t))
-                if h is None:
-                    h = hosted[id(t)] = self._pinned(("send", tag), t)
-                    h.copy_(t, non_blocking=True)
-                t = h
-            self.sent_bytes += t.numel() * t.element_size()
-            ops.append(dist.P2POp(dist.isend, t, dst, tag=tag))
-        for (out, src, tag) in recvs:
-            buf = out
-            if staged:
-                buf = self._pinned(("recv", tag), out)
-                back.append((out, buf))
-            ops.append(dist.P2POp(dist.irecv, buf, src, tag=tag))
-        if staged:
-            # the sends' copies have landed, and the last exchange's
-            # copies out of the receive buffers too
-            torch.cuda.current_stream(self.device).synchronize()
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        for (out, buf) in back:
-            out.copy_(buf, non_blocking=True)
+        """One exchange through the mesh (:meth:`WorkerMesh.p2p`: one
+        batch, staged on a card under gloo): ``sends`` ``[(tensor, dst,
+        tag)]`` and ``recvs`` ``[(out, src, tag)]``; the bytes handed to
+        ``isend`` count in ``sent_bytes``."""
+        self.sent_bytes += self.mesh.p2p(sends, recvs)
 
     def _all_reduce(self, t, group):
-        """In-place ``all_reduce`` (sum) of ``t`` over ``group``, staged as
-        :meth:`_p2p` stages its payloads."""
+        """In-place ``all_reduce`` (sum) of ``t`` over ``group`` (the
+        mesh's, staged as :meth:`_p2p` stages its payloads)."""
         self.reduced_bytes += t.numel() * t.element_size()
         return self.mesh.all_reduce(t, group)
 
@@ -540,6 +498,18 @@ class ShardedComm(CommBackend):
         c = self._coord(axis)
         dst = [j for j, s in enumerate(arg) if int(s) == c]
         return self._rank_on(axis, dst[0]), self._rank_on(axis, arg[c])
+
+    @property
+    def _worker(self) -> int:
+        """This rank's worker: row-major over the topology's axes."""
+        return self.mesh.index(self.axis_names)
+
+    def _worker_rank(self, worker: int, inner: Optional[int] = None) -> int:
+        """The rank of ``worker`` at inner place ``inner`` (row-major over
+        the mesh axes off the topology; this rank's by default)."""
+        m = self.mesh
+        base = m.rank if inner is None else m.rank_with(self._inner, inner)
+        return m.rank_with(self.axis_names, worker, base)
 
     def _axis_size(self, axis: int) -> int:
         return int(self.mesh.axis_sizes[self.mesh.axis_index(
@@ -679,8 +649,9 @@ class ShardedComm(CommBackend):
     # -- mixing --------------------------------------------------------------
     def _mean_all(self, tree):
         """The exact mean over every worker (``complete``): an
-        ``all_reduce`` sum over the workers' ranks of this model
-        coordinate (the process group without a model axis), over K."""
+        ``all_reduce`` sum over the workers' ranks at this rank's inner
+        place (the whole process group where a worker is one rank), over
+        K."""
         K = self.topology.n_workers
 
         def f(x):
@@ -867,21 +838,16 @@ class HierarchicalComm(ShardedComm):
         n, m = self.n_nodes, self.node_size
         if len(self.axis_names) == 1:
             mesh = self.mesh
-            if tuple(a for a in mesh.axis_names
-                     if a != MODEL_AXIS) != self.axis_names:
-                raise ValueError(f"the flat layout needs a one-axis worker "
-                                 f"mesh {self.axis_names}; got "
-                                 f"{mesh.axis_names}")
             self._node_group = None
             if m > 1:
                 # collective: every rank builds every node's group of every
-                # model coordinate, in order
-                for c in range(mesh.model_size):
+                # inner place of a worker, in order
+                mine = mesh.index(self._inner)
+                for c in range(mesh.size(self._inner)):
                     for i in range(n):
-                        g = dist.new_group([mesh.worker_rank(i * m + j, c)
+                        g = dist.new_group([self._worker_rank(i * m + j, c)
                                             for j in range(m)])
-                        if (mesh.worker // m == i
-                                and mesh.model_coord == c):
+                        if self._worker // m == i and mine == c:
                             self._node_group = g
         else:
             intra = self.axis_names[1]
@@ -933,10 +899,10 @@ class HierarchicalComm(ShardedComm):
 
             return node_avg, recv, (lambda acc: acc)
 
-        me = self.mesh.worker
+        me = self._worker
         leader = me % m == 0
         i = me // m
-        at = self.mesh.worker_rank
+        at = self._worker_rank
 
         def recv(payload, sh, j):
             # leaders only: the other members receive zeros, which the

@@ -5,13 +5,21 @@ waits for ROADMAP queue A item 13).  Where the reference shard_maps the
 optimizer over the worker axes of a device mesh, the port runs one rank
 per device: each rank builds its worker with a leading worker dim of 1
 (the ``(1, rows, 1024)`` shard the reference's ``shard_map`` sees), and
-under tensor parallelism (a ``"model"`` mesh axis, profile A) only its
-shards of the worker's leaves (:mod:`repro_torch.launch.sharding`), on
-which it runs its own kernel plan and its own gossip with the ranks of
-its model coordinate.  A rank's gradient is plain autograd over its one
-worker (:func:`worker_grad_fn`): the worker dim squeezed, ``model.loss``
-with ``run.parallel.remat``, ``torch.autograd.grad``, the dim restored;
-the TP collectives and ``remat``'s recomputation run there, and neither
+where a worker spans several ranks (:func:`repro_torch.launch.mesh.
+make_layout`) only its shards of the worker's leaves
+(:mod:`repro_torch.launch.sharding`: TP over ``"model"``, profile B's
+FSDP over ``"data"``), on which it runs its own kernel plan and its own
+gossip with the ranks at its inner place in the neighbour workers.  A
+rank's gradient is plain autograd over its one worker
+(:func:`worker_grad_fn`): the worker dim squeezed, its slice of the
+worker's batch taken where an axis splits the batch (FSDP's, or profile
+A's ``inner="dp"`` axis; dim 1 when that axis divides it, else the whole
+batch on every rank, as ``batch_spec_tree`` does), ``model.loss`` with
+``run.parallel.remat`` (the rank's share of the worker's loss), then
+``torch.autograd.grad``, the gradient of every leaf the rank holds whole
+summed over the batch axis in f32 (FSDP's split leaves are summed in
+their gather's backward), the loss summed likewise, the dim restored; the
+TP and FSDP collectives and ``remat``'s recomputation run there, and none
 runs under ``torch.func``.  Every rank draws x₀ from the same seed (the
 paper's identical x₀); each draws its own worker's batches.
 
@@ -36,16 +44,17 @@ import torch
 
 from repro_torch.configs.base import ModelCfg, RunCfg
 from repro_torch.core import make_compressor, make_optimizer
-from repro_torch.core.gossip import HierarchicalComm, ShardedComm
-from repro_torch.core.topology import (hierarchical, make_schedule,
-                                       make_topology, torus)
-from repro_torch.launch.mesh import MODEL_AXIS, Layout, make_layout
+from repro_torch.core.gossip import DenseComm, HierarchicalComm, ShardedComm
+from repro_torch.core.topology import (disconnected, hierarchical,
+                                       make_schedule, make_topology, torus)
+from repro_torch.launch.mesh import Layout, make_layout
 from repro_torch.models import make_model
 from repro_torch.models.layers import TPGroup
 from repro_torch.tree import tree_map
 
-__all__ = ["STATE_KEYS", "TrainPack", "build_comm", "build_train",
-           "check_state_keys", "make_steps", "worker_grad_fn"]
+__all__ = ["STATE_KEYS", "TrainPack", "axis_group", "build_comm",
+           "build_train", "check_state_keys", "make_steps",
+           "worker_grad_fn"]
 
 # every optimizer state entry the checkpoint knows: True where the entry is
 # worker-stacked (mirrors params), False where it is one scalar for all
@@ -85,6 +94,10 @@ def build_comm(run: RunCfg, layout: Layout, membership=None):
     sizes = layout.worker_sizes
     wd = run.optim.wire_dtype
     mesh = layout.mesh
+    if not waxes:
+        # profile B without a pod axis: the mesh is one worker
+        return DenseComm(disconnected(1), device=mesh.device,
+                         membership=membership, wire_dtype=wd)
     sched_name = run.parallel.topology_schedule
     node_size = int(run.parallel.node_size or 0)
     if node_size:
@@ -181,9 +194,11 @@ class TrainPack:
     init_fn: Callable          # (seed) -> (params, opt_state)
     train_step: Callable       # (params, state, batch, t) -> (.., loss)
     train_round: Callable      # (params, state, batches[p], t) -> (.., losses)
-    plan: object = None        # the TP plan (None: the rank is its worker)
+    plan: object = None        # the shard plan (None: the rank holds
+                               # its worker's leaves whole)
     worker_struct: dict = None  # the whole worker's params, (1, ...), meta
     worker_state_struct: dict = None
+    grad_fn: Callable = None   # (params, batch) -> (loss, grads): the rank's
 
     def __post_init__(self):
         # a rank that holds its whole worker: the structs are the rank's
@@ -193,7 +208,9 @@ class TrainPack:
 
     def worker_batch(self, batch: dict) -> dict:
         """This rank's worker of a batch drawn for all K workers (leading
-        dim K): the dense stream's batches, worker by worker."""
+        dim K): the dense stream's batches, worker by worker.  Every rank
+        of a worker takes the worker's whole batch; the gradient takes
+        the rank's slice of it (:func:`worker_grad_fn`)."""
         w = self.layout.worker_index
         return {k: v[w:w + 1] for k, v in batch.items()}
 
@@ -204,15 +221,12 @@ def build_train(run: RunCfg, mesh, model_cfg: Optional[ModelCfg] = None,
     mcfg = model_cfg or run.model
     layout = make_layout(run.parallel, mesh)
     device = mesh.device
-    tp = None
-    if layout.tp_axis is not None:
-        group = mesh.groups[MODEL_AXIS]
-        tp = TPGroup(mesh.model_size, mesh.model_coord,
-                     lambda t, op: mesh.all_reduce(t, group, op))
-    model = make_model(mcfg, tp=tp)
+    model = make_model(mcfg, tp=axis_group(layout, layout.tp_axis),
+                       fsdp=axis_group(layout, layout.fsdp_axis))
     comm = build_comm(run, layout, membership=membership)
     opt = _make_optimizer(run, comm)
-    gfn = worker_grad_fn(model, run.parallel.remat)
+    gfn = worker_grad_fn(model, run.parallel.remat,
+                         batch=axis_group(layout, layout.batch_axis))
 
     def init_fn(seed: int):
         gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -234,23 +248,76 @@ def build_train(run: RunCfg, mesh, model_cfg: Optional[ModelCfg] = None,
                      init_fn=init_fn, train_step=train_step,
                      train_round=train_round, plan=model.plan,
                      worker_struct=worker_struct,
-                     worker_state_struct=opt.init(worker_struct))
+                     worker_state_struct=opt.init(worker_struct),
+                     grad_fn=gfn)
 
 
-def worker_grad_fn(model, remat: str = "none"):
+def axis_group(layout: Layout, axis) -> Optional[TPGroup]:
+    """The ``TPGroup`` of this rank's line over mesh ``axis`` (None
+    without the axis, or where it holds one rank)."""
+    if axis is None or layout.axis_size(axis) == 1:
+        return None
+    mesh = layout.mesh
+    group = mesh.group((axis,))
+    return TPGroup(layout.axis_size(axis), layout.axis_coord(axis),
+                   lambda t, op: mesh.all_reduce(t, group, op),
+                   lambda t, dim: mesh.all_gather(t, group, dim),
+                   lambda t, dim: mesh.reduce_scatter(t, group, dim))
+
+
+def _reduce_grads(grads: list, group: TPGroup) -> list:
+    """``grads`` summed over ``group`` in f32: one ``all_reduce`` of their
+    concatenation, cast back to each one's dtype."""
+    if not grads:
+        return grads
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+    flat = group.all_reduce(flat, torch.distributed.ReduceOp.SUM)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+        at += g.numel()
+    return out
+
+
+def worker_grad_fn(model, remat: str = "none", batch=None):
     """The gradient of one worker with a leading worker dim of 1, in plain
     autograd: ``gfn(params, batch) -> (loss, grads)`` with the dim
     squeezed for ``model.loss`` (``remat`` passed on) and restored on the
     grads; a leaf the loss does not reach gets zeros, as
-    ``torch.func.grad`` gives it."""
-    def gfn(params, batch):
+    ``torch.func.grad`` gives it.  ``batch``: the ``TPGroup`` of ranks
+    that split the worker's batch (dim 1, where its size divides it): the
+    rank takes its slice, its loss is its share of the worker's, and the
+    gradients of the leaves it holds whole (every leaf but those the
+    model gathers over FSDP, which sum in the gather) and the loss are
+    summed over the group; the worker's loss and gradient are then a
+    single rank's on the whole batch."""
+    # the leaves the model gathers over FSDP: summed in the gather
+    fsdp = ({n for n, d in model.plan.fsdp.items() if d is not None}
+            if model.fsdp is not None else set())
+
+    def gfn(params, batch_):
+        b = {k: v[0] for k, v in batch_.items()}
+        n = next(iter(b.values())).shape[0]
+        split = batch is not None and n % batch.size == 0
+        if split:
+            m = n // batch.size
+            b = {k: v[batch.index * m:(batch.index + 1) * m]
+                 for k, v in b.items()}
         p = {k: v[0].detach().requires_grad_(True) for k, v in params.items()}
-        b = {k: v[0] for k, v in batch.items()}
         with torch.enable_grad():
-            loss = model.loss(p, b, remat=remat)[0]
-            grads = torch.autograd.grad(loss, list(p.values()),
-                                        materialize_grads=True)
-        return loss.detach(), {k: g.unsqueeze(0) for k, g in zip(p, grads)}
+            loss = model.loss(p, b, remat=remat,
+                              inner=batch if split else None)[0]
+            grads = list(torch.autograd.grad(loss, list(p.values()),
+                                             materialize_grads=True))
+        loss = loss.detach()
+        if split:
+            whole = [i for i, k in enumerate(p) if k not in fsdp]
+            for i, g in zip(whole, _reduce_grads([grads[i] for i in whole],
+                                                 batch)):
+                grads[i] = g
+            loss = batch.all_reduce(loss.to(torch.float32).clone(),
+                                    torch.distributed.ReduceOp.SUM)
+        return loss, {k: g.unsqueeze(0) for k, g in zip(p, grads)}
     return gfn
 
 

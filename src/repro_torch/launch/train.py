@@ -4,14 +4,17 @@
       --optimizer pd_sgdm --steps 50 --workers 4 --dist-backend gloo
 
 Port of ``src/repro/launch/train.py``, with the reference's flags;
-``--devices``/``--data-axis`` become ``--workers N`` (N workers on one
-worker axis) and ``--model-axis M`` is the reference's: each worker spans
-M ranks, tensor-parallel inside it (profile A; 1 by default, one rank a
-worker).  Under ``torchrun`` every rank joins the process group from the
-environment, and the world is N × M.  Without it, ``--workers N`` spawns
-N × M ranks from this process (start method ``spawn``); with ``--device
-cuda`` the parent builds the CUDA kernels first, so that the ranks do
-not run nvcc at once.
+``--devices`` becomes ``--workers N``, and the mesh follows the arch's
+profile as the reference's does.  Profile A: N workers on the
+``"data"`` axis, each of ``--model-axis M`` ranks (tensor-parallel
+inside it; 1 by default, one rank a worker).  Profile B: ``--workers N``
+is the ``"pod"`` axis (the workers), ``--data-axis D`` the FSDP axis and
+``--model-axis M`` the TP axis inside each worker (N = 1: no pod axis,
+one worker).  Under ``torchrun`` every rank joins the process group from
+the environment, and the world is N × D × M.  Without it, ``--workers
+N`` spawns N × D × M ranks from this process (start method ``spawn``);
+with ``--device cuda`` the parent builds the CUDA kernels first, so that
+the ranks do not run nvcc at once.
 ``--dist-backend`` is ``nccl`` (one GPU per rank) or ``gloo`` (any host;
 ranks that share one card all run on ``cuda:0``).  ``--smoke`` selects
 the reduced config.  Rank 0 prints the log; every rank logs the same
@@ -24,7 +27,7 @@ import dataclasses
 import os
 import sys
 
-__all__ = ["main", "parse_args", "rank_main", "run_config"]
+__all__ = ["main", "mesh_axes", "parse_args", "rank_main", "run_config"]
 
 
 def parse_args(argv=None):
@@ -69,10 +72,13 @@ def parse_args(argv=None):
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--workers", type=int, default=0,
-                    help="spawn this many workers (--model-axis ranks "
-                         "each) when not under torchrun")
+                    help="spawn this many workers (--data-axis × "
+                         "--model-axis ranks each) when not under torchrun")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="ranks per worker, tensor-parallel inside it")
+                    help="the TP axis: ranks a worker's params split over")
+    ap.add_argument("--data-axis", type=int, default=1,
+                    help="profile B's FSDP axis inside each worker (the "
+                         "worker's params and batch split over it)")
     ap.add_argument("--dist-backend", default="gloo", choices=("nccl",
                                                                "gloo"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -113,6 +119,26 @@ def run_config(args):
     return dataclasses.replace(run, optim=o, parallel=par)
 
 
+def mesh_axes(run, world: int, args):
+    """``(axis_sizes, axis_names)`` of the mesh (the model axis apart):
+    profile A's workers on ``"data"``; profile B's on ``"pod"`` (none for
+    one worker) beside the FSDP ``"data"`` axis."""
+    d, m = args.data_axis, args.model_axis
+    if world % (d * m):
+        raise SystemExit(f"{world} ranks do not split into workers of "
+                         f"--data-axis {d} × --model-axis {m}")
+    n = world // (d * m)
+    if run.parallel.profile != "B":
+        if d != 1:
+            raise SystemExit(f"--data-axis {d}: the FSDP axis is profile "
+                             f"B's; {args.arch} is profile "
+                             f"{run.parallel.profile!r}")
+        return (n,), ("data",)
+    if n == 1:
+        return (d,), ("data",)
+    return ((n, d), ("pod", "data")) if d > 1 else ((n,), ("pod",))
+
+
 def rank_main(mesh_rank, args) -> dict:
     """One rank's run: the mesh, ``build_train``, ``ShardedTrainer``.
     Returns the history (every rank's is the same)."""
@@ -124,10 +150,7 @@ def rank_main(mesh_rank, args) -> dict:
 
     rank, world, device = mesh_rank
     run = run_config(args)
-    if world % args.model_axis:
-        raise SystemExit(f"{world} ranks do not split into workers of "
-                         f"--model-axis {args.model_axis}")
-    mesh = make_mesh((world // args.model_axis,), ("data",), device=device,
+    mesh = make_mesh(*mesh_axes(run, world, args), device=device,
                      model_axis=args.model_axis)
     pack = build_train(run, mesh)
     K = pack.layout.n_workers
@@ -135,6 +158,7 @@ def rank_main(mesh_rank, args) -> dict:
     verbose = rank == 0
     if verbose:
         print(f"arch={args.arch} optimizer={o.name} p={o.p} workers={K} "
+              f"profile={run.parallel.profile} data_axis={args.data_axis} "
               f"model_axis={args.model_axis} kernel={o.use_kernel} "
               f"overlap={o.overlap} backend={args.dist_backend} "
               f"device={device}", flush=True)
@@ -177,8 +201,10 @@ def main(argv=None):
         from repro_torch.kernels import build
         build.build()
     from repro_torch.launch.spawn import spawn_ranks
-    return spawn_ranks(rank_main, args.workers * args.model_axis, (args,),
-                       backend=args.dist_backend, device=args.device)[0]
+    return spawn_ranks(rank_main,
+                       args.workers * args.data_axis * args.model_axis,
+                       (args,), backend=args.dist_backend,
+                       device=args.device)[0]
 
 
 if __name__ == "__main__":

@@ -32,9 +32,14 @@ GQA runs Megatron's split: ``wq``, ``wk``, ``wv`` column-parallel, so each
 rank holds ``n_heads/tp`` query and ``n_kv_heads/tp`` KV heads (whole
 query groups; the window and the blockwise path are per head), and ``wo``
 row-parallel, its partial products summed over the worker's ranks.  MLA
-under a model axis above 1 is refused (ROADMAP queue A item 12b.4): the
-reference's contiguous column split of ``wdq``/``wdkv`` cuts the latent,
-which every head reads whole.
+runs the same split by heads: ``wuq``, ``wuk`` and ``wuv`` column-parallel
+(their columns are head-major), ``wo`` row-parallel, while ``wdq``,
+``wdkv``, ``wkr`` and the two latent norms stay whole on every rank (every
+head reads the latents whole).  Those replicated leaves feed only this
+rank's heads, so the gradient of what they produce is summed over the
+model axis exactly once, by :func:`copy_to_model` on ``cq``, ``ckv`` and
+``k_rope``, and not on ``x``: their gradients are then whole and equal on
+every rank.
 
 Prefill, decode and the KV caches, the MLA ones too (reference
 ``:168-244``, ``:303-353``), wait for the port's serving (ROADMAP queue A
@@ -177,19 +182,23 @@ def attention_apply(params, x, cfg: AttnCfg, cos, sin, positions=None,
 
 
 # ============================================================================ MLA
-def _mla_qkv(params, x, cfg: AttnCfg, cos, sin, positions):
+def _mla_qkv(params, x, cfg: AttnCfg, cos, sin, positions, tp=None):
     """The rotated query halves, the normed KV latent ``ckv`` (b, s, r) and
-    the one rotary key head ``k_rope`` (b, s, 1, qk_rope_dim)."""
+    the one rotary key head ``k_rope`` (b, s, 1, qk_rope_dim); under
+    ``tp`` the latents' and the rotary head's gradients summed over the
+    worker's ranks."""
     b, s, _ = x.shape
-    cq = rmsnorm(params["q_norm"], dense(params["wdq"], x))
+    cq = copy_to_model(rmsnorm(params["q_norm"], dense(params["wdq"], x)),
+                       tp)
     q = dense(params["wuq"], cq).reshape(b, s, cfg.n_heads,
                                          cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
                                  dim=-1)
     q_rope = apply_rope(q_rope, cos, sin, positions)
-    ckv = rmsnorm(params["kv_norm"], dense(params["wdkv"], x))
-    k_rope = apply_rope(dense(params["wkr"], x).unsqueeze(2), cos, sin,
-                        positions)
+    ckv = copy_to_model(rmsnorm(params["kv_norm"],
+                                dense(params["wdkv"], x)), tp)
+    k_rope = copy_to_model(apply_rope(dense(params["wkr"], x).unsqueeze(2),
+                                      cos, sin, positions), tp)
     return q_nope, q_rope, ckv, k_rope
 
 
@@ -204,15 +213,20 @@ def _mla_expand(params, ckv, k_rope, cfg: AttnCfg):
     return k, v
 
 
-def mla_apply(params, x, cfg: AttnCfg, cos, sin, positions=None):
+def mla_apply(params, x, cfg: AttnCfg, cos, sin, positions=None, tp=None):
     """Multi-head latent attention of ``x`` (b, s, d) with params ``{"wdq",
     "q_norm", "wuq", "wdkv", "kv_norm", "wkr", "wuk", "wuv", "wo"}``;
-    ``cos``/``sin`` are tables of ``qk_rope_dim``."""
+    ``cos``/``sin`` are tables of ``qk_rope_dim``.  Under ``tp`` this
+    rank's heads of ``wuq``/``wuk``/``wuv``/``wo``, the output summed over
+    the worker's ranks."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    split = tp_active(tp)
+    if split:
+        cfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size)
     q_nope, q_rope, ckv, k_rope = _mla_qkv(params, x, cfg, cos, sin,
-                                           positions)
+                                           positions, tp if split else None)
     k, v = _mla_expand(params, ckv, k_rope, cfg)
     q = torch.cat([q_nope, q_rope], dim=-1)
     # MLA is MHA (n_kv == n_heads) over the nope + rope dims
@@ -221,4 +235,6 @@ def mla_apply(params, x, cfg: AttnCfg, cos, sin, positions=None):
     attend = (attend_blockwise if s >= cfg.blockwise_threshold
               else attend_full)
     out = attend(q, k, v, mcfg, positions, positions)
+    if split:
+        return row_dense(params["wo"], out.reshape(b, s, -1), tp)
     return dense(params["wo"], out.reshape(b, s, -1))

@@ -21,10 +21,10 @@ Conventions kept from the reference:
 Initial values match the reference's distributions, not its bits: a
 standard normal truncated to [−2, 2] in f32 times ``scale``, then cast.
 
-Tensor parallelism inside a worker (profile A's model axis; which leaf
-splits is :mod:`repro_torch.launch.sharding`'s plan): a :class:`TPGroup`
-names the ranks of one worker and their ``all_reduce``, and two autograd
-functions carry the Megatron pair of collectives,
+Tensor parallelism inside a worker (the model axis of profiles A and B;
+which leaf splits is :mod:`repro_torch.launch.sharding`'s plan): a
+:class:`TPGroup` names the ranks of one worker and their ``all_reduce``,
+and two autograd functions carry the Megatron pair of collectives,
 
 * :func:`copy_to_model`: identity forward, ``all_reduce`` of the gradient
   backward (the replicated input of a column-parallel product);
@@ -34,8 +34,18 @@ functions carry the Megatron pair of collectives,
 on which :func:`row_dense`, the vocab-parallel :func:`embed` (a masked
 lookup, then the sum: exact, one summand is non-zero) and
 :func:`vocab_parallel_nll` (the max and Σexp reduced, the label's logit
-picked on the rank that owns it) are built.  With ``tp`` None or of size 1
-every function is the one-rank formula, op for op.
+picked on the rank that owns it) are built; :func:`sum_over_model` is
+both at once (a sum every rank's slice reads: ``all_reduce`` forward and
+backward, the SSD's gated norm).  With ``tp`` None or of size 1 every
+function is the one-rank formula, op for op.
+
+FSDP inside a worker (profile B's data axis) uses the same group type
+with an ``all_gather`` and a ``reduce_scatter``: :func:`gather_from_data`
+all-gathers a leaf's shards where the leaf is used, and its backward
+sums the gradient over the data ranks and keeps this rank's slice, leaf
+by leaf as autograd reaches them.  Its ``reduce`` flag is False where
+every data rank ran the whole batch: the gradients are then equal and
+are not summed.
 """
 from __future__ import annotations
 
@@ -50,18 +60,24 @@ __all__ = [
     "dense", "rmsnorm", "layernorm", "nonparametric_layernorm", "embed",
     "rope_freqs", "apply_rope", "mlp", "truncated_normal", "TPGroup",
     "copy_to_model", "reduce_from_model", "row_dense", "vocab_parallel_nll",
+    "sum_over_model", "gather_from_data",
 ]
 
 
 # ------------------------------------------------------------------ TP group
 @dataclasses.dataclass(frozen=True, eq=False)
 class TPGroup:
-    """The ranks of one worker on the model axis: ``size`` of them, this
+    """The ranks of one worker on one of its inner axes (the model axis,
+    the FSDP axis or the inner data-parallel axis): ``size`` of them, this
     one at ``index``; ``all_reduce(t, op)`` reduces ``t`` in place over
-    them (the mesh's, staged through host buffers on a card under gloo)."""
+    them, ``all_gather(t, dim)`` concatenates their ``t`` along ``dim``
+    and ``reduce_scatter(t, dim)`` is this rank's slice of their sum (the
+    mesh's, staged through host buffers on a card under gloo)."""
     size: int
     index: int
     all_reduce: Callable
+    all_gather: Callable = None
+    reduce_scatter: Callable = None
 
 
 def tp_active(tp) -> bool:
@@ -88,6 +104,35 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, reduce):
+        ctx.group, ctx.dim, ctx.reduce = group, dim, reduce
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        grp, dim = ctx.group, ctx.dim
+        if ctx.reduce:
+            return grp.reduce_scatter(g, dim), None, None, None
+        n = g.shape[dim] // grp.size
+        return g.narrow(dim, grp.index * n, n).clone(), None, None, None
+
+
+def gather_from_data(x: torch.Tensor, group, dim: int,
+                     reduce: bool = True) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``x`` (split on ``dim`` over
+    the FSDP ``group``); backward, the gradient summed over the group
+    (``reduce``) and cut to this rank's slice."""
+    return _GatherFromData.apply(x, group, dim, reduce)
+
+
+def sum_over_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The sum of ``x`` over the worker's ranks, where every rank's slice
+    reads the sum: the gradient is summed over the ranks too."""
+    return reduce_from_model(copy_to_model(x, tp), tp)
 
 
 def copy_to_model(x: torch.Tensor, tp) -> torch.Tensor:

@@ -30,6 +30,21 @@ mixer runs under ``torch.func.vmap`` over the workers.
 ``jax.nn.softplus`` computes ``log1p(exp(−x)) + x``: the two agree to f32
 rounding there.
 
+Under tensor parallelism (``tp``, a
+:class:`~repro_torch.models.layers.TPGroup` of the worker's ranks;
+:mod:`repro_torch.launch.sharding` splits the leaves by component) each
+rank runs its ``n_heads/tp`` heads: its columns of z, x and dt in
+``in_proj``, its x channels of the conv, its slices of ``A_log``,
+``dt_bias``, ``D`` and the norm's scale, and its rows of ``out_proj``
+(row-parallel, the partial products summed).  B and C (one group) stay
+whole on every rank but feed only its heads, so their gradient is summed
+over the ranks once, after the conv (:func:`copy_to_model`); ``u`` reaches
+the split columns through ``copy_to_model`` and B and C's columns as it
+is, so its gradient is summed once on each path.  The gated RMSNorm
+normalizes over the whole ``d_inner``: its sum of squares is summed over
+the ranks, and so is that sum's gradient, since every rank's slice reads
+it (:func:`sum_over_model`).
+
 The serving half — ``return_state`` (the final SSM state and conv tail),
 ``mamba2_decode`` and ``init_mamba_cache`` — waits for the port's serving
 (ROADMAP queue A item 13) and raises.
@@ -41,7 +56,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense, rmsnorm
+from repro_torch.models.layers import (copy_to_model, dense, rmsnorm,
+                                       row_dense, sum_over_model, tp_active)
 
 __all__ = ["Mamba2Cfg", "mamba2_apply", "mamba2_decode", "init_mamba_cache"]
 
@@ -89,23 +105,60 @@ def _causal_conv(xBC, w, b):
     return F.silu((out + b).to(torch.float32)).to(xBC.dtype)
 
 
-def _split_xbc(cfg: Mamba2Cfg, xBC, bsz: int, s: int):
+def _split_xbc(cfg: Mamba2Cfg, xBC, bsz: int, s: int, tp=None):
+    """x (b, s, heads, headdim) and B, C broadcast to the heads; under
+    ``tp`` this rank's heads, B's and C's gradients summed over the
+    worker's ranks."""
     gn = cfg.n_groups * cfg.d_state
-    x, B, C = torch.split(xBC, [cfg.d_inner, gn, gn], dim=-1)
-    x = x.reshape(bsz, s, cfg.n_heads, cfg.headdim)
-    rep = cfg.n_heads // cfg.n_groups
+    heads = cfg.n_heads // (tp.size if tp_active(tp) else 1)
+    x, B, C = torch.split(xBC, [heads * cfg.headdim, gn, gn], dim=-1)
+    B, C = copy_to_model(B, tp), copy_to_model(C, tp)
+    x = x.reshape(bsz, s, heads, cfg.headdim)
+    rep = heads // cfg.n_groups
 
     def to_heads(t):          # group g serves heads g·rep … g·rep + rep − 1
         t = t.reshape(bsz, s, cfg.n_groups, 1, cfg.d_state)
         return t.expand(bsz, s, cfg.n_groups, rep, cfg.d_state).reshape(
-            bsz, s, cfg.n_heads, cfg.d_state)
+            bsz, s, heads, cfg.d_state)
     return x, to_heads(B), to_heads(C)
 
 
-def mamba2_apply(params, u, cfg: Mamba2Cfg, return_state: bool = False):
+def _in_proj(params, u, cfg: Mamba2Cfg, tp):
+    """z, xBC and dt from ``in_proj``; under ``tp`` (this rank's columns
+    ``[z, x, B, C, dt]``) the split columns read ``copy_to_model(u)`` and
+    B's and C's read ``u``."""
+    if not tp_active(tp):
+        return _split_zxbcdt(cfg, dense(params["in_proj"], u))
+    w = params["in_proj"]["w"]
+    di = cfg.d_inner // tp.size
+    bc = 2 * cfg.n_groups * cfg.d_state
+    uc = copy_to_model(u, tp)
+    z, x = torch.split(dense({"w": w[..., :2 * di]}, uc), [di, di], dim=-1)
+    BC = dense({"w": w[..., 2 * di:2 * di + bc]}, u)
+    dt = dense({"w": w[..., 2 * di + bc:]}, uc)
+    return z, torch.cat([x, BC], dim=-1), dt
+
+
+def _gated_norm(params, y, z, cfg: Mamba2Cfg, dtype, tp):
+    """``rmsnorm(y·silu(z))`` over the whole ``d_inner``; under ``tp`` the
+    sum of squares of this rank's slice summed over the worker's ranks."""
+    f32 = torch.float32
+    g = (y.to(f32) * F.silu(z.to(f32))).to(dtype)
+    if not tp_active(tp):
+        return rmsnorm(params["norm"], g)
+    g32 = g.to(f32)
+    var = sum_over_model(torch.sum(g32 * g32, dim=-1, keepdim=True),
+                         tp) / cfg.d_inner
+    return (g32 * torch.rsqrt(var + 1e-6)
+            * params["norm"]["scale"].to(f32)).to(dtype)
+
+
+def mamba2_apply(params, u, cfg: Mamba2Cfg, return_state: bool = False,
+                 tp=None):
     """u: (b, s, d_model) → (b, s, d_model), by the chunked SSD.  Params
     ``{"in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D", "norm",
-    "out_proj"}``; ``s`` a multiple of ``min(chunk, s)``."""
+    "out_proj"}`` (under ``tp`` this rank's heads of them); ``s`` a
+    multiple of ``min(chunk, s)``."""
     if return_state:
         raise NotImplementedError(
             "mamba2_apply(return_state=True), the decode cache, is ROADMAP "
@@ -115,12 +168,14 @@ def mamba2_apply(params, u, cfg: Mamba2Cfg, return_state: bool = False):
     if s % Q:
         raise ValueError(f"seq {s} % chunk {Q} != 0")
     nc = s // Q
-    h, p, n = cfg.n_heads, cfg.headdim, cfg.d_state
+    split = tp_active(tp)
+    h = cfg.n_heads // (tp.size if split else 1)
+    p, n = cfg.headdim, cfg.d_state
     f32 = torch.float32
 
-    z, xBC, dt_raw = _split_zxbcdt(cfg, dense(params["in_proj"], u))
+    z, xBC, dt_raw = _in_proj(params, u, cfg, tp)
     xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
-    x, B, C = _split_xbc(cfg, xBC, bsz, s)
+    x, B, C = _split_xbc(cfg, xBC, bsz, s, tp)
 
     dt = F.softplus(dt_raw.to(f32) + params["dt_bias"])         # (b,s,h)
     A = -torch.exp(params["A_log"])                             # (h,)
@@ -161,11 +216,12 @@ def mamba2_apply(params, u, cfg: Mamba2Cfg, return_state: bool = False):
 
     y = (y_intra + y_inter).reshape(bsz, s, h, p)
     y = y + params["D"][:, None] * x.to(f32)
-    y = y.reshape(bsz, s, cfg.d_inner).to(u.dtype)
+    y = y.reshape(bsz, s, h * p).to(u.dtype)
 
     # gated RMSNorm, then the output projection
-    y = rmsnorm(params["norm"],
-                (y.to(f32) * F.silu(z.to(f32))).to(u.dtype))
+    y = _gated_norm(params, y, z, cfg, u.dtype, tp)
+    if split:
+        return row_dense(params["out_proj"], y, tp)
     return dense(params["out_proj"], y)
 
 

@@ -17,8 +17,8 @@ sorted slot ``start[e] + c`` where ``c < count[e]``, else zero), which
 writes what the reference's ``.at[].set(mode="drop")`` writes; the
 combine reads a dropped slot at rank C − 1, as the reference's clipped
 gather does, and masks it with ``where``, so no gradient reaches it; the
-token sum is an out-of-place ``index_add``.  Nothing reads a tensor on
-the host.
+token sum is an out-of-place ``index_add``.  Nothing on that path reads
+a tensor on the host.
 
 Ties: ``lax.top_k`` breaks a tie in the gates by the lower expert index;
 ``torch.topk`` promises no order for ties.  Gates tie only where router
@@ -35,6 +35,23 @@ worker's ranks (``wi``/``wg`` (E, d, f/tp), ``wo`` (E, f/tp, d)): every
 rank routes and dispatches the same tokens with the replicated router,
 runs its slice of every expert's FFN, and the partial outputs are summed
 over the ranks before the combine.
+
+Where a worker's batch is split over ranks (``inner``: profile B's FSDP
+axis, or profile A's ``inner="dp"`` axis) each rank routes and dispatches
+its own tokens only, and the layer still computes the worker's function.
+The aux loss is ``E·Σ f_e·P_e`` over the worker's tokens: ``f_e``'s counts
+are summed over the ranks, and each rank adds its tokens' share of
+``P_e`` (its gates' sum over the worker's N), so the ranks' aux losses sum
+to the worker's, gradient included.  The capacity, and so which slots
+drop, follows the worker's tokens and dispatch groups: the ranks
+all-gather their slot counts per (group, expert), and a slot's rank in
+its expert is its rank among this rank's slots plus the exclusive prefix
+of the earlier ranks' counts (:func:`dispatch_rank`), so its kept slots
+are the reference's.  The rank's buffer holds only its own kept slots,
+``(E, M, d)`` with M the most that one expert keeps of them, so the
+experts run about 1/D of the worker's rows on each of D ranks.  M is
+read on the host once a call: this path runs in plain autograd on the
+sharded backend, never under ``vmap``.
 """
 from __future__ import annotations
 
@@ -42,12 +59,14 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (copy_to_model, dense,
                                        reduce_from_model)
 
-__all__ = ["MoECfg", "moe_apply", "capacity", "route", "dispatch"]
+__all__ = ["MoECfg", "moe_apply", "capacity", "route", "dispatch",
+           "dispatch_rank"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,26 +168,100 @@ def route(params, xf, cfg: MoECfg):
     return gates, top_w, top_e
 
 
-def moe_apply(params, x, cfg: MoECfg, tp=None):
+def _groups(n_tokens: int, cfg: MoECfg):
+    """The dispatch groups of ``n_tokens``: ``(G, tokens a group)``; one
+    group where ``n_groups`` does not divide them, as in the reference."""
+    G = cfg.n_groups if n_tokens % max(cfg.n_groups, 1) == 0 else 1
+    return G, n_tokens // G
+
+
+def slot_keys(top_e, first: int, G: int, n: int, cfg: MoECfg):
+    """Each of this rank's slots' (expert, group) key ``e·G + g``, (N·k,):
+    ``top_e`` (N, k) of tokens at the worker's positions ``first``,
+    ``first + 1``, ..., in groups of ``n``; and its count per key, (E·G,)."""
+    N, k = top_e.shape
+    dev = top_e.device
+    g = (first + torch.arange(N, device=dev)) // n
+    key = (top_e * G + g[:, None]).reshape(N * k)
+    counts = (key[:, None] == torch.arange(cfg.n_experts * G, device=dev)
+              ).to(torch.int64).sum(0)
+    return key, counts
+
+
+def dispatch_rank(xf, top_w, key, counts, before, C: int, G: int,
+                  cfg: MoECfg):
+    """Dispatch of this rank's tokens ``xf`` (N, d) when the worker's
+    batch is split: ``top_w`` (N, k) the gates' top-k, ``key``/``counts``
+    from :func:`slot_keys`, ``before`` (E·G,) the slots of each key on the
+    worker's earlier ranks.  A slot's rank in its group's expert is
+    ``before`` plus its rank among this rank's slots of the key (in token
+    order, as the reference's stable sort orders them), kept below C.
+    Returns the (E, M, d) buffer of this rank's kept slots, expert-major
+    and in that order within an expert, and the combine metadata
+    ``(sorted_e, pos, token_of_slot, w_of_slot, keep)``, each (1, N·k) in
+    the sorted slot order (``pos``: the slot's row in its expert)."""
+    N, d = xf.shape
+    k, E = cfg.top_k, cfg.n_experts
+    dev = xf.device
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    token_of_slot = order // k
+    w_of_slot = top_w.reshape(N * k)[order]
+    starts = torch.cumsum(counts, 0) - counts
+    local = torch.arange(N * k, device=dev) - starts[sorted_key]
+    keep = before[sorted_key] + local < C
+    # the kept slots of a key are a prefix of its run; an expert's rows
+    # are its groups' kept slots, group after group
+    kept = torch.clamp(torch.minimum(C - before, counts), min=0)
+    per_e = kept.reshape(E, G)
+    kstart = (torch.cumsum(per_e, 1) - per_e).reshape(E * G)
+    M = max(int(per_e.sum(1).max()), 1)
+    sorted_e = sorted_key // G
+    pos = kstart[sorted_key] + local
+    row = torch.where(keep, sorted_e * M + pos, E * M)  # E·M: dropped
+    buf = xf.new_zeros(E * M + 1, d).index_copy(0, row, xf[token_of_slot])
+    meta = tuple(t[None] for t in (sorted_e, pos, token_of_slot, w_of_slot,
+                                   keep))
+    return buf[:E * M].reshape(E, M, d), meta
+
+
+def moe_apply(params, x, cfg: MoECfg, tp=None, inner=None):
     """x: (b, s, d) → (y, aux_loss); ``params`` as the reference's
     ``{"router": {"w"}, "wi", "wg", "wo"}`` (under ``tp`` the experts'
-    slices of f)."""
+    slices of f).  ``inner``: the group of ranks over which the worker's
+    batch is split (this rank's aux loss is then its share)."""
     b, s, d = x.shape
     N = b * s
     E, k = cfg.n_experts, cfg.top_k
-    G = cfg.n_groups if N % max(cfg.n_groups, 1) == 0 else 1
     xf = x.reshape(N, d)
 
     gates, top_w, top_e = route(params, xf, cfg)
 
     # the Switch load-balance loss: w · E · Σ_e P_e f_e
-    P_e = gates.mean(0)
     ones = (top_e[..., None] == torch.arange(E, device=x.device)).to(
         torch.float32).sum(-2)
-    f_e = ones.mean(0) / k
+    if inner is None:
+        P_e = gates.mean(0)
+        f_e = ones.mean(0) / k
+    else:
+        Nw = N * inner.size                    # the worker's tokens
+        P_e = gates.sum(0) / Nw
+        f_e = inner.all_reduce(ones.sum(0), dist.ReduceOp.SUM) / Nw / k
     aux = cfg.router_aux_weight * E * torch.sum(P_e * f_e)
 
-    n = N // G
+    if inner is not None:
+        G, n = _groups(N * inner.size, cfg)
+        key, counts = slot_keys(top_e, inner.index * N, G, n, cfg)
+        # the slots of each (expert, group) on the worker's earlier ranks
+        before = inner.all_gather(counts[None], 0)[:inner.index].sum(0)
+        buf, meta = dispatch_rank(xf, top_w, key, counts, before,
+                                  capacity(n, cfg), G, cfg)
+        out = _expert_ffn(params, buf, tp)
+        y = _combine(out[None], meta, N).reshape(N, d)
+        return y.reshape(b, s, d).to(x.dtype), aux
+
+    G, n = _groups(N, cfg)
     C = capacity(n, cfg)
     buf, meta = dispatch(xf.reshape(G, n, d), top_w.reshape(G, n, k),
                          top_e.reshape(G, n, k), C, cfg)

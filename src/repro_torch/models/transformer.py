@@ -23,15 +23,25 @@ runs under plain autograd (the sharded runtime's gradient); under
 saved-tensor hooks the checkpoint is built on.
 
 Under tensor parallelism (``make_model(cfg, tp=...)``, a
-:class:`~repro_torch.models.layers.TPGroup` of the worker's ranks) the
-model holds this rank's shards of the leaves that
-:func:`repro_torch.launch.sharding.tp_plan` splits: the embedding and
+:class:`~repro_torch.models.layers.TPGroup` of the worker's ranks on the
+model axis) the model holds this rank's shards of the leaves that
+:func:`repro_torch.launch.sharding.shard_plan` splits: the embedding and
 head over the vocab (a masked lookup, and the vocab-parallel cross
-entropy), GQA by heads, the MLP and the MoE experts by ``d_ff``;
-``init`` draws the whole leaves and keeps this rank's slices, so x₀ is
-the one-rank model's.  MLA and the Mamba-2 mixer are refused under a
-model axis above 1 (ROADMAP queue A item 12b.4).  The sharding hints
-(``shd``) change no value and are not needed (``launch/sharding.py``).
+entropy), GQA and MLA by heads, the SSD mixer by heads (its B and C
+whole), the MLP and the MoE experts by ``d_ff``.  Under FSDP
+(``fsdp=...``, profile B's data axis) each leaf the plan splits over the
+data axis is all-gathered where it is used (the blocks' leaves inside
+each repeat's pass, so ``remat="full"`` frees the gathered copy after the
+forward and gathers it again in the recomputation), and its gradient is
+summed over the data ranks and cut back to the rank's slice
+(:func:`~repro_torch.models.layers.gather_from_data`).  ``init`` draws
+the whole leaves and keeps this rank's slices, so x₀ is the one-rank
+model's.  ``loss(..., inner=group)`` is this rank's share of the loss of
+a worker whose batch is split over ``group``: the cross entropy's
+numerator over the worker's label count, the MoE's aux share; the
+ranks' shares sum to the worker's loss and gradient.  The sharding
+hints (``shd``) change no value and are not needed
+(``launch/sharding.py``).
 Still to come: the serving methods (KV and SSM caches, prefill, decode;
 reference ``:234-429``) — ROADMAP queue A item 13.
 
@@ -54,6 +64,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
@@ -65,8 +76,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnCfg
-from repro_torch.models.layers import (copy_to_model, embed, layernorm,
-                                       mlp, nonparametric_layernorm, rmsnorm,
+from repro_torch.models.layers import (copy_to_model, embed,
+                                       gather_from_data, layernorm, mlp,
+                                       nonparametric_layernorm, rmsnorm,
                                        rope_freqs, tp_active,
                                        truncated_normal, vocab_parallel_nll)
 from repro_torch.tree import leaf_order
@@ -194,10 +206,11 @@ class _Layer(nn.Module):
             self.moe = _Params(shapes, lead, device)
             self.moe.router = _dense(d, E, lead, device)
 
-    def forward(self, lp: dict, x, cos, sin, positions):
+    def forward(self, lp: dict, x, cos, sin, positions, inner=None):
         """This position with params ``lp`` (one repeat's, ``_tree(self,
-        i)``; reference ``_apply_layer``): ``(x, aux)``, aux zero without
-        an MoE FFN."""
+        i)``, gathered; reference ``_apply_layer``): ``(x, aux)``, aux zero
+        without an MoE FFN; ``inner`` the group that splits the worker's
+        batch (the MoE's)."""
         nap = _norm_apply(self.cfg)
         tp = self.tp
         h = nap(lp["norm_mix"], x)
@@ -207,9 +220,10 @@ class _Layer(nn.Module):
                                            tp=tp.get("attn"))
         elif self.spec.mixer == "mla":
             mix = attn_lib.mla_apply(lp["attn"], h, self.attn_cfg, cos, sin,
-                                     positions)
+                                     positions, tp=tp.get("mla"))
         else:
-            mix = mamba_lib.mamba2_apply(lp["mamba"], h, self.mamba_cfg)
+            mix = mamba_lib.mamba2_apply(lp["mamba"], h, self.mamba_cfg,
+                                         tp=tp.get("mamba"))
         x = x + mix
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.spec.ffn == "none":
@@ -218,7 +232,7 @@ class _Layer(nn.Module):
         if self.spec.ffn == "dense":
             return x + mlp(lp["mlp"], h, tp.get("mlp")), aux
         out, aux = moe_lib.moe_apply(lp["moe"], h, self.moe_cfg,
-                                     tp.get("moe"))
+                                     tp.get("moe"), inner)
         if self.spec.ffn == "dense+moe":
             out = mlp(lp["mlp"], h, tp.get("mlp")) + out
         return x + out, aux
@@ -230,12 +244,17 @@ class _Net(nn.Module):
 
     def __init__(self, cfg: ModelCfg, a: AttnCfg, s: mamba_lib.Mamba2Cfg,
                  m: moe_lib.MoECfg, compute_dtype: torch.dtype, device=None,
-                 tp: Optional[dict] = None):
+                 tp: Optional[dict] = None, fsdp=None,
+                 fsdp_dims: Optional[dict] = None):
         super().__init__()
         if cfg.input_mode not in ("tokens", "embeds", "vlm"):
             raise ValueError(cfg.input_mode)
         self.cfg, self.attn_cfg, self.compute_dtype = cfg, a, compute_dtype
         self.tp = tp or {}
+        # the FSDP group and each split leaf's dim (by its dotted name)
+        self.fsdp = fsdp
+        self.fsdp_dims = {n: d for n, d in (fsdp_dims or {}).items()
+                          if d is not None}
         self.embed = _Params({"table": (cfg.vocab, cfg.d_model)}, (), device)
         self.blocks = nn.Module()
         for pos, spec in enumerate(cfg.pattern):
@@ -245,22 +264,47 @@ class _Net(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _dense(cfg.d_model, cfg.vocab, (), device)
 
-    def _embed_inputs(self, batch):
+    def _gathered(self, tree: dict, prefix: str, reduce: bool) -> dict:
+        """``tree`` (the params under ``prefix``) with every leaf that is
+        split over the FSDP axis all-gathered whole."""
+        if not self.fsdp_dims:
+            return tree
+        out = {}
+        for k, v in tree.items():
+            name = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, dict):
+                out[k] = self._gathered(v, name, reduce)
+            elif name in self.fsdp_dims:
+                out[k] = gather_from_data(v, self.fsdp, self.fsdp_dims[name],
+                                          reduce)
+            else:
+                out[k] = v
+        return out
+
+    def _embed_inputs(self, batch, table):
         """The first layer's input (reference ``_embed_inputs``): token
         embeddings, the given frame embeddings, or the patch embeddings
         followed by the token embeddings, in the compute dtype."""
         cd, mode = self.compute_dtype, self.cfg.input_mode
         if mode == "embeds":
             return batch["embeds"].to(cd)
-        x = embed(_tree(self.embed), batch["tokens"],
+        x = embed({"table": table}, batch["tokens"],
                   self.tp.get("vocab")).to(cd)
         if mode == "vlm":
             x = torch.cat([batch["patch_embeds"].to(cd), x], dim=1)
         return x
 
-    def forward(self, batch, remat: str = "none"):
+    def forward(self, batch, remat: str = "none", inner=None):
         cfg = self.cfg
-        x = self._embed_inputs(batch)
+        # FSDP's gradient sums over the data ranks where they split the
+        # batch, and not where each ran it whole
+        reduce = inner is not None
+        top = self._gathered({"embed": _tree(self.embed)}
+                             | ({} if cfg.tie_embeddings else
+                                {"lm_head": _tree(self.lm_head)}), "",
+                             reduce)
+        table = top["embed"]["table"]
+        x = self._embed_inputs(batch, table)
         b, s, _ = x.shape
         cos, sin = rope_freqs(cfg.qk_rope_dim if cfg.use_mla
                               else self.attn_cfg.head_dim, s, cfg.rope_theta,
@@ -277,8 +321,11 @@ class _Net(nn.Module):
             def block(x, lps=lps):
                 block_aux = torch.zeros((), dtype=torch.float32,
                                         device=x.device)
-                for layer, lp in zip(layers, lps):
-                    x, a = layer(lp, x, cos, sin, positions)
+                for pos, (layer, lp) in enumerate(zip(layers, lps)):
+                    # gathered inside the pass: remat frees the whole
+                    # leaves and gathers them again in the recomputation
+                    lp = self._gathered(lp, f"blocks.pos{pos}", reduce)
+                    x, a = layer(lp, x, cos, sin, positions, inner)
                     block_aux = block_aux + a
                 return x, block_aux
 
@@ -289,8 +336,7 @@ class _Net(nn.Module):
                 x, block_aux = block(x)
             aux = aux + block_aux
         x = _norm_apply(cfg)(_tree(self.final_norm), x)
-        head = (self.embed.table.T if cfg.tie_embeddings
-                else self.lm_head.w)
+        head = table.T if cfg.tie_embeddings else top["lm_head"]["w"]
         x = copy_to_model(x, self.tp.get("vocab"))
         logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
         return logits, aux
@@ -301,7 +347,7 @@ class Model:
     flat param dict; under ``tp`` (a ``TPGroup`` of size > 1) each dict
     holds this rank's shards (:attr:`plan`)."""
 
-    def __init__(self, cfg: ModelCfg, tp=None):
+    def __init__(self, cfg: ModelCfg, tp=None, fsdp=None):
         self.cfg = cfg
         self.param_dtype = torch_dtype(cfg.param_dtype)
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
@@ -323,31 +369,29 @@ class Model:
             headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
             chunk=cfg.ssm_chunk)
         self.tp = tp if tp_active(tp) else None
+        self.fsdp = fsdp if tp_active(fsdp) else None
         self.plan = None
         splits = {}
-        if self.tp is not None:
-            from repro_torch.launch.sharding import tp_plan
-            refused = sorted({sp.mixer for sp in cfg.pattern}
-                             & {"mla", "mamba"})
-            if refused:
-                raise NotImplementedError(
-                    f"tensor parallelism over a model axis of {tp.size} for "
-                    f"the {' and '.join(refused)} mixer is not ported yet "
-                    "(ROADMAP queue A item 12b.4): its in-proj concatenates "
-                    "components that the reference's contiguous column "
-                    "split does not align with")
+        if self.tp is not None or self.fsdp is not None:
+            from repro_torch.launch.sharding import shard_plan
             whole = _Net(cfg, self.attn_cfg, self.mamba_cfg, self.moe_cfg,
                          self.compute_dtype, device="meta")
-            self.plan = tp_plan(cfg, _shapes(whole), tp.size, tp.index)
+            t, f = self.tp, self.fsdp
+            self.plan = shard_plan(cfg, _shapes(whole),
+                                   t.size if t else 1, t.index if t else 0,
+                                   f.size if f else 1, f.index if f else 0)
             sp = self.plan.splits
             for unit, leaf in (("vocab", "embed.table"),
-                               ("attn", ".attn.wq.w"), ("mlp", ".mlp.wi.w"),
-                               ("moe", ".moe.wi")):
+                               ("attn", ".attn.wq.w"), ("mla", ".attn.wuq.w"),
+                               ("mamba", ".mamba.in_proj.w"),
+                               ("mlp", ".mlp.wi.w"), ("moe", ".moe.wi")):
                 if any(v is not None for n, v in sp.items()
                        if n.endswith(leaf)):
                     splits[unit] = self.tp
         self.net = _Net(cfg, self.attn_cfg, self.mamba_cfg, self.moe_cfg,
-                        self.compute_dtype, device="meta", tp=splits)
+                        self.compute_dtype, device="meta", tp=splits,
+                        fsdp=self.fsdp,
+                        fsdp_dims=self.plan.fsdp if self.plan else None)
 
     # ------------------------------------------------------------------ init
     def param_shapes(self, whole: bool = False) -> dict:
@@ -402,17 +446,20 @@ class Model:
             else:
                 scale = 1.0 if leaf == "table" else shape[-2] ** -0.5
                 t = truncated_normal(shape, dtype, scale, generator)
-            if self.plan is not None and self.plan.split_dim(name) is not None:
+            if self.plan is not None and self.plan.is_split(name):
                 t = self.plan.shard(name, t).clone()
             params[name] = t.to(device)
         return params
 
     # ----------------------------------------------------------------- forward
-    def apply(self, params: dict, batch: dict, remat: str = "none"):
+    def apply(self, params: dict, batch: dict, remat: str = "none",
+              inner=None):
         """Full-sequence forward.  Returns ``(logits f32, aux_loss)``; under
         TP with the vocab split, this rank's slice of the logits.
         ``remat="full"`` recomputes each repeat's pass in the backward
-        (plain autograd only)."""
+        (plain autograd only).  ``inner``: the group over which the
+        worker's batch is split (the aux loss is then this rank's
+        share)."""
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r} not in {REMAT}")
         if remat == "full" and \
@@ -424,15 +471,19 @@ class Model:
                 "torch.autograd.grad (the sharded runtime's one worker per "
                 "rank) or use remat='none'")
         return torch.func.functional_call(self.net, params, (batch,),
-                                          {"remat": remat})
+                                          {"remat": remat, "inner": inner})
 
-    def loss(self, params: dict, batch: dict, remat: str = "none"):
+    def loss(self, params: dict, batch: dict, remat: str = "none",
+             inner=None):
         """Next-token cross entropy over ``labels`` (−1 = masked), the mean
         over ``max(#labels, 1)``: ``(ce + aux, {"ce", "aux"})``.  Under the
         ``vlm`` input mode the labels cover the text positions only: they
         are padded with −1 over the image prefix.  With the vocab split
-        over the worker's ranks, the vocab-parallel cross entropy."""
-        logits, aux = self.apply(params, batch, remat=remat)
+        over the worker's ranks, the vocab-parallel cross entropy.  With
+        the worker's batch split over ``inner`` (a ``TPGroup``), this
+        rank's share: its ``Σ nll·mask`` over the worker's ``Σ mask``, and
+        its share of the aux loss."""
+        logits, aux = self.apply(params, batch, remat=remat, inner=inner)
         labels = batch["labels"].long()
         if self.cfg.input_mode == "vlm":
             labels = F.pad(labels, (logits.shape[-2] - labels.shape[-1], 0),
@@ -444,7 +495,10 @@ class Model:
         else:
             logp = F.log_softmax(logits, dim=-1)
             nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-        ce = torch.sum(nll * mask) / torch.sum(mask).clamp_min(1.0)
+        den = torch.sum(mask)
+        if inner is not None:
+            den = inner.all_reduce(den.detach().clone(), dist.ReduceOp.SUM)
+        ce = torch.sum(nll * mask) / den.clamp_min(1.0)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ----------------------------------------------------------------- serving
@@ -460,5 +514,5 @@ def _shapes(net: nn.Module) -> dict:
     return {n: shapes[n] for n in leaf_order(shapes)}
 
 
-def make_model(cfg: ModelCfg, tp=None) -> Model:
-    return Model(cfg, tp=tp)
+def make_model(cfg: ModelCfg, tp=None, fsdp=None) -> Model:
+    return Model(cfg, tp=tp, fsdp=fsdp)

@@ -22,9 +22,10 @@ device until a log block flushes; the flush is the one collective of the
 log path (the workers' mean loss per step, so every rank logs the same
 global loss).  Comm MB come from ``bytes_per_round_cycle``, the
 reference's per-worker figure.  With ``ckpt_every`` rank 0 gathers the K
-workers' slices, under tensor parallelism each reassembled from its
-ranks' shards, and writes the K-stacked whole trees (the same files as a
-dense run's, whatever the model axis); ``resume=True`` restores through
+workers' slices, where a worker spans several ranks each reassembled
+from its ranks' shards (split over TP, FSDP or both), and writes the
+K-stacked whole trees (the same files as a dense run's, whatever the
+split); ``resume=True`` restores through
 ``restore_elastic`` (K→K′ too) and continues bit for bit from a round
 boundary, or on the per-step path until the next one.
 """
@@ -45,6 +46,8 @@ __all__ = ["SimTrainer", "History", "ShardedTrainer", "gather_workers"]
 
 # cap on the derived block size (rounds between two host syncs)
 _MAX_BLOCK_ROUNDS = 16
+# the tag of the checkpoint gather's point-to-point messages
+_GATHER_TAG = 1 << 21
 
 
 @dataclasses.dataclass
@@ -186,29 +189,42 @@ class SimTrainer:
 def gather_workers(tree, keys, layout, plan=None):
     """The K-stacked tree on rank 0 (None elsewhere): each worker-stacked
     leaf (``keys``: the ``check_state_keys`` marks, True for every params
-    leaf) gathered from every rank with ``dist.gather``, through the host
-    under gloo, and under tensor parallelism each worker's leaf
-    reassembled from its ranks' shards by the TP ``plan`` (the leaf's name
-    is its innermost key); the other leaves as rank 0 holds them.
-    Collective."""
+    leaf) sent to rank 0 by point to point from every rank that holds a
+    part rank 0 needs (gloo's ``gather`` moves a sixth of the bytes a
+    second), through the host under gloo; where a worker spans several
+    ranks each worker's leaf is reassembled from its ranks' shards (the
+    layout's, row-major over the inner axes: (FSDP, TP) under profile B)
+    by the shard ``plan`` (the leaf's name is its innermost key; without
+    a plan the ranks hold replicas and only the first sends); the other
+    leaves as rank 0 holds them.  Collective."""
     mesh = layout.mesh
     root = mesh.rank == 0
     on_host = mesh.backend == "gloo"
-    tp = layout.tp_size
+    owners = [[layout.rank_of(w, i) for i in range(layout.worker_ranks)]
+              for w in range(layout.n_workers)]
+    if plan is None:
+        owners = [ranks[:1] for ranks in owners]
+    senders = sorted({r for ranks in owners for r in ranks} - {0})
 
     def gather(leaf, name):
         t = leaf.detach().contiguous()
         if on_host:
             t = t.cpu()
-        bufs = ([torch.empty_like(t) for _ in range(mesh.world_size)]
-                if root else None)
-        dist.gather(t, bufs, dst=0)
+        if root:
+            bufs = {r: torch.empty_like(t) for r in senders}
+            bufs[0] = t
+            reqs = [dist.irecv(bufs[r], r, tag=_GATHER_TAG)
+                    for r in senders]
+        else:
+            reqs = ([dist.isend(t, 0, tag=_GATHER_TAG)]
+                    if mesh.rank in senders else [])
+        for q in reqs:
+            q.wait()
         if not root:
             return None
-        if tp > 1:
-            bufs = [plan.unshard(name, bufs[w * tp:(w + 1) * tp])
-                    for w in range(len(bufs) // tp)]
-        return torch.cat(bufs).cpu()
+        parts = [plan.unshard(name, [bufs[r] for r in ranks])
+                 if len(ranks) > 1 else bufs[ranks[0]] for ranks in owners]
+        return torch.cat(parts).cpu()
 
     def walk(sub, mark, name=None):
         if isinstance(sub, dict):
@@ -254,12 +270,14 @@ class ShardedTrainer:
 
     def rank_bytes_per_round_cycle(self) -> tuple:
         """What this rank hands to ``isend`` a round, over one cycle: the
-        byte model on its own shards and plan.  With a model axis of 1 it
-        is :meth:`bytes_per_round_cycle`; above 1 a worker's figure is the
-        sum over its ranks, which exceeds the reference's one-plan figure
-        by every replicated leaf (each rank ships its copy, as each device
-        of the reference's ``shard_map`` does) and, on the kernel layout,
-        by the tail rows of each shard's last 1,024-lane row."""
+        byte model on its own shards and plan.  With one rank a worker it
+        is :meth:`bytes_per_round_cycle`; where a worker spans several
+        ranks a worker's figure is the sum over its ranks, which exceeds
+        the reference's one-plan figure by every leaf a rank holds whole
+        (each rank ships its copy, as each device of the reference's
+        ``shard_map`` does: under ``inner="dp"`` the whole plan from every
+        rank) and, on the kernel layout, by the tail rows of each shard's
+        last 1,024-lane row."""
         from repro_torch.launch.runtime import per_worker
         return self.pack.opt.bytes_per_round_cycle(
             per_worker(self.pack.params_struct))
@@ -319,15 +337,15 @@ class ShardedTrainer:
 
     def _global_losses(self, losses) -> list:
         """The workers' mean of each step's loss: one ``all_reduce`` over
-        the ranks of this model coordinate (a worker's ranks share its
+        the ranks at this rank's inner place (a worker's ranks share its
         loss)."""
         layout = self.pack.layout
         mesh = layout.mesh
         t = losses.detach().to(torch.float32)
         if mesh.backend == "gloo":
             t = t.cpu()
-        dist.all_reduce(t, group=mesh.worker_group if layout.tp_axis
-                        else None)
+        if layout.worker_axes:
+            dist.all_reduce(t, group=layout.worker_group)
         return (t / layout.n_workers).tolist()
 
     def train(self, seed: int, batch_fn: Callable[[int], dict], steps: int,

@@ -208,3 +208,31 @@ def test_launcher_cpd_sign_bytes():
     assert out["steps"][-1] == STEPS - 1
     assert all(math.isfinite(v) for v in out["loss"])
     assert out["comm_mb"][-1] == (STEPS // run.optim.p) * cycle[0] / 2 ** 20
+
+
+def test_launcher_profile_b_runs_and_resumes(tmp_path):
+    """``repro_torch.launch.train --arch mixtral-8x7b --smoke --workers 2
+    --data-axis 2``: Mixtral's own profile B, 2 pods × an FSDP axis of 2
+    (4 gloo ranks on the CPU), 4 steps (one round of p = 4) with
+    ``--ckpt-every 2``; a ``--resume`` to step 8 starts at step 4 and
+    ends where an unbroken 8-step run ends; the comm-MB are the
+    reference's for the whole worker."""
+    from repro.configs.registry import get_smoke_config as r_smoke
+    from repro_torch.launch.train import main
+    base = ["--arch", "mixtral-8x7b", "--smoke", "--workers", "2",
+            "--data-axis", "2", "--dist-backend", "gloo", "--device", "cpu"]
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    first = main(base + ck + ["--steps", "4"])
+    assert first["steps"][-1] == 3 and first["steps_run"] == 4
+    assert all(math.isfinite(v) for v in first["loss"])
+    assert os.listdir(tmp_path) == ["step_00000004"]
+    resumed = main(base + ck + ["--steps", "8", "--resume"])
+    assert resumed["steps_run"] == 4 and resumed["steps"][0] == 4
+    unbroken = main(base + ["--steps", "8"])
+    assert resumed["loss"][-1] == unbroken["loss"][-1]
+    assert resumed["comm_mb"][-1] == unbroken["comm_mb"][-1]
+    run = r_smoke("mixtral-8x7b")
+    one = make_model(run.model).init(jax.random.PRNGKey(0))
+    ref = make_optimizer(run.optim.name, DenseComm(ring(2)), p=run.optim.p)
+    assert unbroken["comm_mb"][-1] == (
+        8 // run.optim.p) * ref.bytes_per_round_cycle(one)[0] / 2 ** 20

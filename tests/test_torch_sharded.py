@@ -455,8 +455,15 @@ def test_refusals(run):
         assert "static topology" in ref["mt_schedule"]
         assert not any("12b" in v for k, v in ref.items()
                        if k.startswith(("cpd", "mt")))
-        assert "12b.4" in ref["model_axis"] and "FSDP" in ref["model_axis"]
-        assert "12b.4" in ref["model_axis_inner_dp"]
+        # profile B and inner="dp" build and run a step; a mesh axis
+        # profile B gives no role ("w") is refused
+        acc = r["accepted"]
+        assert acc["model_axis"][0] == (("pod",), "model", "data", None)
+        assert acc["model_axis_inner_dp"][0] == (("w",), None, None,
+                                                 "model")
+        assert all(np.isfinite(v[1]) for v in acc.values())
+        assert "no role" in ref["model_axis_no_role"]
+        assert not any("12b" in v for v in ref.values())
         assert "randk" in ref["randk_inter"]
         assert "single worker axis" in ref["membership_2axis"]
         assert "host" in ref["sharded_r_tensor"]

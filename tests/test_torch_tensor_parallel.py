@@ -11,16 +11,21 @@ are ``tests/torch_tp_ranks.py``, which imports no JAX):
   config, its x₀ and batches through numpy, 6 steps of ``train_step``,
   against the reference's dense simulation at its bars (5e-4 for
   PD-SGDM, 8e-3 for CPD-SGDM's sign wire, whose blocks are per shard;
-  the worker mean within 2e-3); and the refusals of a model axis of 2;
+  the worker mean within 2e-3); and what a model axis of 2 takes (MLA,
+  the SSD, profile B, ``inner="dp"``: each builds and runs a step);
 * four ranks, 2 workers × 2: two kernel rounds of PD-SGDM through
   ``ShardedTrainer`` on the dense (OLMo), MoE (Mixtral: its attention,
-  with one KV head, stays replicated) and VLM (InternVL2: the −1 labels
-  of the patch prefix) smoke configs, each round from its captured start
-  against the same round with a model axis of 1 (``DenseComm`` and the
-  gradients worker by worker in plain autograd) at ROADMAP C.6's 4.8e-7;
-  the bytes each rank hands to ``isend`` against its byte model; a
-  mid-round resume under TP bit for bit; a TP checkpoint restored into a
-  model axis of 1 and the other way round.
+  with one KV head, stays replicated), VLM (InternVL2: the −1 labels of
+  the patch prefix), MLA (MiniCPM3), SSD (Mamba2) and hybrid (Jamba,
+  overridden to profile A: its SSD, attention and MoE under TP) smoke
+  configs, each round from its captured start against the same round
+  with a model axis of 1 (``DenseComm`` and the gradients worker by
+  worker in plain autograd) at ROADMAP C.6's 4.8e-7; the bytes each rank
+  hands to ``isend`` against its byte model (the replicated latents, B,
+  C and norms counted on every rank); the gradients of the replicated
+  MLA and SSD leaves equal on both ranks of a worker; a mid-round resume
+  under TP bit for bit; a TP checkpoint restored into a model axis of 1
+  and the other way round.
 """
 import numpy as np
 import pytest
@@ -44,7 +49,7 @@ from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.core import DenseComm, make_optimizer as t_opt  # noqa: E402
 from repro_torch.core import ring  # noqa: E402
 from repro_torch.launch.runtime import worker_grad_fn  # noqa: E402
-from repro_torch.launch.sharding import tp_plan  # noqa: E402
+from repro_torch.launch.sharding import shard_plan  # noqa: E402
 from repro_torch.launch.spawn import spawn_ranks  # noqa: E402
 from repro_torch.models import make_model  # noqa: E402
 from repro_torch.train.trainer import _stack_batches  # noqa: E402
@@ -58,7 +63,15 @@ KR = 4                         # the reference check's workers
 KT = 2                         # the round-by-round checks' workers
 RUNS = {"olmo": ("olmo-1b", "pd_sgdm", {"use_kernel": True}),
         "mixtral": ("mixtral-8x7b", "pd_sgdm", {"use_kernel": True}),
-        "internvl2": ("internvl2-76b", "pd_sgdm", {"use_kernel": True})}
+        "internvl2": ("internvl2-76b", "pd_sgdm", {"use_kernel": True}),
+        "minicpm3": ("minicpm3-4b", "pd_sgdm", {"use_kernel": True}),
+        "mamba2": ("mamba2-1.3b", "pd_sgdm", {"use_kernel": True}),
+        "jamba": ("jamba-1.5-large-398b", "pd_sgdm", {"use_kernel": True})}
+# the leaves MLA and the SSD keep whole on every rank of a worker
+REPLICATED = {"minicpm3": ("attn.wdq.w", "attn.wdkv.w", "attn.wkr.w",
+                           "attn.q_norm.scale", "attn.kv_norm.scale"),
+              "mamba2": ("mamba.in_proj.w", "mamba.conv_w", "mamba.conv_b"),
+              "jamba": ("mamba.in_proj.w", "mamba.conv_w", "mamba.conv_b")}
 CKPT = {"steps": 6, "stop": 3}  # p = 2: step 3 is off a round boundary
 
 
@@ -145,20 +158,31 @@ def test_tp_hierarchical_isend_bytes(eight):
 
 
 def test_refusals(eight):
+    """What a model axis of 2 once refused now builds and runs a step:
+    MLA and the SSD split by heads, profile B (the mesh's ``"data"`` axis
+    is then the FSDP axis of one worker) and ``inner="dp"``; each step's
+    loss is finite and the layout's roles are the reference's."""
     for rank, r in enumerate(eight[4]):
         ref = dict(r["refused"])
         # inner="worker" takes the model axis as a gossip axis, no TP
         assert ref.pop("inner_worker") == (("data", "model"), None, rank)
-        assert all(v is not None and "12b.4" in v for v in ref.values()), ref
-        assert "mla" in ref["mla"] and "mamba" in ref["ssd"]
-        assert "FSDP" in ref["profile_b"]
-        assert "inner='dp'" in ref["inner_dp"]
+        roles = {"mla": (("data",), "model", None, None),
+                 "ssd": (("data",), "model", None, None),
+                 "profile_b": ((), "model", "data", None),
+                 "inner_dp": (("data",), None, None, "model")}
+        for k, want in roles.items():
+            got = ref.pop(k)
+            assert not isinstance(got, str), (k, got)
+            assert got["roles"] == want, k
+            assert np.isfinite(got["loss"]), k
+        assert not ref
 
 
 @pytest.fixture(scope="module")
 def four():
     return spawn_ranks(tp_ranks.four_rank_scenarios, 2 * KT,
-                       ({"runs": RUNS, **CKPT},), backend="gloo",
+                       ({"runs": RUNS, "replicated": REPLICATED, **CKPT},),
+                       backend="gloo",
                        device="cpu")
 
 
@@ -205,6 +229,20 @@ def test_tp_rounds_equal_model_axis_one(four, label):
     assert all(np.isfinite(v).all() for v in rounds[-1]["end"].values())
 
 
+@pytest.mark.parametrize("label", list(REPLICATED))
+def test_tp_replicated_leaf_grads_equal_on_a_worker(four, label):
+    """The gradients of the leaves MLA and the SSD keep whole (the
+    latents' projections and norms; ``in_proj``'s, ``conv_w``'s and
+    ``conv_b``'s B and C segments) are the same on both ranks of a
+    worker, and whole: summed once over the model axis."""
+    for rank in range(0, len(four), 2):
+        a, b = (four[rank]["grads"][label], four[rank + 1]["grads"][label])
+        assert set(a) == set(b) and a
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            assert np.abs(a[k]).max() > 0, k
+
+
 @pytest.mark.parametrize("label", list(RUNS))
 def test_tp_isend_bytes(four, label):
     """Each rank hands ``isend`` its byte model's bytes every round: the
@@ -217,7 +255,7 @@ def test_tp_isend_bytes(four, label):
     cfg = r_smoke(arch).model
     shapes = {k: tuple(v.shape) for k, v in params_from_reference(
         _np(r_make_model(cfg).init(jax.random.PRNGKey(0))), "cpu").items()}
-    plan = tp_plan(get_smoke_config(arch).model, shapes, 2)
+    plan = shard_plan(get_smoke_config(arch).model, shapes, 2)
     rows = sum(-(-int(np.prod(plan.shard_shape(k))) // 1024)
                for k in shapes)
     for r in per_rank:

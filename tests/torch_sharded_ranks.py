@@ -20,7 +20,7 @@ from repro_torch.core import (CPDSGDM, CPDSGDMConfig, QSGDCompressor,
 from repro_torch.core.gossip import HierarchicalComm, ShardedComm
 from repro_torch.core.topology import hierarchical
 from repro_torch.core.wire import IdentityCodec, make_codec
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import INNER_TAG, make_mesh
 from repro_torch.launch.runtime import build_train
 from repro_torch.train.trainer import ShardedTrainer
 
@@ -32,13 +32,15 @@ TINY = dict(name="tiny-lm", arch_type="dense", n_layers=2, d_model=32,
 @contextlib.contextmanager
 def isend_bytes():
     """Count the bytes handed to ``isend`` through
-    ``dist.batch_isend_irecv`` while the block runs: ``box["n"]``."""
+    ``dist.batch_isend_irecv`` by the gossip while the block runs:
+    ``box["n"]`` (the collectives inside a worker, under ``INNER_TAG``,
+    are not the wire between workers)."""
     orig = dist.batch_isend_irecv
     box = {"n": 0}
 
     def counted(ops):
         for op in ops:
-            if op.op is dist.isend:
+            if op.op is dist.isend and op.tag != INNER_TAG:
                 box["n"] += op.tensor.numel() * op.tensor.element_size()
         return orig(ops)
     dist.batch_isend_irecv = counted
@@ -236,12 +238,6 @@ def sharded_scenarios(mesh_rank, inp):
         "membership_2axis": lambda: ShardedComm(
             torus((2, 4)), axis_names=("a", "b"), mesh=meshes["torus"],
             membership=membership_from_events(8, 3, CHURN)),
-        # a model axis of 2 (4 workers of 2 ranks) takes profile A's
-        # tensor parallelism; FSDP inside a worker and inner="dp" wait
-        "model_axis": lambda: make_layout(ParallelCfg(profile="B"),
-                                          tp_mesh),
-        "model_axis_inner_dp": lambda: make_layout(ParallelCfg(inner="dp"),
-                                                   tp_mesh),
         "sharded_r_tensor": lambda: _comm("onepeer", meshes).mix(
             x, r=torch.tensor(1)),
     }
@@ -251,6 +247,30 @@ def sharded_scenarios(mesh_rank, inp):
             out["refused"][k] = None
         except (ValueError, NotImplementedError, TypeError) as err:
             out["refused"][k] = f"{type(err).__name__}: {err}"
+    # what a worker of several ranks takes: profile B (2 pods × FSDP 2 ×
+    # TP 2) and inner="dp" on 4 workers × a model axis of 2, each built
+    # and run for a step; a mesh axis profile B gives no role is refused
+    b_mesh = make_mesh((2, 2), ("pod", "data"), device=dev, model_axis=2)
+    accepted = {"model_axis": (ParallelCfg(profile="B"), b_mesh),
+                "model_axis_inner_dp": (ParallelCfg(inner="dp"), tp_mesh)}
+    out["accepted"] = {}
+    for k, (par, mesh) in accepted.items():
+        run = RunCfg(model=ModelCfg(**TINY), parallel=par,
+                     optim=OptimCfg(name="pd_sgdm", p=2))
+        pack = build_train(run, mesh)
+        lay = pack.layout
+        params, state = pack.init_fn(0)
+        gen = torch.Generator().manual_seed(3)
+        batch = {"tokens": torch.randint(0, 64, (1, 2, 8), generator=gen),
+                 "labels": torch.randint(0, 64, (1, 2, 8), generator=gen)}
+        _, _, loss = pack.train_step(params, state, batch, 0)
+        out["accepted"][k] = ((lay.worker_axes, lay.tp_axis, lay.fsdp_axis,
+                               lay.inner_axis), float(loss))
+    try:
+        make_layout(ParallelCfg(profile="B"), tp_mesh)
+        out["refused"]["model_axis_no_role"] = None
+    except ValueError as err:
+        out["refused"]["model_axis_no_role"] = f"ValueError: {err}"
     return out
 
 

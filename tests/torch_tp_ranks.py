@@ -197,24 +197,34 @@ def checkpoint_run(mesh_rank, inp):
 
 
 def refusals(mesh_rank):
-    """What a model axis of 2 refuses: MLA, the SSD mixer, profile B and
-    ``inner="dp"``; each message, or None where nothing raised."""
+    """What a model axis of 2 once refused: MLA, the SSD mixer, profile B
+    and ``inner="dp"``; each builds and runs a step (its layout's roles
+    and the step's loss), or the message of what raised."""
+    from repro_torch.configs.shapes import train_batch_arrays
     rank, world, dev = mesh_rank
     mesh = make_mesh((world // TP,), ("data",), device=dev, model_axis=TP)
     checks = {
-        "mla": lambda: build_train(_smoke_run("minicpm3-4b"), mesh),
-        "ssd": lambda: build_train(_smoke_run("mamba2-1.3b"), mesh),
-        "profile_b": lambda: build_train(dataclasses.replace(
-            _smoke_run("olmo-1b"), parallel=ParallelCfg(profile="B")), mesh),
-        "inner_dp": lambda: build_train(dataclasses.replace(
-            _smoke_run("olmo-1b"), parallel=ParallelCfg(inner="dp")), mesh),
+        "mla": _smoke_run("minicpm3-4b"),
+        "ssd": _smoke_run("mamba2-1.3b"),
+        "profile_b": dataclasses.replace(
+            _smoke_run("olmo-1b"), parallel=ParallelCfg(profile="B")),
+        "inner_dp": dataclasses.replace(
+            _smoke_run("olmo-1b"), parallel=ParallelCfg(inner="dp")),
     }
     out = {}
-    for k, fn in checks.items():
+    for k, run in checks.items():
         try:
-            fn()
-            out[k] = None
-        except NotImplementedError as err:
+            pack = build_train(run, mesh)
+            lay = pack.layout
+            params, state = pack.init_fn(0)
+            batch = pack.worker_batch(train_batch_arrays(
+                run.model, lay.n_workers, 4, 8,
+                torch.Generator().manual_seed(7), device=dev))
+            _, _, loss = pack.train_step(params, state, batch, 0)
+            out[k] = {"roles": (lay.worker_axes, lay.tp_axis,
+                                lay.fsdp_axis, lay.inner_axis),
+                      "loss": float(loss)}
+        except (NotImplementedError, ValueError) as err:
             out[k] = str(err)
     # inner="worker": every axis, the model axis too, gossips
     from repro_torch.launch.mesh import make_layout
@@ -259,7 +269,42 @@ def eight_rank_scenarios(mesh_rank, inp):
             "refused": refusals(mesh_rank)}
 
 
+def replicated_grads(mesh_rank, inp):
+    """One step's gradient on each run of ``inp["replicated"]`` (label →
+    the leaf suffixes that stay whole on every rank): this rank's
+    gradients of those leaves, worker batch 2 × seq 8."""
+    from repro_torch.configs.shapes import train_batch_arrays
+    from repro_torch.launch.runtime import worker_grad_fn
+    rank, world, dev = mesh_rank
+    mesh = make_mesh((world // TP,), ("data",), device=dev, model_axis=TP)
+    out = {}
+    for label, leaves in inp["replicated"].items():
+        arch, opt, kw = inp["runs"][label]
+        run = _smoke_run(arch, opt, **kw)
+        pack = build_train(run, mesh)
+        params, _ = pack.init_fn(0)
+        batch = pack.worker_batch(train_batch_arrays(
+            run.model, world // TP, 2, 8, torch.Generator().manual_seed(5),
+            device=dev))
+        _, grads = worker_grad_fn(pack.model, "none")(params, batch)
+        m = run.model
+        di, gn = m.ssm_expand * m.d_model // TP, m.ssm_state
+        # the B and C segments of the SSD's split leaves (their columns
+        # [z, x, B, C, dt] and channels [x, B, C] on this rank)
+        seg = {"in_proj.w": slice(2 * di, 2 * di + 2 * gn),
+               "conv_w": slice(di, di + 2 * gn),
+               "conv_b": slice(di, di + 2 * gn)}
+        out[label] = {}
+        for k, v in grads.items():
+            if k.endswith(leaves):
+                cut = [s for suffix, s in seg.items() if k.endswith(suffix)]
+                out[label][k] = (v[..., cut[0]] if cut else v).numpy().copy()
+    return out
+
+
 def four_rank_scenarios(mesh_rank, inp):
-    """``rounds_run`` and ``checkpoint_run`` in one set of ranks."""
+    """``rounds_run``, ``checkpoint_run`` and ``replicated_grads`` in one
+    set of ranks."""
     return {"rounds": rounds_run(mesh_rank, inp),
-            "checkpoint": checkpoint_run(mesh_rank, inp)}
+            "checkpoint": checkpoint_run(mesh_rank, inp),
+            "grads": replicated_grads(mesh_rank, inp)}
