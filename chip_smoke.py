@@ -5,7 +5,10 @@
     python3 chip_smoke.py --profile    # also profile one round of each
                                        # path into the output directory
                                        # (profile_round), and the gather
-                                       # over 8 rounds (gather_in_round)
+                                       # over 8 rounds (gather_in_round),
+                                       # where the training phase runs;
+                                       # and 4 decode steps of each
+                                       # served model (profile_decode)
     python3 chip_smoke.py --gather-variant parent=PATH   # also build the
                                        # row_gather.cu at PATH and check
                                        # and time it beside this one
@@ -147,7 +150,9 @@ matmuls:
 6. drives the sharded runtime (``ShardedComm``/``HierarchicalComm`` through
    ``build_train`` and ``ShardedTrainer``) in ranks it spawns on this card,
    each a process on ``cuda:0`` joined by a gloo group, whose wire goes
-   through pinned host buffers (a rank that fails fails the script):
+   through pinned host buffers (a rank that fails fails the script; the
+   chosen phases of one world size share one spawn, ``spawn_shared``,
+   their rank functions run in turn):
    ``sharded_olmo1b`` (PD-SGDM on OLMo-1B's widths, one layer, f32, K = 4
    ranks on a ring, seq 256, batch 2, two rounds: per rank p momentum and
    1 gossip launches a round and 2 × used rows × 4 KiB handed to
@@ -204,13 +209,33 @@ matmuls:
    2, two rounds each); the ``SPLIT`` paths hold their launches and
    bytes per rank and round and each round within 4.8e-7 of one rank per
    worker from the same start, and print each rank's peaks and s/round.
-   The sharded LM paths run the reference's default ``remat="full"``.
+   The sharded LM paths run the reference's default ``remat="full"``;
+7. serves (``serve_full_width``): ``repro_torch.serve.serving.generate``
+   (one ``prefill_fast``, then one ``decode_step`` a token) on OLMo-1B
+   (16 layers, batch 16, prompt 1,920, 128 new), MiniCPM3-4B (62 layers,
+   MLA's compressed cache, batch 8, prompt 1,024, 64 new) and
+   Mamba2-1.3B (48 layers, the SSM state, batch 16, prompt 1,792, 256
+   new) whole, and Mixtral-8x7B's 2 of 32 layers (batch 2, prompt 4,352
+   past its 4,096-slot window: the prompt cache rolled, decode wrapping
+   the ring, the MoE on the step's tokens), at published widths in the
+   configs' bf16, printing prefill ms, decode ms a token, tok/s, peak
+   memory and cache bytes beside the card's name and power limit; then
+   the same params in f32 at batch 2 (``SERVE_BAR``: each prefill and
+   decode step's logits against ``Model.apply``'s, the greedy tokens
+   against its argmax where its top-2 gap passes the bar; Mixtral's
+   prefill against apply over the prompt, and its attention layer's ring
+   step by step against ``attention_apply`` over 4,480 rows); and
+   ``serve_sharded_olmo1b``: OLMo-1B whole in f32 through ``build_serve``
+   on the serving mesh 2 ("data") × 2 ("model"), 4 gloo ranks, batch 4,
+   prompt 512, 32 new: the tokens equal one rank's, the logits within
+   the bar, the bytes handed to ``all_reduce`` a decode step (and at the
+   prefill) equal to their count from the shapes, each rank's peak.
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, the MoE,
 MLA and SSD layers, the four figure phases' and the elastic and topology
-phases' rows, verdicts and wall seconds, the sharded phases' rows, each
-phase's wall seconds, one JSON line ``{"kernels":
+phases' rows, verdicts and wall seconds, the sharded phases' rows, the
+serving rows, each phase's wall seconds, one JSON line ``{"kernels":
 [...]}`` (``momentum_update`` with its in-place time, and with
 ``gossip_mix`` a ``full_width`` row for each path of ``FULL_WIDTH``)
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -3061,6 +3086,89 @@ def spawn(fn, n: int, *args) -> list:
     return spawn_ranks(fn, n, args, backend="gloo", device=DEVICE)
 
 
+# Sharded phases whose ranks share one spawn: a run that chooses several
+# phases of one world size spawns those ranks once, at the first of them,
+# and each rank runs the phases' rank functions in turn (``shared_rank``);
+# each phase then holds its own results.  A spawn of rank processes takes
+# 15-40 s on the card's host before any work, and the ten sharded phases
+# here would take ten of them.
+SHARED_RESULTS = {}     # phase -> its ranks' results, until the phase runs
+CHOSEN = ()             # the phases this invocation runs (``main``)
+
+
+def shared_tasks() -> dict:
+    """``{phase: (world, rank function, its arguments)}`` of the phases
+    that share a spawn with the others of their world size."""
+    def split_world(path):
+        sizes, _, model_axis = SPLIT[path]["mesh"]
+        return math.prod(sizes) * model_axis
+    return {
+        "sharded_olmo1b": (SHARDED_OLMO_K, sharded_olmo_rank, ()),
+        "sharded_resnet_pd": (K, sharded_resnet_rank, (0,)),
+        "sharded_tinylm_hier_sign": (HIER_SIGN[0] * HIER_SIGN[1],
+                                     sharded_hier_rank, ()),
+        "sharded_olmo1b_cpd_sign": (SHARDED_OLMO_K, sharded_cpd_olmo_rank,
+                                    ()),
+        "sharded_resnet_cpd": (K, sharded_codec_rank,
+                               (tuple(CODEC_PATHS), 0)),
+        "sharded_embedding_cpd_sparse": (EMB_K, sharded_embedding_rank,
+                                         (0,)),
+        "sharded_olmo1b_tp2": (TP_K * TP_AXIS, tp_dp_rank, ()),
+        "sharded_qwen2_72b_fsdp": (split_world("sharded_qwen2_72b_fsdp"),
+                                   split_rank, (["sharded_qwen2_72b_fsdp"],)),
+        "sharded_mla_ssd_tp2": (split_world("sharded_mla_tp2"), split_rank,
+                                (["sharded_mla_tp2", "sharded_ssd_tp2"],)),
+        "serve_sharded_olmo1b": (4, serve_sharded_rank,
+                                 (serve_sharded_prompt().numpy(),)),
+    }
+
+
+def shared_rank(mesh_rank, tasks):
+    """The rank functions of ``tasks`` (``[(phase, fn, args)]``) in turn in
+    this rank, each from a freed card, cuDNN's determinism and TF32 reset
+    to the rank's start: ``({phase: result}, {phase: seconds})``."""
+    import torch
+    import torch.distributed as dist
+    rank, world, dev = mesh_rank
+    out, secs = {}, {}
+    for phase, fn, args in tasks:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        torch.backends.cudnn.deterministic = False
+        rank_setup(torch, dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out[phase] = fn(mesh_rank, *args)
+        secs[phase] = time.perf_counter() - t0
+    dist.barrier()
+    return out, secs
+
+
+def spawn_shared(phase: str) -> list:
+    """The ranks' results of ``phase``: from the spawn it shares with the
+    other chosen phases of its world size (spawned here when it is the
+    first of them to run)."""
+    if phase not in SHARED_RESULTS:
+        tasks = shared_tasks()
+        world = tasks[phase][0]
+        names = [n for n in PHASES if n in tasks and tasks[n][0] == world
+                 and (n == phase or (n in CHOSEN
+                                     and list(PHASES).index(n) >
+                                     list(PHASES).index(phase)))]
+        t0 = time.perf_counter()
+        ranks = spawn(shared_rank, world,
+                      [(n, tasks[n][1], tasks[n][2]) for n in names])
+        print(f"sharded: one spawn of {world} ranks for {', '.join(names)}: "
+              f"{time.perf_counter() - t0:.1f} s; the ranks' seconds "
+              + ", ".join(f"{n} {max(r[1][n] for r in ranks):.1f}"
+                          for n in names))
+        for n in names:
+            SHARED_RESULTS[n] = [r[0][n] for r in ranks]
+    return SHARED_RESULTS.pop(phase)
+
+
 def reset_counters() -> dict:
     kernels = counters()
     for fn in kernels.values():
@@ -3262,7 +3370,7 @@ def sharded_olmo_phase(torch):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    stats = spawn(sharded_olmo_rank, SHARDED_OLMO_K)
+    stats = spawn_shared("sharded_olmo1b")
     wall = time.perf_counter() - t0
     root = stats[0]
     from repro_torch.kernels import LANE
@@ -3395,7 +3503,7 @@ def sharded_resnet_phase(torch):
     beside)."""
     from repro_torch.train.trainer import _stack_batches
     t0 = time.perf_counter()
-    stats = spawn(sharded_resnet_rank, K, 0)
+    stats = spawn_shared("sharded_resnet_pd")
     wall = time.perf_counter() - t0
     torch.backends.cudnn.deterministic = True
     opt = make_opt("pd_sgdm", True)
@@ -3564,7 +3672,7 @@ def sharded_hier_phase(torch):
     codec on its inter wire) from the same start."""
     t0 = time.perf_counter()
     world = HIER_SIGN[0] * HIER_SIGN[1]
-    stats = spawn(sharded_hier_rank, world)
+    stats = spawn_shared("sharded_tinylm_hier_sign")
     wall = time.perf_counter() - t0
     root = stats[0]
     print(f"sharded: sharded_tinylm_hier_sign {describe('pd_sgdm_tinylm_hier')}"
@@ -3968,7 +4076,7 @@ def sharded_cpd_olmo_phase(torch, pd_stats):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    stats = spawn(sharded_cpd_olmo_rank, SHARDED_OLMO_K)
+    stats = spawn_shared("sharded_olmo1b_cpd_sign")
     wall = time.perf_counter() - t0
     root = stats[0]
     name = "sharded_olmo1b_cpd_sign"
@@ -4221,7 +4329,7 @@ def sharded_resnet_cpd_phase(torch):
     of the dense round (``W_r @ x̂``) but for its sign flips."""
     from repro_torch.core import ring
     t0 = time.perf_counter()
-    stats = spawn(sharded_codec_rank, K, tuple(CODEC_PATHS), 0)
+    stats = spawn_shared("sharded_resnet_cpd")
     wall = time.perf_counter() - t0
     torch.backends.cudnn.deterministic = True
     stream = batch_fn(0, K)
@@ -4316,7 +4424,7 @@ def sharded_embedding_phase(torch):
     from repro_torch.core import ring
     from repro_torch.data.synthetic import EmbedStreamCfg, embed_batch
     t0 = time.perf_counter()
-    res = spawn(sharded_embedding_rank, EMB_K, 0)
+    res = spawn_shared("sharded_embedding_cpd_sparse")
     wall = time.perf_counter() - t0
     dopt = make_opt(EMB_PATH, True)
     dopt.comm = stored_copy_comm(ring(EMB_K), DEVICE)
@@ -4547,7 +4655,7 @@ def sharded_tp_phase(torch):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    both = spawn(tp_dp_rank, TP_K * TP_AXIS)
+    both = spawn_shared("sharded_olmo1b_tp2")
     wall = time.perf_counter() - t0
     stats = [s["tp"] for s in both]
     root = stats[0]
@@ -4846,14 +4954,14 @@ def split_rank(mesh_rank, paths):
 
 
 def split_phase(torch, paths, label):
-    """Spawn the ranks of ``paths`` (one mesh size) and hold each path
-    (``split_report``)."""
+    """The ranks of ``paths`` (one mesh size; phase ``label``'s share of
+    the shared spawn) and each path held (``split_report``)."""
     gc.collect()
     torch.cuda.empty_cache()
     sizes, _, model_axis = SPLIT[paths[0]]["mesh"]
     world = math.prod(sizes) * model_axis
     t0 = time.perf_counter()
-    stats = spawn(split_rank, world, paths)
+    stats = spawn_shared(label)
     print(f"sharded: {label}: {world} ranks on one card (gloo), "
           f"{time.perf_counter() - t0:.1f} s with the spawn and the checks")
     split_report(paths, stats)
@@ -5012,6 +5120,428 @@ def pretrain_sweep_phase(torch):
     verdict("sweep: pretrain_sweep_rows", missed, t0)
 
 
+# ---------------------------------------------------------------- serving
+# the served models: published widths and depth (Mixtral cut to 2 of its
+# 32 layers: its 46.7 B params are 93 GB in bf16, past the card's 80 GB),
+# in the configs' own bf16; batch, prompt and new tokens within each
+# model's published context (OLMo-1B 2,048; MiniCPM3-4B's 1,088 here;
+# Mamba2-1.3B 2,048, its prompt 7 chunks of 256; Mixtral's prompt past its
+# 4,096-slot window, so the prompt cache takes the roll and decode wraps
+# the ring)
+SERVE = {
+    "olmo-1b": dict(cuts={}, batch=16, prompt=1920, new=128),
+    "minicpm3-4b": dict(cuts={}, batch=8, prompt=1024, new=64),
+    "mamba2-1.3b": dict(cuts={}, batch=16, prompt=1792, new=256),
+    "mixtral-8x7b": dict(cuts=dict(n_layers=2), batch=2, prompt=4352,
+                         new=128),
+}
+# the f32 parity runs' batch (TF32 off), over each model's lengths
+SERVE_PARITY_BATCH = 2
+# the bar of the served logits against ``Model.apply``'s (and of the
+# sharded ranks' against one rank's): max |Δlogit| over max |logit|.
+# prefill, decode and apply run f32 matmuls of other shapes (1 or s rows),
+# whose sums take other orders: a few ulps a layer, through 16-62 layers;
+# the bf16 configs alone move logits by about 2^-9 of their size
+SERVE_BAR = 1e-4
+# Mixtral's ring at the layer: max |Δy| over max |y|, as MLA_BAR
+RING_BAR = 2e-5
+# serve_sharded_olmo1b: OLMo-1B whole (16 layers, f32) on the serving
+# mesh 2 ("data") x 2 ("model"), 4 gloo ranks, profile A: TP over the
+# model axis, the batch over the data axis (2 rows a rank)
+SERVE_SHARDED = dict(arch="olmo-1b", batch=4, prompt=512, new=32)
+SMI = ""
+
+
+def serve_cfg(arch: str, dtype: str):
+    """The served config of ``arch``: the published one with ``SERVE``'s
+    cuts, in ``dtype`` (its own bf16, or f32 for the parity runs)."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch).model,
+                               param_dtype=dtype, compute_dtype=dtype,
+                               **SERVE[arch]["cuts"])
+
+
+def cache_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for c in cache.values()
+               for t in c.values())
+
+
+def watched_generate(torch, model, params, prompt, new: int,
+                     keep: bool = False):
+    """``generate`` (the port's loop) with the model's ``prefill_fast`` and
+    ``decode_step`` each timed between synchronizes (host clock), their
+    logits checked finite and, with ``keep``, kept: ``(tokens, stats,
+    logits)``, the logits of the prefill and of every decode step (the
+    teacher-forced logits of the tokens ``generate`` chose)."""
+    from repro_torch.serve.serving import generate
+    stats = {"prefill": [], "decode": [], "cache_bytes": None}
+    kept = []
+
+    def watch(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stats[name].append(time.perf_counter() - t0)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{model.cfg.name}: {name} logits "
+                                     "not finite")
+            if stats["cache_bytes"] is None:
+                stats["cache_bytes"] = cache_bytes(cache)
+            if keep:
+                kept.append(logits.clone())
+            return logits, cache
+        return timed
+
+    model.prefill_fast = watch("prefill", model.prefill_fast)
+    model.decode_step = watch("decode", model.decode_step)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, params, prompt, new)
+        torch.cuda.synchronize()
+        stats["wall"] = time.perf_counter() - t0
+    finally:
+        del model.prefill_fast, model.decode_step
+    b, s = prompt.shape
+    if toks.shape != (b, s + new) or not torch.equal(toks[:, :s],
+                                                     prompt.to(toks.dtype)):
+        raise AssertionError(f"{model.cfg.name}: generate gave "
+                             f"{tuple(toks.shape)}, or lost the prompt")
+    if int(toks.min()) < 0 or int(toks.max()) >= model.cfg.vocab:
+        raise AssertionError(f"{model.cfg.name}: a token off the vocab")
+    return toks, stats, kept
+
+
+def rel_gap(torch, got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def serve_parity(torch, arch, model, params, toks, kept, prompt_len):
+    """The f32 run's logits against ``Model.apply``'s: the prefill's at the
+    prompt's last position and each decode step's at its own, and the
+    greedy tokens against apply's argmax where its top-2 gap exceeds the
+    bar.  Mixtral: the prefill against apply over the prompt alone (its
+    MoE's capacity follows the token count, so decode, b tokens a step,
+    and apply over the sequence drop other slots by design)."""
+    s = prompt_len
+    if arch == "mixtral-8x7b":
+        want = model.apply(params, {"tokens": toks[:, :s]})[0][:, -1]
+        gap = rel_gap(torch, kept[0], want)
+        print(f"serve: {arch} f32 parity: prefill_fast against apply over "
+              f"the prompt {gap:.3e} of max |logit| (bar {SERVE_BAR:g})")
+        if gap > SERVE_BAR:
+            raise AssertionError(f"{arch}: prefill {gap} past {SERVE_BAR}")
+        return
+    full = model.apply(params, {"tokens": toks})[0]
+    want = full[:, s - 1:-1]                    # predicts tokens s … end
+    del full
+    got = torch.stack(kept, dim=1)
+    scale = float(want.abs().max())
+    pre = float((got[:, 0] - want[:, 0]).abs().max()) / scale
+    dec = float((got[:, 1:] - want[:, 1:]).abs().max()) / scale
+    top2 = want.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > SERVE_BAR * scale
+    agree = want.argmax(-1) == toks[:, s:]
+    print(f"serve: {arch} f32 parity: prefill_fast {pre:.3e}, decode_step "
+          f"{dec:.3e} of max |logit| {scale:.3f} (bar {SERVE_BAR:g}); greedy "
+          f"tokens equal apply's argmax at {int((agree & decisive).sum())} "
+          f"of {int(decisive.sum())} decisive positions "
+          f"({int((~decisive).sum())} within the bar)")
+    if max(pre, dec) > SERVE_BAR or not bool((agree | ~decisive).all()):
+        raise AssertionError(f"{arch}: served logits {pre}, {dec} past "
+                             f"{SERVE_BAR}, or a greedy token off apply's")
+
+
+def ring_layer_check(torch, params, cfg, prompt: int, new: int):
+    """Mixtral's attention layer at published widths, f32: the prompt's
+    ``attention_prefill`` into the 4,096-slot ring (the roll), then ``new``
+    ``attention_decode`` steps wrapping it, each against
+    ``attention_apply`` with the window over all the rows."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rope_freqs
+    from repro_torch.models.transformer import Model
+    acfg = Model(cfg).attn_cfg
+    p = {n: {"w": params[f"blocks.pos0.attn.{n}.w"][0]}
+         for n in ("wq", "wk", "wv", "wo")}
+    n = prompt + new
+    x = torch.randn((SERVE_PARITY_BATCH, n, acfg.d_model), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(5))
+    cos, sin = rope_freqs(acfg.head_dim, n, acfg.rope_theta, device=DEVICE)
+    with torch.no_grad():
+        full = attn.attention_apply(p, x, acfg, cos, sin)
+        y, cache = attn.attention_prefill(p, x[:, :prompt], acfg, cos, sin,
+                                          n)
+        scale = float(full.abs().max())
+        pre = float((y - full[:, :prompt]).abs().max()) / scale
+        dec = 0.0
+        for i in range(prompt, n):
+            y, cache = attn.attention_decode(p, x[:, i:i + 1], cache, i,
+                                             acfg, cos, sin)
+            dec = max(dec, float((y[:, 0] - full[:, i]).abs().max()) / scale)
+    slots = cache["pos"].shape[1]
+    lo, hi = int(cache["pos"].min()), int(cache["pos"].max())
+    print(f"serve: mixtral-8x7b ring at the layer ({slots} slots, prompt "
+          f"{prompt}, {new} decode steps, positions {lo}-{hi} held): "
+          f"prefill {pre:.3e}, decode {dec:.3e} of max |y| (bar "
+          f"{RING_BAR:g})")
+    if max(pre, dec) > RING_BAR or (lo, hi) != (n - slots, n - 1):
+        raise AssertionError(f"mixtral ring: {pre}, {dec} past {RING_BAR}, "
+                             f"or positions {lo}-{hi}")
+
+
+def profile_decode(torch, arch, model, params, prompt, total: int,
+                   steps: int = 4):
+    """``--profile``: ``steps`` bf16 decode steps after a prefill, timed
+    alone (host clock between synchronizes) and then under the profiler:
+    the device's kernel time a step against the step's wall (its busy
+    share), and the top kernels; the table goes to
+    ``decode_profile_<arch>.txt`` in the output directory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    s = prompt.shape[1]
+    steps = min(steps, (total - s - 1) // 2)
+    tok = prompt[:, -1]
+    with torch.no_grad():
+        _, cache = model.prefill_fast(params, {"tokens": prompt},
+                                      max_len=total)
+        model.decode_step(params, cache, tok, s, max_positions=total)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model.decode_step(params, cache, tok, s + 1 + i,
+                              max_positions=total)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                model.decode_step(params, cache, tok, s + 1 + steps + i,
+                                  max_positions=total)
+            torch.cuda.synchronize()
+    del cache
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e6 / steps
+    launches = sum(e.count for e in kernels) / steps
+    sort_key = ("self_device_time_total"
+                if hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"decode_profile_{arch}.txt"), "w") as f:
+        f.write(events.table(sort_by=sort_key, row_limit=60))
+    print(f"profile: {arch} bf16 decode step {wall * 1e3:.3f} ms wall, "
+          f"kernels {busy * 1e3:.3f} ms on the device (busy "
+          f"{100 * busy / wall:.1f} %), {launches:.0f} kernels a step")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        print(f"profile:   {dev_us(e) / 1e3 / steps:9.3f} ms a step  "
+              f"x{e.count // steps:<5d} {e.key[:90]}")
+
+
+def serve_full_width_phase(torch, profile: bool = False):
+    """``serve_full_width``: ``generate`` on OLMo-1B, MiniCPM3-4B (MLA's
+    compressed cache) and Mamba2-1.3B (the SSM state) whole, and
+    Mixtral-8x7B's 2 layers (the ring and the MoE), at published widths in
+    bf16 (``SERVE``): prefill ms, decode ms a token, tok/s, peak memory and
+    cache bytes; then each in f32 at a batch of ``SERVE_PARITY_BATCH``
+    against ``Model.apply`` (``serve_parity``) and Mixtral's ring at the
+    layer (``ring_layer_check``).  Serving launches none of the ten
+    kernels.  With ``profile`` (``--profile``) also
+    :func:`profile_decode` on each bf16 model."""
+    from repro_torch.models import make_model
+    t0 = time.perf_counter()
+    kernels = reset_counters()
+    for arch, run in SERVE.items():
+        t1 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = serve_cfg(arch, "bfloat16")
+        model = make_model(cfg)
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                            device=DEVICE)
+        prompt = torch.randint(
+            0, cfg.vocab, (run["batch"], run["prompt"]), device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(1))
+        torch.cuda.reset_peak_memory_stats()
+        toks, st, _ = watched_generate(torch, model, params, prompt,
+                                       run["new"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        dec = st["decode"]
+        print(f"serve: {arch} bf16, {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab}, batch {run['batch']}, "
+              f"prompt {run['prompt']}, {run['new']} new: prefill "
+              f"{1e3 * st['prefill'][0]:.2f} ms, decode "
+              f"{1e3 * statistics.median(dec):.3f} ms a token (median of "
+              f"{len(dec)}; {1e3 * min(dec):.3f}-{1e3 * max(dec):.3f}), "
+              f"{run['batch'] * run['new'] / st['wall']:.1f} tok/s over "
+              f"{st['wall']:.2f} s, peak {peak:,.1f} MiB, cache "
+              f"{st['cache_bytes']:,} B, params "
+              f"{sum(v.numel() for v in params.values()):,}, on {SMI}")
+        if profile:
+            profile_decode(torch, arch, model, params, prompt,
+                           run["prompt"] + run["new"])
+        # the parity run: the same params in f32 (the bf16 values)
+        params = {k: v.float() for k, v in params.items()}
+        cfg32 = serve_cfg(arch, "float32")
+        model = make_model(cfg32)
+        prompt = prompt[:SERVE_PARITY_BATCH]
+        toks, st, kept = watched_generate(torch, model, params, prompt,
+                                          run["new"], keep=True)
+        with torch.no_grad():
+            serve_parity(torch, arch, model, params, toks, kept,
+                         run["prompt"])
+        if arch == "mixtral-8x7b":
+            ring_layer_check(torch, params, cfg32, run["prompt"], run["new"])
+        del params, toks, kept, model
+        print(f"serve: {arch} {time.perf_counter() - t1:.1f} s")
+    launched = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+    if launched:
+        raise AssertionError(f"serving launched {launched}")
+    print(f"serve: serve_full_width launched none of the ten kernels, "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_sharded_run():
+    from repro_torch.configs.base import ParallelCfg, RunCfg
+    from repro_torch.configs.registry import get_config
+    run = get_config(SERVE_SHARDED["arch"])
+    return RunCfg(model=dataclasses.replace(run.model,
+                                            param_dtype="float32",
+                                            compute_dtype="float32"),
+                  parallel=ParallelCfg(profile="A"), optim=run.optim)
+
+
+def serve_sharded_rank(mesh_rank, prompt):
+    """A rank of ``serve_sharded_olmo1b``: ``build_serve`` on the 2 × 2
+    serving mesh, its shards of the params from seed 0, and
+    ``ServePack.generate`` over the whole prompt (its 2 rows), the bytes it
+    hands to ``all_reduce`` counted per prefill and decode step; returns
+    the tokens, (rank 0) the gathered logits of every step, the bytes, the
+    step times and its peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.runtime import build_serve
+    rank, world, dev = mesh_rank
+    rank_setup(torch, dev)
+    mesh = make_mesh((2,), ("data",), device=dev, model_axis=2)
+    n = SERVE_SHARDED["prompt"] + SERVE_SHARDED["new"]
+    pack = build_serve(serve_sharded_run(), mesh,
+                       InputShape("serve", n, SERVE_SHARDED["batch"],
+                                  "decode"))
+    params = pack.init_fn(0)
+    reduced, kept = [0], []
+    plain_reduce, plain_gather = mesh.all_reduce, pack.gather
+
+    def counted(t, group, op=dist.ReduceOp.SUM):
+        reduced[0] += t.numel() * t.element_size()
+        return plain_reduce(t, group, op)
+
+    def gather(t):
+        out = plain_gather(t)
+        if rank == 0:
+            kept.append(out.cpu())
+        return out
+
+    steps = {"prefill": [], "decode": []}
+
+    def watch(name, fn):
+        def timed(*args):
+            sync(torch, dev)
+            before, t0 = reduced[0], time.perf_counter()
+            out = fn(*args)
+            sync(torch, dev)
+            steps[name].append((time.perf_counter() - t0,
+                                reduced[0] - before))
+            return out
+        return timed
+
+    mesh.all_reduce, pack.gather = counted, gather
+    pack.prefill_step = watch("prefill", pack.prefill_step)
+    pack.decode_step = watch("decode", pack.decode_step)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    toks = pack.generate(params, torch.as_tensor(prompt, device=dev),
+                         SERVE_SHARDED["new"])
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            if dev.type == "cuda" else 0.0)
+    return {"rank": rank, "tokens": toks.cpu(),
+            "logits": torch.stack(kept, 1) if kept else None,
+            "steps": steps, "peak_mib": peak,
+            "rows": (pack.rows.start, pack.rows.stop),
+            "copy_mib": sum(v.numel() * 4 for v in
+                            pack.params_struct.values()) / 2 ** 20}
+
+
+def serve_sharded_prompt():
+    """``serve_sharded_olmo1b``'s prompt tokens, from seed 3 on the host."""
+    import torch
+    return torch.randint(0, serve_sharded_run().model.vocab,
+                         (SERVE_SHARDED["batch"], SERVE_SHARDED["prompt"]),
+                         generator=torch.Generator().manual_seed(3))
+
+
+def serve_sharded_phase(torch):
+    """``serve_sharded_olmo1b``: OLMo-1B whole in f32 on the serving mesh 2
+    ("data") × 2 ("model"), 4 gloo ranks on the card (``build_serve``:
+    each rank its TP shards and 2 of the 4 rows), greedy; the gathered
+    tokens equal one rank's ``generate``, the logits within ``SERVE_BAR``
+    of its; the bytes each rank hands to ``all_reduce`` a decode step (the
+    vocab-parallel embedding's and two row-parallel sums a layer) equal
+    their count from the shapes."""
+    from repro_torch.models import make_model
+    t0 = time.perf_counter()
+    cfg = serve_sharded_run().model
+    b, s, new = (SERVE_SHARDED[k] for k in ("batch", "prompt", "new"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_shared("serve_sharded_olmo1b")
+    spawn_s = time.perf_counter() - t0
+    model = make_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    want, _, kept = watched_generate(torch, model, params,
+                                     serve_sharded_prompt().to(DEVICE), new,
+                                     keep=True)
+    want, want_logits = want.cpu(), torch.stack(kept, 1).cpu()
+    del params, model, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = b // 2
+    # a decode step: the embedding's (rows, 1, d) f32 sum and, per layer,
+    # the attention's and the MLP's row-parallel sums of the same shape
+    per_step = (1 + 2 * cfg.n_layers) * rows * cfg.d_model * 4
+    missed = []
+    for r in ranks:
+        pre = r["steps"]["prefill"][0]
+        dec = r["steps"]["decode"]
+        print(f"serve: serve_sharded_olmo1b rank {r['rank']} rows "
+              f"{r['rows']}: a copy of its params {r['copy_mib']:,.1f} MiB, "
+              f"peak {r['peak_mib']:,.1f} MiB; prefill {1e3 * pre[0]:.1f} "
+              f"ms, {pre[1]:,} B to all_reduce; decode "
+              f"{1e3 * statistics.median(d[0] for d in dec):.2f} ms a step "
+              f"(median of {len(dec)}), {dec[0][1]:,} B to all_reduce a "
+              f"step (expected {per_step:,}); on {SMI}")
+        if not torch.equal(r["tokens"], want):
+            missed.append(("tokens", r["rank"]))
+        if any(d[1] != per_step for d in dec) or pre[1] != per_step * s:
+            missed.append(("all_reduce bytes", r["rank"]))
+    gap = rel_gap(torch, ranks[0]["logits"], want_logits)
+    print(f"serve: serve_sharded_olmo1b tokens equal one rank's on every "
+          f"rank: {all(torch.equal(r['tokens'], want) for r in ranks)}; "
+          f"logits {gap:.3e} of max |logit| from one rank's (bar "
+          f"{SERVE_BAR:g}); the ranks' results {spawn_s:.1f} s after "
+          "the phase began (a spawn where none was shared)")
+    if gap > SERVE_BAR:
+        missed.append(("logits", gap))
+    verdict("serve: serve_sharded_olmo1b", missed, t0)
+
+
 def gloo_cuda_probe(mesh_rank):
     """Whether gloo's send/recv take a CUDA tensor (run apart from the
     script, in a child that may crash: ``--probe-gloo``)."""
@@ -5088,6 +5618,9 @@ PHASES = {
     "pretrain_sweep_rows": lambda torch, ctx: pretrain_sweep_phase(torch),
     "sharded_qwen2_72b_fsdp": lambda torch, ctx: sharded_fsdp_phase(torch),
     "sharded_mla_ssd_tp2": lambda torch, ctx: sharded_mla_ssd_phase(torch),
+    "serve_full_width": lambda torch, ctx: serve_full_width_phase(
+        torch, ctx["profile"]),
+    "serve_sharded_olmo1b": lambda torch, ctx: serve_sharded_phase(torch),
 }
 
 
@@ -5105,6 +5638,7 @@ def select_phases(spec: str) -> list:
 
 
 def main(argv=None) -> int:
+    global CHOSEN, SMI
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one round of each path into the "
@@ -5143,6 +5677,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    SMI = smi
     if args.probe_gloo:
         try:
             got = spawn(gloo_cuda_probe, 2)[1]
@@ -5153,6 +5688,7 @@ def main(argv=None) -> int:
         return 0
     bw, f32_peak = peaks(torch.cuda.get_device_name(0))
     chosen = select_phases(args.phases)
+    CHOSEN = tuple(chosen)
     skipped = [n for n in PHASES if n not in chosen]
     if skipped:
         print(f"phases: running {', '.join(chosen)}; skipped "
@@ -5170,6 +5706,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     ctx = {"ops": ops, "bw": bw, "f32_peak": f32_peak, "timings": {},
+           "profile": args.profile,
            "full_width": {}, "runs": None, "pd_olmo": None,
            "variants": [(label, build_variant(path)) for label, path in
                         (v.split("=", 1) for v in args.gather_variant)]}
@@ -5185,7 +5722,7 @@ def main(argv=None) -> int:
               f"{sum(walls[n] for n in codec):.1f} s")
     print("phases: wall s " + ", ".join(f"{n} {w:.1f}"
                                         for n, w in walls.items()))
-    if args.profile:
+    if args.profile and "training" in chosen:
         for path in PATHS:
             profile_round(torch, path)
         gather_in_round(torch, ctx["variants"])

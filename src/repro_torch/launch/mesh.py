@@ -421,12 +421,14 @@ class Layout:
     ``tp_axis`` splits its params tensor-parallel, ``fsdp_axis`` splits
     them again and its batch (profile B), ``inner_axis`` splits its batch
     and replicates its params (profile A, ``inner="dp"``).  A worker is
-    the line of ranks over the axes off ``worker_axes``."""
+    the line of ranks over the axes off ``worker_axes``.  The serving
+    layout has no worker axes, and ``batch_axes`` split its batch."""
     mesh: WorkerMesh
     worker_axes: Tuple[str, ...]
     tp_axis: Optional[str] = None
     fsdp_axis: Optional[str] = None
     inner_axis: Optional[str] = None
+    batch_axes: Tuple[str, ...] = ()    # serving: the axes the batch splits
 
     @property
     def worker_sizes(self) -> Tuple[int, ...]:
@@ -486,16 +488,27 @@ class Layout:
         return self.mesh.group(self.worker_axes)
 
 
-def make_layout(parallel, mesh: WorkerMesh) -> Layout:
+def make_layout(parallel, mesh: WorkerMesh, *,
+                serving: bool = False) -> Layout:
     """The roles of the mesh's axes (``src/repro/launch/sharding.py:
     54-84``).  Profile A: every axis but ``"model"`` gossips; ``"model"``
     is the tensor-parallel axis inside each worker (``inner="tp"``), or
     splits the worker's batch over ranks that each hold its whole params
     (``inner="dp"``), or gossips too (``inner="worker"``).  Profile B:
     ``"pod"`` gossips (without it the mesh is one worker), ``"data"`` is
-    the FSDP axis and ``"model"`` the TP axis inside the worker."""
+    the FSDP axis and ``"model"`` the TP axis inside the worker.
+    ``serving``: no axis gossips; ``"model"`` is the TP axis, ``"data"``
+    the FSDP axis under profile B, and the batch splits over ``"pod"`` and
+    ``"data"``."""
     names = tuple(mesh.axis_names)
     has_model = MODEL_AXIS in names
+    if serving:
+        return Layout(mesh, (),
+                      tp_axis=MODEL_AXIS if has_model else None,
+                      fsdp_axis=(DATA_AXIS if parallel.profile == "B"
+                                 and DATA_AXIS in names else None),
+                      batch_axes=tuple(a for a in (POD_AXIS, DATA_AXIS)
+                                       if a in names))
     if parallel.profile == "A":
         if parallel.inner not in ("tp", "dp", "worker"):
             raise ValueError(f"inner={parallel.inner!r}: 'tp', 'dp' or "

@@ -1,9 +1,9 @@
-"""The sharded runtime: ``build_comm`` and ``build_train``/``TrainPack``.
+"""The sharded runtime: ``build_comm``, ``build_train``/``TrainPack`` and
+``build_serve``/``ServePack``.
 
-Port of ``src/repro/launch/runtime.py:112-445`` (training; ``build_serve``
-waits for ROADMAP queue A item 13).  Where the reference shard_maps the
-optimizer over the worker axes of a device mesh, the port runs one rank
-per device: each rank builds its worker with a leading worker dim of 1
+Port of ``src/repro/launch/runtime.py:112-518`` (serving at the end of
+this docstring).  Where the reference shard_maps the optimizer over the
+worker axes of a device mesh, the port runs one rank per device: each rank builds its worker with a leading worker dim of 1
 (the ``(1, rows, 1024)`` shard the reference's ``shard_map`` sees), and
 where a worker spans several ranks (:func:`repro_torch.launch.mesh.
 make_layout`) only its shards of the worker's leaves
@@ -34,6 +34,17 @@ correction at every step) ``opt.step``.  Both take the host step ``t``:
 the sharded comm picks round r's exchanges on the host, and the trainer
 knows t.  The reference's ``make_shd`` hints change no value and have no
 counterpart (``launch/sharding.py``).
+
+``build_serve(run, mesh, shape)`` is a rank's serving pack on the serving
+layout (``make_layout(..., serving=True)``: no axis gossips, TP over
+``"model"``, FSDP over ``"data"`` under profile B, the batch over
+``"pod"`` and ``"data"``).  The rank builds its model with its TP and
+FSDP groups and its own shards of the params, and its ``prefill_step`` /
+``decode_step`` run its rows of the batch (all of them where the batch
+axes do not divide the batch) at ``max_len = shape.seq_len``, the MoE's
+capacity the whole batch's; ``ServePack.gather`` puts the ranks' rows back
+together and ``ServePack.generate`` runs the serving loop with every rank
+sampling the whole batch's logits.
 """
 from __future__ import annotations
 
@@ -43,17 +54,19 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelCfg, RunCfg
+from repro_torch.configs.shapes import InputShape, _batch_struct
 from repro_torch.core import make_compressor, make_optimizer
 from repro_torch.core.gossip import DenseComm, HierarchicalComm, ShardedComm
 from repro_torch.core.topology import (disconnected, hierarchical,
                                        make_schedule, make_topology, torus)
 from repro_torch.launch.mesh import Layout, make_layout
+from repro_torch.launch.sharding import CachePlan, cache_spec_tree
 from repro_torch.models import make_model
 from repro_torch.models.layers import TPGroup
 from repro_torch.tree import tree_map
 
-__all__ = ["STATE_KEYS", "TrainPack", "axis_group", "build_comm",
-           "build_train", "check_state_keys", "make_steps",
+__all__ = ["STATE_KEYS", "ServePack", "TrainPack", "axis_group", "build_comm",
+           "build_serve", "build_train", "check_state_keys", "make_steps",
            "worker_grad_fn"]
 
 # every optimizer state entry the checkpoint knows: True where the entry is
@@ -253,13 +266,15 @@ def build_train(run: RunCfg, mesh, model_cfg: Optional[ModelCfg] = None,
 
 
 def axis_group(layout: Layout, axis) -> Optional[TPGroup]:
-    """The ``TPGroup`` of this rank's line over mesh ``axis`` (None
-    without the axis, or where it holds one rank)."""
-    if axis is None or layout.axis_size(axis) == 1:
-        return None
+    """The ``TPGroup`` of this rank's line over mesh ``axis`` (a name, or
+    a tuple of names: the serving batch's axes); None without the axis,
+    or where it holds one rank."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis or ())
     mesh = layout.mesh
-    group = mesh.group((axis,))
-    return TPGroup(layout.axis_size(axis), layout.axis_coord(axis),
+    if not axes or mesh.size(axes) == 1:
+        return None
+    group = mesh.group(axes)
+    return TPGroup(mesh.size(axes), mesh.index(axes),
                    lambda t, op: mesh.all_reduce(t, group, op),
                    lambda t, dim: mesh.all_gather(t, group, dim),
                    lambda t, dim: mesh.reduce_scatter(t, group, dim))
@@ -350,3 +365,99 @@ def per_worker(struct) -> dict:
     the optimizer's byte model reads."""
     return tree_map(lambda s: torch.empty(tuple(s.shape[1:]), dtype=s.dtype,
                                           device="meta"), struct)
+
+
+# -------------------------------------------------------------------- serve
+@dataclasses.dataclass
+class ServePack:
+    """A rank's serving pack (reference ``ServePack``).  ``params_struct``
+    and ``cache_struct`` are this rank's params and cache as meta tensors,
+    ``pre_struct`` the whole prompt batch's; ``cache_plan`` says which
+    rows of the batch (``rows``) and which heads of the cache the rank
+    holds.  ``prefill_step(params, batch)`` and ``decode_step(params,
+    cache, tokens, pos)`` take and return the rank's rows; the logits are
+    whole over the vocab."""
+    model: object
+    layout: Layout
+    device: torch.device
+    params_struct: dict
+    cache_struct: dict
+    pre_struct: dict
+    cache_plan: CachePlan
+    init_fn: Callable          # (seed) -> this rank's params
+    prefill_step: Callable     # (params, batch) -> (logits, cache)
+    decode_step: Callable      # (params, cache, tokens, pos) -> (.., cache)
+    batch: int
+    max_len: int
+    batch_group: Optional[TPGroup] = None   # the ranks that split the batch
+
+    @property
+    def rows(self) -> slice:
+        return self.cache_plan.rows(self.batch)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole-batch tensor."""
+        return t[self.rows]
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch's ``t`` from every rank's rows (dim 0), on
+        every rank; ``t`` itself where each rank holds the whole batch."""
+        if self.batch_group is None:
+            return t
+        return self.batch_group.all_gather(t.contiguous(), 0)
+
+    def generate(self, params: dict, prompt_tokens: torch.Tensor,
+                 max_new: int, temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        """The serving loop over this rank's rows of ``prompt_tokens`` (the
+        whole batch, (b, s)), every rank sampling from the whole batch's
+        logits: (b, s + max_new) int32 on every rank."""
+        from repro_torch.serve.serving import decode_loop
+        if prompt_tokens.shape[1] + max_new > self.max_len:
+            raise ValueError(f"{prompt_tokens.shape[1]} + {max_new} "
+                             f"positions past max_len {self.max_len}")
+        return decode_loop(
+            lambda: self.prefill_step(params,
+                                      {"tokens": self.local(prompt_tokens)}),
+            lambda cache, tok, pos: self.decode_step(params, cache, tok, pos),
+            prompt_tokens, max_new, temperature, generator,
+            whole=self.gather, local=self.local)
+
+
+def build_serve(run: RunCfg, mesh, shape: InputShape,
+                model_cfg: Optional[ModelCfg] = None) -> ServePack:
+    """The rank's serving pack over ``mesh`` at ``shape``'s global batch
+    and ``max_len = shape.seq_len``."""
+    mcfg = model_cfg or run.model
+    layout = make_layout(run.parallel, mesh, serving=True)
+    device = mesh.device
+    model = make_model(mcfg, tp=axis_group(layout, layout.tp_axis),
+                       fsdp=axis_group(layout, layout.fsdp_axis))
+    b, s = shape.global_batch, shape.seq_len
+    plan = cache_spec_tree(mcfg, layout, b)
+    group = (axis_group(layout, layout.batch_axes) if plan.batch_split
+             else None)
+    rows = plan.rows(b)
+
+    def init_fn(seed: int) -> dict:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        return model.init(gen, device=device)
+
+    def prefill_step(params, batch):
+        return model.prefill_fast(params, batch, max_len=s, inner=group)
+
+    def decode_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos,
+                                 max_positions=s, inner=group)
+
+    params_struct = {k: torch.empty(shape_, dtype=model.leaf_dtype(k),
+                                    device="meta")
+                     for k, shape_ in model.param_shapes().items()}
+    return ServePack(
+        model=model, layout=layout, device=device,
+        params_struct=params_struct,
+        cache_struct=model.init_cache(rows.stop - rows.start, s,
+                                      device="meta"),
+        pre_struct=_batch_struct(mcfg, b, s, with_labels=False),
+        cache_plan=plan, init_fn=init_fn, prefill_step=prefill_step,
+        decode_step=decode_step, batch=b, max_len=s, batch_group=group)

@@ -51,6 +51,18 @@ them.
 
 Split dims are negative, so a plan applies alike to one worker's leaf, to
 a leaf with the worker dim of 1 and to a K-stacked one.
+
+The serving cache (``cache_spec_tree``, ``src/repro/launch/sharding.py:
+211-257``; :class:`CachePlan`): the cache's batch dim splits over the
+layout's batch axes (``"pod"``, ``"data"``) where they divide the batch,
+and a rank holds the cache of its heads: GQA's K and V by KV heads where
+the attention splits, the SSD's state by heads and its conv window by the
+in_proj's component split (x channels split, B and C whole); MLA's
+latents and every ``pos`` stay whole.  Where the batch does not divide,
+the reference splits the cache's slots (or the SSM state's ``d_state``)
+over ``"data"``, a GSPMD layout that changes no value; the port instead
+gives every rank of the group the whole batch and every slot (ROADMAP
+"Later work": the memory that costs).
 """
 from __future__ import annotations
 
@@ -59,7 +71,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["ShardPlan", "Split", "fsdp_split", "param_split", "shard_plan"]
+__all__ = ["CachePlan", "ShardPlan", "Split", "cache_spec_tree", "fsdp_split",
+           "param_split", "shard_plan"]
 
 @dataclasses.dataclass(frozen=True)
 class Split:
@@ -259,3 +272,70 @@ def shard_plan(cfg, shapes: Dict[str, tuple], size: int, index: int = 0,
                      int(fsdp_size), int(fsdp_index),
                      {n: fsdp_split(n, s, int(fsdp_size))
                       for n, s in shapes.items()})
+
+
+# --------------------------------------------------------------- serving cache
+def _cache_split(leaf: str, mixer: str, cfg, size: int) -> Optional[Split]:
+    """A stacked cache leaf's split over a model axis of ``size``."""
+    if size == 1:
+        return None
+    if mixer == "attn" and leaf in ("k", "v"):
+        return Split(-2) if cfg.n_kv_heads % size == 0 else None
+    if mixer == "mamba" and leaf == "ssm":
+        by_heads = _ssd_split("A_log", "mamba", cfg, size) is not None
+        return Split(-3) if by_heads else None
+    if mixer == "mamba" and leaf == "conv":
+        return _ssd_split("conv_w", "mamba", cfg, size)
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class CachePlan:
+    """The serving cache's layout on this rank: each leaf's TP split
+    (``splits[f"pos{i}"][leaf]``) over a model axis of ``tp_size`` (this
+    rank at ``tp_index``), and whether the batch dim (dim 1 of a leaf
+    stacked over the repeats) splits over ``batch_size`` ranks (this one
+    at ``batch_index``)."""
+    splits: Dict[str, Dict[str, Optional[Split]]]
+    batch_split: bool
+    batch_size: int = 1
+    batch_index: int = 0
+    tp_size: int = 1
+    tp_index: int = 0
+
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a batch of ``batch``."""
+        if not self.batch_split:
+            return slice(0, batch)
+        n = batch // self.batch_size
+        return slice(self.batch_index * n, (self.batch_index + 1) * n)
+
+    def shard(self, cache: dict) -> dict:
+        """This rank's piece of a whole (one-rank) ``cache``."""
+        out = {}
+        for pos, leaves in cache.items():
+            out[pos] = {}
+            for leaf, t in leaves.items():
+                t = t[:, self.rows(t.shape[1])]
+                split = self.splits[pos][leaf]
+                if split is not None:
+                    t = split.cut(t, self.tp_size, self.tp_index)
+                out[pos][leaf] = t
+        return out
+
+
+def cache_spec_tree(cfg, layout, batch: int) -> CachePlan:
+    """The cache plan of a model of config ``cfg`` served on ``layout``
+    (``make_layout(..., serving=True)``) at a global ``batch``."""
+    baxes = layout.batch_axes
+    bsize = layout.mesh.size(baxes) if baxes else 1
+    tp = layout.axis_size(layout.tp_axis)
+    splits = {}
+    for i, spec in enumerate(cfg.pattern):
+        leaves = {"attn": ("k", "v", "pos"), "mla": ("ckv", "krope", "pos"),
+                  "mamba": ("ssm", "conv")}[spec.mixer]
+        splits[f"pos{i}"] = {leaf: _cache_split(leaf, spec.mixer, cfg, tp)
+                             for leaf in leaves}
+    return CachePlan(splits, bool(baxes) and batch % bsize == 0, bsize,
+                     layout.mesh.index(baxes) if baxes else 0, tp,
+                     layout.axis_coord(layout.tp_axis))

@@ -45,9 +45,19 @@ normalizes over the whole ``d_inner``: its sum of squares is summed over
 the ranks, and so is that sum's gradient, since every rank's slice reads
 it (:func:`sum_over_model`).
 
-The serving half — ``return_state`` (the final SSM state and conv tail),
-``mamba2_decode`` and ``init_mamba_cache`` — waits for the port's serving
-(ROADMAP queue A item 13) and raises.
+Serving (reference ``:176-230``): ``mamba2_apply(return_state=True)``
+also returns the decode cache, the final SSM state ``S`` (b, heads,
+d_state, headdim) in f32 and the last ``conv_kernel − 1`` raw conv inputs
+(left-padded with zeros when the sequence is shorter);
+:func:`init_mamba_cache` is that cache empty (``ssm`` f32 whatever the
+compute dtype); :func:`mamba2_decode` is the O(1) step: the rolling conv
+over the cached inputs and the new one, ``dA = exp(dt·A)``, ``S ← S·dA +
+dt·B⊗x``, ``y = C·S + D·x``, then the gated norm and ``out_proj``; it
+writes the new state and conv window into the cache in place and returns
+it.  Under ``tp`` the cache follows the head split above: the rank's heads
+of ``S``, and the conv inputs of its x channels beside B's and C's whole
+(the reference's GSPMD layout cuts ``conv_dim`` contiguously instead,
+which changes no value).
 """
 from __future__ import annotations
 
@@ -158,11 +168,8 @@ def mamba2_apply(params, u, cfg: Mamba2Cfg, return_state: bool = False,
     """u: (b, s, d_model) → (b, s, d_model), by the chunked SSD.  Params
     ``{"in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D", "norm",
     "out_proj"}`` (under ``tp`` this rank's heads of them); ``s`` a
-    multiple of ``min(chunk, s)``."""
-    if return_state:
-        raise NotImplementedError(
-            "mamba2_apply(return_state=True), the decode cache, is ROADMAP "
-            "queue A item 13")
+    multiple of ``min(chunk, s)``.  With ``return_state`` also the decode
+    cache ``{"ssm", "conv"}`` after the last position."""
     bsz, s, _ = u.shape
     Q = min(cfg.chunk, s)
     if s % Q:
@@ -173,8 +180,8 @@ def mamba2_apply(params, u, cfg: Mamba2Cfg, return_state: bool = False,
     p, n = cfg.headdim, cfg.d_state
     f32 = torch.float32
 
-    z, xBC, dt_raw = _in_proj(params, u, cfg, tp)
-    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+    z, xBC_raw, dt_raw = _in_proj(params, u, cfg, tp)
+    xBC = _causal_conv(xBC_raw, params["conv_w"], params["conv_b"])
     x, B, C = _split_xbc(cfg, xBC, bsz, s, tp)
 
     dt = F.softplus(dt_raw.to(f32) + params["dt_bias"])         # (b,s,h)
@@ -219,15 +226,58 @@ def mamba2_apply(params, u, cfg: Mamba2Cfg, return_state: bool = False,
     y = y.reshape(bsz, s, h * p).to(u.dtype)
 
     # gated RMSNorm, then the output projection
-    y = _gated_norm(params, y, z, cfg, u.dtype, tp)
-    if split:
+    out = _out_proj(params, _gated_norm(params, y, z, cfg, u.dtype, tp), tp)
+    if not return_state:
+        return out
+    # the decode cache: the final state and the last k − 1 raw conv inputs
+    kk = cfg.conv_kernel - 1
+    tail = (xBC_raw[:, s - kk:] if s >= kk
+            else F.pad(xBC_raw, (0, 0, kk - s, 0)))
+    return out, {"ssm": S, "conv": tail}
+
+
+def _out_proj(params, y, tp):
+    if tp_active(tp):
         return row_dense(params["out_proj"], y, tp)
     return dense(params["out_proj"], y)
 
 
-def _serving(*args, **kwargs):
-    raise NotImplementedError(
-        "the Mamba-2 decode cache and step are ROADMAP queue A item 13")
+def init_mamba_cache(cfg: Mamba2Cfg, batch: int, dtype, device=None,
+                     tp=None) -> dict:
+    """The empty decode cache: ``ssm`` (b, heads, d_state, headdim) f32
+    and ``conv`` (b, conv_kernel − 1, conv channels) in ``dtype``; under
+    ``tp`` this rank's heads and channels."""
+    heads = cfg.n_heads // (tp.size if tp_active(tp) else 1)
+    channels = heads * cfg.headdim + 2 * cfg.n_groups * cfg.d_state
+    return {"ssm": torch.zeros((batch, heads, cfg.d_state, cfg.headdim),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_kernel - 1, channels),
+                                dtype=dtype, device=device)}
 
 
-mamba2_decode = init_mamba_cache = _serving
+def mamba2_decode(params, u, cache: dict, cfg: Mamba2Cfg, tp=None):
+    """One position of ``u`` (b, 1, d_model) from ``cache``: ``(y,
+    cache)``, the new state and conv window written into the cache in
+    place."""
+    f32 = torch.float32
+    bsz = u.shape[0]
+    z, xBC_new, dt_raw = _in_proj(params, u, cfg, tp)
+    # the rolling conv over the cached inputs and the new one
+    conv_in = torch.cat([cache["conv"], xBC_new], dim=1)        # (b, k, c)
+    out = torch.einsum("bkc,kc->bc", conv_in.to(f32),
+                       params["conv_w"].to(f32)) + params["conv_b"].to(f32)
+    xBC = F.silu(out)[:, None, :].to(u.dtype)
+    cache["conv"].copy_(conv_in[:, 1:])
+    x, B, C = _split_xbc(cfg, xBC, bsz, 1, tp)
+    dt = F.softplus(dt_raw.to(f32) + params["dt_bias"])[:, 0]   # (b, h)
+    dA = torch.exp(dt * -torch.exp(params["A_log"]))
+    x0, B0, C0 = x[:, 0].to(f32), B[:, 0].to(f32), C[:, 0].to(f32)
+    S = cache["ssm"] * dA[:, :, None, None] + (
+        dt[:, :, None, None] * B0[..., None]) * x0[:, :, None, :]
+    cache["ssm"].copy_(S)
+    y = torch.einsum("bhn,bhnp->bhp", C0, S)
+    y = y + params["D"][:, None] * x0
+    h = x0.shape[1]
+    y = y.reshape(bsz, 1, h * cfg.headdim).to(u.dtype)
+    y = _gated_norm(params, y, z, cfg, u.dtype, tp)
+    return _out_proj(params, y, tp), cache

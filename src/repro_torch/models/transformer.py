@@ -42,8 +42,17 @@ numerator over the worker's label count, the MoE's aux share; the
 ranks' shares sum to the worker's loss and gradient.  The sharding
 hints (``shd``) change no value and are not needed
 (``launch/sharding.py``).
-Still to come: the serving methods (KV and SSM caches, prefill, decode;
-reference ``:234-429``) — ROADMAP queue A item 13.
+Serving (reference ``:234-429``): :meth:`Model.init_cache`,
+:meth:`Model.prefill_fast` (one pass over the prompt, the cache packed per
+layer and stacked over the repeats), :meth:`Model.decode_step` (one token,
+or one frame embedding, for the batch; the cache written in place) and
+:meth:`Model.prefill` (the prompt through the decode step, position by
+position).  They are methods of the same modules (:class:`_Layer`'s
+``prefill``/``decode`` beside ``forward``, sharing its FFN half; the
+MoE runs on the step's b tokens, its capacity theirs), called through
+``functional_call`` under ``torch.no_grad``; under TP a rank's cache holds
+its heads and the logits are gathered whole over the vocab; under FSDP
+each repeat's leaves are gathered inside its pass, as in training.
 
 Params are a flat dict named by the reference's key paths
 (``embed.table``, ``blocks.pos0.attn.wq.w`` with a leading ``n_repeats``
@@ -211,9 +220,8 @@ class _Layer(nn.Module):
         i)``, gathered; reference ``_apply_layer``): ``(x, aux)``, aux zero
         without an MoE FFN; ``inner`` the group that splits the worker's
         batch (the MoE's)."""
-        nap = _norm_apply(self.cfg)
         tp = self.tp
-        h = nap(lp["norm_mix"], x)
+        h = _norm_apply(self.cfg)(lp["norm_mix"], x)
         if self.spec.mixer == "attn":
             mix = attn_lib.attention_apply(lp["attn"], h, self.attn_cfg,
                                            cos, sin, positions,
@@ -224,11 +232,15 @@ class _Layer(nn.Module):
         else:
             mix = mamba_lib.mamba2_apply(lp["mamba"], h, self.mamba_cfg,
                                          tp=tp.get("mamba"))
-        x = x + mix
+        return self._ffn(lp, x + mix, inner)
+
+    def _ffn(self, lp: dict, x, inner=None):
+        """The FFN half after the mixer's residual: ``(x, aux)``."""
+        tp = self.tp
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.spec.ffn == "none":
             return x, aux
-        h = nap(lp["norm_ffn"], x)
+        h = _norm_apply(self.cfg)(lp["norm_ffn"], x)
         if self.spec.ffn == "dense":
             return x + mlp(lp["mlp"], h, tp.get("mlp")), aux
         out, aux = moe_lib.moe_apply(lp["moe"], h, self.moe_cfg,
@@ -236,6 +248,61 @@ class _Layer(nn.Module):
         if self.spec.ffn == "dense+moe":
             out = mlp(lp["mlp"], h, tp.get("mlp")) + out
         return x + out, aux
+
+    # ----------------------------------------------------------- serving
+    def init_cache(self, batch: int, max_len: int, dtype, device) -> dict:
+        """This position's empty decode cache for one repeat (reference
+        ``_layer_cache``): this rank's heads under TP."""
+        if self.spec.mixer == "attn":
+            cfg, tp = self.attn_cfg, self.tp.get("attn")
+            if tp_active(tp):
+                cfg = attn_lib._tp_heads(cfg, tp)
+            return attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device)
+        if self.spec.mixer == "mla":
+            return attn_lib.init_mla_cache(self.attn_cfg, batch, max_len,
+                                           dtype, device)
+        return mamba_lib.init_mamba_cache(self.mamba_cfg, batch, dtype,
+                                          device, self.tp.get("mamba"))
+
+    def prefill(self, lp: dict, x, cos, sin, positions, max_len: int,
+                inner=None):
+        """This position over the prompt (reference ``_prefill_layer``):
+        ``(x, cache)``, the cache packed for ``max_len`` positions."""
+        tp = self.tp
+        h = _norm_apply(self.cfg)(lp["norm_mix"], x)
+        if self.spec.mixer == "attn":
+            mix, cache = attn_lib.attention_prefill(
+                lp["attn"], h, self.attn_cfg, cos, sin, max_len, positions,
+                tp=tp.get("attn"))
+        elif self.spec.mixer == "mla":
+            mix, cache = attn_lib.mla_prefill(
+                lp["attn"], h, self.attn_cfg, cos, sin, max_len, positions,
+                tp=tp.get("mla"))
+        else:
+            mix, cache = mamba_lib.mamba2_apply(
+                lp["mamba"], h, self.mamba_cfg, return_state=True,
+                tp=tp.get("mamba"))
+        return self._ffn(lp, x + mix, inner)[0], cache
+
+    def decode(self, lp: dict, x, cache: dict, pos, cos, sin, inner=None):
+        """This position at one new position ``pos`` of ``x`` (b, 1, d)
+        (reference ``_decode_layer``), ``cache`` (one repeat's) updated in
+        place."""
+        tp = self.tp
+        h = _norm_apply(self.cfg)(lp["norm_mix"], x)
+        if self.spec.mixer == "attn":
+            mix, _ = attn_lib.attention_decode(
+                lp["attn"], h, cache, pos, self.attn_cfg, cos, sin,
+                tp=tp.get("attn"))
+        elif self.spec.mixer == "mla":
+            mix, _ = attn_lib.mla_decode(
+                lp["attn"], h, cache, pos, self.attn_cfg, cos, sin,
+                tp=tp.get("mla"))
+        else:
+            mix, _ = mamba_lib.mamba2_decode(lp["mamba"], h, cache,
+                                             self.mamba_cfg,
+                                             tp=tp.get("mamba"))
+        return self._ffn(lp, x + mix, inner)[0]
 
 
 class _Net(nn.Module):
@@ -294,24 +361,54 @@ class _Net(nn.Module):
             x = torch.cat([batch["patch_embeds"].to(cd), x], dim=1)
         return x
 
-    def forward(self, batch, remat: str = "none", inner=None):
+    def forward(self, *args, op: Optional[str] = None, **kwargs):
+        """The training pass (:meth:`logits`), or the serving method ``op``
+        (:meth:`prefill_fast`, :meth:`decode`, :meth:`prefill`), under the
+        params ``functional_call`` put in place."""
+        return getattr(self, op or "logits")(*args, **kwargs)
+
+    def _top(self, reduce: bool) -> dict:
+        """The embedding and head leaves, gathered whole under FSDP."""
+        return self._gathered({"embed": _tree(self.embed)}
+                              | ({} if self.cfg.tie_embeddings else
+                                 {"lm_head": _tree(self.lm_head)}), "",
+                              reduce)
+
+    def _layers(self) -> list:
+        return [getattr(self.blocks, f"pos{pos}")
+                for pos in range(len(self.cfg.pattern))]
+
+    def _rope(self, max_len: int, device):
+        cfg = self.cfg
+        return rope_freqs(cfg.qk_rope_dim if cfg.use_mla
+                          else self.attn_cfg.head_dim, max_len,
+                          cfg.rope_theta, device=device)
+
+    def _head(self, x, top: dict, whole: bool = False):
+        """Final norm and f32 logits; under a vocab split this rank's
+        slice, or with ``whole`` the ranks' slices gathered."""
+        cfg = self.cfg
+        x = _norm_apply(cfg)(_tree(self.final_norm), x)
+        head = (top["embed"]["table"].T if cfg.tie_embeddings
+                else top["lm_head"]["w"])
+        vocab = self.tp.get("vocab")
+        x = copy_to_model(x, vocab)
+        logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
+        if whole and vocab is not None:
+            logits = vocab.all_gather(logits.contiguous(), logits.dim() - 1)
+        return logits
+
+    def logits(self, batch, remat: str = "none", inner=None):
         cfg = self.cfg
         # FSDP's gradient sums over the data ranks where they split the
         # batch, and not where each ran it whole
         reduce = inner is not None
-        top = self._gathered({"embed": _tree(self.embed)}
-                             | ({} if cfg.tie_embeddings else
-                                {"lm_head": _tree(self.lm_head)}), "",
-                             reduce)
-        table = top["embed"]["table"]
-        x = self._embed_inputs(batch, table)
+        top = self._top(reduce)
+        x = self._embed_inputs(batch, top["embed"]["table"])
         b, s, _ = x.shape
-        cos, sin = rope_freqs(cfg.qk_rope_dim if cfg.use_mla
-                              else self.attn_cfg.head_dim, s, cfg.rope_theta,
-                              device=x.device)
+        cos, sin = self._rope(s, x.device)
         positions = torch.arange(s, device=x.device).expand(b, s)
-        layers = [getattr(self.blocks, f"pos{pos}")
-                  for pos in range(len(cfg.pattern))]
+        layers = self._layers()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_repeats):
             # repeat i's params are sliced outside the checkpointed pass,
@@ -335,11 +432,90 @@ class _Net(nn.Module):
             else:
                 x, block_aux = block(x)
             aux = aux + block_aux
-        x = _norm_apply(cfg)(_tree(self.final_norm), x)
-        head = table.T if cfg.tie_embeddings else top["lm_head"]["w"]
-        x = copy_to_model(x, self.tp.get("vocab"))
-        logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
-        return logits, aux
+        return self._head(x, top), aux
+
+    # ----------------------------------------------------------- serving
+    def init_cache(self, batch: int, max_len: int, device) -> dict:
+        """The empty decode cache, one dict per pattern position, each leaf
+        stacked over the repeats (reference ``init_cache``)."""
+        out = {}
+        for pos, layer in enumerate(self._layers()):
+            one = layer.init_cache(batch, max_len, self.compute_dtype, device)
+            out[f"pos{pos}"] = {
+                k: v.unsqueeze(0).repeat((self.cfg.n_repeats,)
+                                         + (1,) * v.dim())
+                for k, v in one.items()}
+        return out
+
+    def _repeats(self):
+        """``(i, pos, layer, lp)`` in order: repeat i's params of each
+        pattern position, gathered whole under FSDP."""
+        layers = self._layers()
+        for i in range(self.cfg.n_repeats):
+            for pos, layer in enumerate(layers):
+                yield i, pos, layer, self._gathered(
+                    _tree(layer, i), f"blocks.pos{pos}", False)
+
+    def prefill_fast(self, batch, max_len: Optional[int] = None,
+                     inner=None):
+        """One pass over the prompt: ``(last-position logits f32, cache)``
+        (reference ``prefill_fast``)."""
+        top = self._top(False)
+        x = self._embed_inputs(batch, top["embed"]["table"])
+        b, s, _ = x.shape
+        max_len = max_len or s
+        cos, sin = self._rope(max_len, x.device)
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        caches = [[] for _ in self.cfg.pattern]
+        for _, pos, layer, lp in self._repeats():
+            x, c = layer.prefill(lp, x, cos, sin, positions, max_len, inner)
+            caches[pos].append(c)
+        cache = {f"pos{pos}": {k: torch.stack([c[k] for c in cs])
+                               for k in cs[0]}
+                 for pos, cs in enumerate(caches)}
+        return self._head(x[:, -1:], top, whole=True)[:, 0], cache
+
+    def decode(self, cache: dict, inputs, pos,
+               max_positions: Optional[int] = None, inner=None):
+        """One new position for every sequence: ``(logits f32 (b, vocab),
+        cache)``, the cache written in place (reference ``decode_step``)."""
+        top = self._top(False)
+        if inputs.is_floating_point():
+            x = inputs.to(self.compute_dtype)
+        else:
+            x = embed({"table": top["embed"]["table"]}, inputs[:, None],
+                      self.tp.get("vocab")).to(self.compute_dtype)
+        cos, sin = self._rope(max_positions or self._cache_len(cache),
+                              x.device)
+        for i, pos_i, layer, lp in self._repeats():
+            one = {k: v[i] for k, v in cache[f"pos{pos_i}"].items()}
+            x = layer.decode(lp, x, one, pos, cos, sin, inner)
+        return self._head(x, top, whole=True)[:, 0], cache
+
+    def _cache_len(self, cache: dict) -> int:
+        """The cache's slots (the RoPE table's default length); 1 for a
+        pure SSM, whose decode reads no table."""
+        for pos, spec in enumerate(self.cfg.pattern):
+            if spec.mixer == "attn":
+                return cache[f"pos{pos}"]["k"].shape[2]
+            if spec.mixer == "mla":
+                return cache[f"pos{pos}"]["ckv"].shape[2]
+        return 1
+
+    def prefill(self, batch, max_len: Optional[int] = None, inner=None):
+        """The prompt one position at a time through :meth:`decode`
+        (reference ``prefill``, example scale): ``(last logits, cache)``.
+        RoPE reads a table of ``max_len`` positions (the reference's of the
+        cache's slots, which a ring shorter than the prompt overruns)."""
+        x = self._embed_inputs(batch, self._top(False)["embed"]["table"])
+        b, s, _ = x.shape
+        max_len = max_len or s
+        cache = self.init_cache(b, max_len, x.device)
+        logits = None
+        for i in range(s):
+            logits, cache = self.decode(cache, x[:, i:i + 1], i, max_len,
+                                        inner)
+        return logits, cache
 
 
 class Model:
@@ -502,11 +678,47 @@ class Model:
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ----------------------------------------------------------------- serving
-    def _serving(self, *args, **kwargs):
-        raise NotImplementedError(
-            "serving (KV caches, prefill, decode) is ROADMAP queue A item 13")
+    def _serve(self, op: str, params: dict, *args, **kwargs):
+        with torch.no_grad():
+            return torch.func.functional_call(self.net, params, args,
+                                              {"op": op, **kwargs})
 
-    init_cache = prefill = prefill_fast = decode_step = _serving
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+        """The empty decode cache: ``{"pos{i}": {leaf: (n_repeats, batch,
+        ...)}}``, a GQA layer's ``{"k", "v", "pos"}`` (``max_len`` slots, a
+        ring of ``min(window, max_len)`` with a window), an MLA layer's
+        ``{"ckv", "krope", "pos"}``, an SSM layer's ``{"ssm", "conv"}``;
+        ``pos`` int32 −1, ``ssm`` f32, the rest in the compute dtype; under
+        TP this rank's heads."""
+        return self.net.init_cache(batch, max_len, resolve_device(device))
+
+    def prefill_fast(self, params: dict, batch: dict,
+                     max_len: Optional[int] = None, inner=None):
+        """One pass over the prompt ``batch``: ``(logits f32 (b, vocab) at
+        its last position, cache)``, the cache sized for ``max_len``
+        positions (the prompt's length by default).  ``inner``: the group
+        over which the batch is split (the MoE's capacity is then the
+        whole batch's)."""
+        return self._serve("prefill_fast", params, batch, max_len=max_len,
+                           inner=inner)
+
+    def decode_step(self, params: dict, cache: dict, tokens_or_embeds, pos,
+                    max_positions: Optional[int] = None, inner=None):
+        """One new token for every sequence: ``tokens_or_embeds`` (b,) int
+        tokens or (b, 1, d) embeds at position ``pos`` (the same for the
+        batch).  ``max_positions`` sizes the RoPE table (by default the
+        cache's slots: pass it for a ring shorter than the sequence).
+        Returns ``(logits f32 (b, vocab), cache)``; the cache is written in
+        place and returned."""
+        return self._serve("decode", params, cache, tokens_or_embeds, pos,
+                           max_positions=max_positions, inner=inner)
+
+    def prefill(self, params: dict, batch: dict,
+                max_len: Optional[int] = None, inner=None):
+        """The prompt one position at a time through the decode step
+        (example scale): ``(last logits, cache)``."""
+        return self._serve("prefill", params, batch, max_len=max_len,
+                           inner=inner)
 
 
 def _shapes(net: nn.Module) -> dict:

@@ -200,15 +200,72 @@ def test_grads_finite_where_the_decay_overflows_above_the_diagonal():
         _close(g, w, atol=GRAD_FRAC * scale, rtol=0)
 
 
-def test_serving_half_raises_naming_item_13():
+@pytest.mark.parametrize("s", [2, CHUNK, 3 * CHUNK])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_return_state_matches_reference(s, dtype):
+    """``mamba2_apply(return_state=True)``: the final SSM state (f32
+    whatever the compute dtype) and the last k − 1 = 3 raw conv inputs,
+    left-padded with zeros at s = 2, against the reference's; in bf16 the
+    inputs and params are the same bf16 values on both sides, the bar
+    bf16's (atol/rtol 2e-2)."""
     rcfg, cfg = _cfgs()
-    p = _t(_params(rcfg))
-    u = torch.zeros((1, CHUNK, 32))
-    for call in (lambda: mamba2.mamba2_apply(p, u, cfg, return_state=True),
-                 lambda: mamba2.mamba2_decode(p, u, None, cfg),
-                 lambda: mamba2.init_mamba_cache(cfg, 1, torch.float32)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    p = _params(rcfg, seed=11)
+    u = _u((2, s, 32), seed=12)
+    tol = dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" else {}
+    def cast(tree):             # mamba2_init's dtypes: A_log, dt_bias, D f32
+        return {k: cast(v) if isinstance(v, dict) else jnp.asarray(v).astype(
+            jnp.float32 if k in ("A_log", "dt_bias", "D") else dtype)
+            for k, v in tree.items()}
+
+    def to_torch(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            getattr(torch, str(a.dtype)))
+
+    rp, ru = cast(p), jnp.asarray(u).astype(dtype)
+    ry, rc = jax.jit(lambda q, x: r_mamba.mamba2_apply(
+        q, x, rcfg, return_state=True))(rp, ru)
+    y, cache = mamba2.mamba2_apply(jax.tree_util.tree_map(to_torch, rp),
+                                   to_torch(ru), cfg, return_state=True)
+    assert cache["ssm"].dtype == torch.float32
+    assert cache["conv"].dtype == getattr(torch, dtype)
+    assert cache["conv"].shape == (2, 3, cfg.conv_dim)
+    _close(y.float(), np.asarray(ry.astype(jnp.float32)), **tol)
+    _close(cache["ssm"], np.asarray(rc["ssm"]), **tol)
+    _close(cache["conv"].float(), np.asarray(rc["conv"].astype(jnp.float32)),
+           **tol)
+    if s < 3:
+        assert not cache["conv"][:, :3 - s].any()
+
+
+def test_decode_steps_match_reference_and_the_chunked_pass():
+    """``init_mamba_cache`` (f32 state, zeros) and 8 ``mamba2_decode``
+    steps from it against the reference's step by step, outputs and cache,
+    and against ``mamba2_apply`` over the 8 positions; the cache is
+    written in place."""
+    rcfg, cfg = _cfgs()
+    p = _params(rcfg, seed=13)
+    u = _u((2, CHUNK, 32), seed=14)
+    rc = r_mamba.init_mamba_cache(rcfg, 2, jnp.float32)
+    cache = mamba2.init_mamba_cache(cfg, 2, torch.float32)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == {
+        "ssm": ((2, cfg.n_heads, cfg.d_state, cfg.headdim), torch.float32),
+        "conv": ((2, 3, cfg.conv_dim), torch.float32)}
+    rstep = jax.jit(lambda q, x, c: r_mamba.mamba2_decode(q, x, c, rcfg))
+    tp = _t(p)
+    outs = []
+    for i in range(CHUNK):
+        ry, rc = rstep(p, u[:, i:i + 1], rc)
+        y, same = mamba2.mamba2_decode(tp, torch.from_numpy(u[:, i:i + 1]),
+                                       cache, cfg)
+        assert same is cache
+        _close(y, ry)
+        outs.append(y)
+    _close(cache["ssm"], rc["ssm"])
+    _close(cache["conv"], rc["conv"])
+    whole, state = mamba2.mamba2_apply(tp, torch.from_numpy(u), cfg,
+                                       return_state=True)
+    _close(torch.cat(outs, dim=1), whole.numpy())
+    _close(cache["ssm"], state["ssm"].numpy())
 
 
 def test_ssm_leaves_init_rules_dtypes_and_order():

@@ -307,8 +307,8 @@ def test_init_distribution_and_refusals():
     and the SSM leaves of Jamba's hybrid pattern (``conv_w`` a normal
     times 0.1, ``conv_b`` zeros, ``A_log`` log(1 … 16), ``dt_bias`` 0,
     ``D`` 1; the last three f32 under bf16 params); every mixer and input
-    mode builds, and what still refuses is serving, naming ROADMAP item
-    13."""
+    mode builds, and ``decode_step`` runs one step from an empty cache on
+    every smoke config."""
     cfg = get_smoke_config("stablelm-12b").model
     model = make_model(cfg)
     g = torch.Generator().manual_seed(0)
@@ -350,11 +350,17 @@ def test_init_distribution_and_refusals():
     assert abs(float(jp[ssm + "conv_w"].float().std()) - 0.1) < 0.02
     assert jp["blocks.pos1.moe.router.w"].dtype == torch.float32
     for name in SMOKE:
-        built = make_model(get_smoke_config(name).model)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            built.decode_step(p, None, None, 0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model.prefill(p, None)
+        scfg = get_smoke_config(name).model
+        built = make_model(scfg)
+        sp = built.init(torch.Generator().manual_seed(3), device="cpu")
+        cache = built.init_cache(2, 4, device="cpu")
+        step = (torch.zeros((2, 1, scfg.d_model))
+                if scfg.input_mode == "embeds"
+                else torch.zeros((2,), dtype=torch.int32))
+        logits, same = built.decode_step(sp, cache, step, 0)
+        assert same is cache and logits.shape == (2, scfg.vocab)
+        assert logits.dtype == torch.float32 and bool(
+            torch.isfinite(logits).all())
 
 
 # ----------------------------------- PD-SGDM on the MLA and SSD smoke models
