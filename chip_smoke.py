@@ -229,16 +229,30 @@ matmuls:
    on the serving mesh 2 ("data") × 2 ("model"), 4 gloo ranks, batch 4,
    prompt 512, 32 new: the tokens equal one rank's, the logits within
    the bar, the bytes handed to ``all_reduce`` a decode step (and at the
-   prefill) equal to their count from the shapes, each rank's peak.
+   prefill) equal to their count from the shapes, each rank's peak;
+8. checks the round contract (``contracts``): the fast dense grid of
+   ``python -m repro_torch.analysis.run`` on the card (each combination
+   one warm and one checked round, the checked one under
+   ``torch.cuda.set_sync_debug_mode("error")``: p steps, no host sync, no
+   float64, no collective, the kernel layout flattened once, the schedule
+   chosen on the device, the membership mask), printing ``ok`` or
+   ``FAIL`` and the kernels each launched, and each of momentum, gossip,
+   sign pack/unpack and row gather/scatter launched; then the dry run of
+   ``sharded_olmo1b_tp2``'s config, one round on meta as rank 0 of a
+   4-rank fake group in a process of its own
+   (``repro_torch.launch.dryrun.meta_step``): its bytes a round to
+   ``isend`` equal to rank 0's measured bytes in this call (or to its
+   accounted ``bytes_per_comm_round`` where that phase did not run), and
+   its predicted peak a rank printed beside the measured one.
 
 Printed, in order: the card's ``nvidia-smi`` name and power limit, the build
 time, the kernel phase, the training phase, the round parity, the MoE,
 MLA and SSD layers, the four figure phases' and the elastic and topology
 phases' rows, verdicts and wall seconds, the sharded phases' rows, the
-serving rows, each phase's wall seconds, one JSON line ``{"kernels":
-[...]}`` (``momentum_update`` with its in-place time, and with
-``gossip_mix`` a ``full_width`` row for each path of ``FULL_WIDTH``)
-and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+serving rows, the contract rows, each phase's wall seconds, one JSON
+line ``{"kernels": [...]}`` (``momentum_update`` with its in-place time,
+and with ``gossip_mix`` a ``full_width`` row for each path of
+``FULL_WIDTH``) and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; so does a machine without a CUDA device, and a copy of the
 script outside a checkout (it imports the port from ``src/`` beside
 itself).  Imports nothing of JAX or of the JAX package.
@@ -5542,6 +5556,114 @@ def serve_sharded_phase(torch):
     verdict("serve: serve_sharded_olmo1b", missed, t0)
 
 
+# the kernels the fast dense grid's kernel rounds launch on the card
+CONTRACT_KERNELS = ("momentum_update", "gossip_mix", "sign_pack",
+                    "sign_unpack", "row_gather", "row_scatter")
+
+
+def sync_mode_control(torch) -> str:
+    """One PD-SGDM kernel round (K = 8 ring, the toy params) whose
+    ``grads_fn`` reads a value with ``.item()``, checked as the grid's
+    rounds are: the error ``set_sync_debug_mode("error")`` raised (on the
+    card), else the op log's host-read violation; "" if neither saw it."""
+    from repro_torch.analysis import round_check as rc
+    from repro_torch.core import DenseComm, make_optimizer, ring
+    opt = make_optimizer("pd_sgdm", DenseComm(ring(K), device=DEVICE),
+                         eta=0.05, mu=0.9, p=3, use_kernel=True)
+    params = rc.toy_params(K, device=DEVICE)
+    state = opt.init(params)
+    batches = rc.toy_batches(3, K, DEVICE)
+    params, state, _ = opt.round(state, params, rc.toy_grads_fn, batches)
+
+    def reads(params, batch):
+        loss, grads = rc.toy_grads_fn(params, batch)
+        host = float(batch["x"].sum().item())
+        return loss, {k: g + host for k, g in grads.items()}
+    rec = rc.trace_round(opt, params, state, batches, grads_fn=reads,
+                         sync_debug=DEVICE == "cuda")
+    if rec.sync_error:
+        return f"set_sync_debug_mode raised: {rec.sync_error[:80]}"
+    found = rc.check_no_host_sync(rec)
+    return f"the op log: {found[0][:80]}" if found else ""
+
+
+def contracts_phase(torch, tp_stats=None):
+    """``contracts``: the round contract on the card, and the dry run
+    against a measured run.
+
+    (a) The fast dense grid of ``python -m repro_torch.analysis.run``
+    (``phase_dense``) with ``--device cuda``: each combination's checked
+    round under ``torch.cuda.set_sync_debug_mode("error")``, its line
+    ``ok`` or ``FAIL`` and the kernels its two rounds launched; every
+    kernel of ``CONTRACT_KERNELS`` launches somewhere in the grid.
+
+    (b) ``sharded_olmo1b_tp2``'s ``RunCfg`` (``tp_run("full")``) run for
+    one round on meta, rank 0 of a 4-rank fake group, in a process of its
+    own (``repro_torch.launch.dryrun.meta_step``): its bytes a round
+    handed to ``isend`` equal what rank 0 of the measured phase handed
+    (``tp_stats``, when that phase ran in this call), else rank 0's
+    accounted ``bytes_per_comm_round``; its predicted peak a rank beside
+    the measured one, and their ratio (a finding, not a gate)."""
+    from repro_torch.analysis.round_check import kernel_launches
+    from repro_torch.analysis.run import phase_dense
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import meta_step, run_in_process
+    t0 = time.perf_counter()
+    print(f"contracts: (a) the fast dense grid on {SMI}, each checked round "
+          "under set_sync_debug_mode('error')")
+    before = kernel_launches()
+    failures = phase_dense(False, device=DEVICE)
+    after = kernel_launches()
+    launched = {n: after[n] - before[n] for n in after}
+    print("contracts: (a) the grid's launches "
+          + ", ".join(f"{n} {c}" for n, c in launched.items() if c))
+    missed = [f"{label}: {v}" for label, v in failures]
+    missed += [f"{n} never launched" for n in CONTRACT_KERNELS
+               if not launched[n]]
+    # the sync mode's control: the same check on a round whose gradient
+    # reads a value on the host must fail, by the mode's own error
+    caught = sync_mode_control(torch)
+    print(f"contracts: (a) control, an .item() in grads_fn: "
+          f"{caught or 'NOT caught'}")
+    if not caught:
+        missed.append("the sync debug mode missed a seeded .item()")
+
+    run = tp_run("full")
+    shape = InputShape("sharded_olmo1b_tp2", TP_OLMO["seq"],
+                       TP_K * TP_OLMO["batch"], "train")
+    t1 = time.perf_counter()
+    got = run_in_process(meta_step, run, run.model, shape, (TP_K,),
+                         ("data",), TP_AXIS)
+    sent = int(got["collective_wire_bytes"].get("collective-permute", 0))
+    mem = got["memory"]
+    predicted = (mem["argument_bytes"] + mem["temp_bytes"]) / 2 ** 20
+    print(f"contracts: (b) sharded_olmo1b_tp2 on meta, rank 0 of a 4-rank "
+          f"fake group ({time.perf_counter() - t1:.1f} s with the spawn): "
+          f"{sent:,} B a round to isend, collectives "
+          f"{got['collective_counts']}, arguments "
+          f"{mem['argument_bytes'] / 2 ** 20:.1f} MiB, temps "
+          f"{mem['temp_bytes'] / 2 ** 20:.1f} MiB")
+    if tp_stats is not None:
+        measured = tp_stats[0]["full"]["sent"]
+        print(f"contracts: (b) rank 0 of the measured sharded_olmo1b_tp2 "
+              f"handed {measured} B a round to isend")
+        if any(int(m) != sent for m in measured):
+            missed.append(f"dry-run bytes {sent} != measured {measured}")
+        peak = tp_stats[0]["full"]["peak_mib"]
+        print(f"contracts: (b) predicted peak a rank {predicted:.1f} MiB, "
+              f"measured {peak:.1f} MiB (rank 0, remat='full'), predicted "
+              f"/ measured {predicted / peak:.3f}, on {SMI}")
+    else:
+        accounted = int(got["bytes_per_comm_round"])
+        print(f"contracts: (b) sharded_olmo1b_tp2 did not run in this call: "
+              f"compared against rank 0's accounted bytes_per_comm_round "
+              f"{accounted:,} B; predicted peak a rank {predicted:.1f} MiB "
+              f"(no measured peak)")
+        if accounted != sent:
+            missed.append(f"dry-run bytes {sent} != accounted {accounted}")
+    verdict("contracts", missed, t0)
+
+
 def gloo_cuda_probe(mesh_rank):
     """Whether gloo's send/recv take a CUDA tensor (run apart from the
     script, in a child that may crash: ``--probe-gloo``)."""
@@ -5614,13 +5736,16 @@ PHASES = {
     "sharded_resnet_cpd": lambda torch, ctx: sharded_resnet_cpd_phase(torch),
     "sharded_embedding_cpd_sparse":
         lambda torch, ctx: sharded_embedding_phase(torch),
-    "sharded_olmo1b_tp2": lambda torch, ctx: sharded_tp_phase(torch),
+    "sharded_olmo1b_tp2": lambda torch, ctx: ctx.update(
+        tp_olmo=sharded_tp_phase(torch)),
     "pretrain_sweep_rows": lambda torch, ctx: pretrain_sweep_phase(torch),
     "sharded_qwen2_72b_fsdp": lambda torch, ctx: sharded_fsdp_phase(torch),
     "sharded_mla_ssd_tp2": lambda torch, ctx: sharded_mla_ssd_phase(torch),
     "serve_full_width": lambda torch, ctx: serve_full_width_phase(
         torch, ctx["profile"]),
     "serve_sharded_olmo1b": lambda torch, ctx: serve_sharded_phase(torch),
+    "contracts": lambda torch, ctx: contracts_phase(torch,
+                                                    ctx.get("tp_olmo")),
 }
 
 

@@ -170,7 +170,7 @@ class CPDSGDM(PDSGDM):
         a round where only ``act`` workers exchange, i.e. ``s`` and every
         copy-holder of ``s`` (each worker that receives from it) are
         active."""
-        act = np.asarray(act, dtype=bool)
+        act = np.asarray(act, dtype=bool)  # lint: allow
         ok = act.copy()
         for (k, j, _w) in exchanges(top):
             if not act[k]:

@@ -160,7 +160,7 @@ class CommBackend:
         top = self.topology_at(r)
         act = self.active_at(r)
         if act.all():
-            return np.asarray(top.W)
+            return top.W
         return masked_matrix(top, act)
 
     def effective_stale_matrix(self, r: int) -> np.ndarray:
@@ -172,7 +172,7 @@ class CommBackend:
         top = self.topology_at(r)
         act = self.active_at(r + 1)
         if act.all():
-            return np.asarray(top.W)
+            return top.W
         return masked_matrix(top, act)
 
     def edges_per_worker(self, r: int = 0):
@@ -533,7 +533,7 @@ class ShardedComm(CommBackend):
             dst, src = self._ends(ax, kind, arg)
             ship = take = True
             if source_ok is not None and source_ok[j] is not None:
-                ok = np.asarray(source_ok[j], dtype=bool)
+                ok = np.asarray(source_ok[j], dtype=bool)  # lint: allow
                 c = self._coord(ax)
                 s = ((c + arg) % self._axis_size(ax) if kind == "shift"
                      else int(arg[c]))
@@ -626,7 +626,7 @@ class ShardedComm(CommBackend):
         if self.membership is None:
             return None
         l = self.live_round(r, "stored_weights(r)")
-        act = np.asarray(self.active_at(l), dtype=bool)
+        act = np.asarray(self.active_at(l), dtype=bool)  # lint: allow
         if act.all():
             return None
         n = self.topology_at(l).n_workers
@@ -700,7 +700,7 @@ class ShardedComm(CommBackend):
         ``(shift, w)`` entry (never read back from the masked matrix, where
         the aliased ±K/2 shifts of ``exponential`` share a cell) and the
         lost mass moved to its self weight."""
-        act = np.asarray(act, dtype=bool)
+        act = np.asarray(act, dtype=bool)  # lint: allow
         if act.all():
             return self._mix_with(top, tree)
         if top.name == "disconnected":
@@ -719,7 +719,7 @@ class ShardedComm(CommBackend):
             entries.append((coeff, bool(ok.any()), (0, "shift", sh), ok))
             off_diag += coeff
         for (_ax, recv, w) in top.perms:
-            src = np.asarray(recv, dtype=np.int64)
+            src = np.asarray(recv, dtype=np.int64)  # lint: allow
             dst = np.empty(n, dtype=np.int64)
             dst[src] = ks
             coeff = w if src[k] != k and act[k] and act[src[k]] else 0.0

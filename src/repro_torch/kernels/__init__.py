@@ -9,7 +9,8 @@ row_gather     — row gather / scatter (CPD-SGDM sparse-rows wire)
 
 Each kernel module holds a wrapper that checks its operands, launches the
 CUDA kernel on a CUDA tensor (or raises) and runs the plain PyTorch version
-from :mod:`repro_torch.kernels.ref` on a CPU tensor, plus a plain integer
+from :mod:`repro_torch.kernels.ref` on a CPU tensor (and on a meta tensor,
+where it only propagates shapes: the dry run's), plus a plain integer
 ``launches`` counter on the wrapper.  Sources live in ``csrc/`` and are
 compiled for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`).
 ``ops.py`` holds the flatten-once ``KernelPlan`` layout.

@@ -6,6 +6,18 @@ import torch
 
 from repro_torch.kernels import LANE
 
+# the devices a wrapper takes: "cuda" launches the kernel; "cpu" and
+# "meta" run the plain version (:func:`plain_route`)
+DEVICES = ("cpu", "cuda", "meta")
+
+
+def plain_route(t) -> bool:
+    """Whether a wrapper runs the plain version on ``t``: on a CPU tensor,
+    and on a meta tensor, where it only propagates shapes (the caller put
+    the data there, so no card is hidden).  A CUDA tensor launches the
+    kernel or raises."""
+    return t.device.type in ("cpu", "meta")
+
 
 def check_operand(t, name: str, dtype, shape, device) -> None:
     """``t`` is a contiguous ``dtype`` tensor of exactly ``shape`` on
@@ -18,7 +30,7 @@ def check_operand(t, name: str, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in DEVICES:
         raise ValueError(f"{name}: unsupported device {t.device}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -38,9 +50,10 @@ def row_count(t, name: str) -> int:
 
 
 def check_matrix(t, name: str, like=None) -> None:
-    """``t`` is a contiguous f32 ``(rows, LANE)`` tensor on a CPU or CUDA
-    device — on ``like``'s device and of its shape when ``like`` is given —
-    and, on a CUDA device, 16-byte aligned for the kernels' float4 access."""
+    """``t`` is a contiguous f32 ``(rows, LANE)`` tensor on a CPU, CUDA or
+    meta device — on ``like``'s device and of its shape when ``like`` is
+    given — and, on a CUDA device, 16-byte aligned for the kernels' float4
+    access."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
     if like is not None:

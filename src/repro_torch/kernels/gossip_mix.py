@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.kernels import LANE
 from repro_torch.kernels import build
-from repro_torch.kernels._check import check_matrix, check_operand
+from repro_torch.kernels._check import (check_matrix, check_operand,
+                                        plain_route)
 from repro_torch.kernels.ref import gossip_mix_ref, gossip_shift_ref
 
 __all__ = ["gossip_mix", "gossip_mix_shifted", "LAUNCH_INPUTS",
@@ -104,7 +105,7 @@ def gossip_mix(tensors, *, weights):
     weights = _check_weights(len(tensors), weights, "tensor")
     for i, t in enumerate(tensors):
         check_matrix(t, f"tensors[{i}]", like=tensors[0] if i else None)
-    if tensors[0].device.type == "cpu":
+    if plain_route(tensors[0]):
         return gossip_mix_ref(tensors, weights)
     rows = tensors[0].shape[0]
     return _mix(tuple((t, w, 0, rows) for t, w in zip(tensors, weights)),
@@ -141,7 +142,7 @@ def gossip_mix_shifted(x, *, grid, axis: int, shifts, weights, lim=None,
     lim = rows if lim is None else min(int(lim), rows)
     if lim < 0:
         raise ValueError(f"lim {lim} < 0")
-    if x.device.type == "cpu":
+    if plain_route(x):
         return gossip_shift_ref(x, shifts, weights, grid=grid, axis=axis,
                                 lim=lim, nbr=nbr)
     size = grid[axis]

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import LANE
 from repro_torch.kernels import build
-from repro_torch.kernels._check import check_matrix
+from repro_torch.kernels._check import check_matrix, plain_route
 from repro_torch.kernels.ref import momentum_update_ref
 
 __all__ = ["momentum_update", "LANE"]
@@ -57,10 +57,12 @@ def momentum_update(x, m, g, lr, *, mu: float, wd: float = 0.0,
             and lr.numel() == 1 and lr.device == x.device):
         raise TypeError("lr must be a one-element float32 tensor on "
                         f"{x.device}")
-    if inplace and (_overlap(x, m) or _overlap(x, g) or _overlap(m, g)):
+    # a meta tensor has no bytes to overlap (every data_ptr is 0)
+    if inplace and x.device.type != "meta" and (
+            _overlap(x, m) or _overlap(x, g) or _overlap(m, g)):
         raise ValueError("momentum_update(inplace=True): x, m and g must "
                          "not overlap")
-    if x.device.type == "cpu":
+    if plain_route(x):
         x_new, m_new = momentum_update_ref(x, m, g, lr, mu=mu, wd=wd,
                                            nesterov=nesterov)
         if not inplace:

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.kernels import LANE
 from repro_torch.kernels import build
-from repro_torch.kernels._check import check_matrix, check_operand, row_count
+from repro_torch.kernels._check import (check_matrix, check_operand,
+                                        plain_route, row_count)
 from repro_torch.kernels.ref import (qsgd_bits, qsgd_inv_levels,
                                      qsgd_rows_ref, qsgd_rows_unpack_ref)
 
@@ -56,7 +57,7 @@ def qsgd_quant(x, *, levels: int):
     bits = qsgd_bits(levels)
     rows = row_count(x, "x")
     check_matrix(x, "x")
-    if x.device.type == "cpu":
+    if plain_route(x):
         return qsgd_rows_ref(x, levels)
     fn = build.load_function("qsgd_quant", "qsgd_quant_f32", _QUANT_ARGTYPES)
     packed = torch.empty((rows, packed_width(levels)), dtype=torch.uint8,
@@ -80,7 +81,7 @@ def qsgd_dequant(packed, norms, *, levels: int):
     check_operand(packed, "packed", torch.uint8, (rows, packed_width(levels)),
                   packed.device)
     check_operand(norms, "norms", torch.float32, (rows, 1), packed.device)
-    if packed.device.type == "cpu":
+    if plain_route(packed):
         return qsgd_rows_unpack_ref(packed, norms, levels)
     fn = build.load_function("qsgd_quant", "qsgd_dequant_f32",
                              _DEQUANT_ARGTYPES)

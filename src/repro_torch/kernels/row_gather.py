@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.kernels import LANE
 from repro_torch.kernels import build
-from repro_torch.kernels._check import check_operand
+from repro_torch.kernels._check import check_operand, plain_route
 from repro_torch.kernels.ref import row_gather_ref, row_scatter_ref
 
 __all__ = ["row_gather", "row_scatter", "LANE"]
@@ -60,7 +60,7 @@ def row_gather(x, idx, counts=None):
     if counts is not None:
         check_operand(counts, "counts", torch.float32, (k * rows, 1),
                       x.device)
-    if x.device.type == "cpu":
+    if plain_route(x):
         return row_gather_ref(x, idx, counts)
     fn = build.load_function("row_gather", "row_gather_f32", _GATHER_ARGTYPES)
     out = torch.empty((k, s, LANE), dtype=torch.float32, device=x.device)
@@ -83,7 +83,7 @@ def row_scatter(idx, vals, *, rows: int):
         raise ValueError(f"rows must be an int ≥ 1, got {rows!r}")
     check_operand(idx, "idx", torch.int32, (k, s), idx.device)
     check_operand(vals, "vals", torch.float32, (k, s, LANE), idx.device)
-    if idx.device.type == "cpu":
+    if plain_route(idx):
         return row_scatter_ref(idx, vals, rows=rows)
     fn = build.load_function("row_gather", "row_scatter_f32",
                              _SCATTER_ARGTYPES)

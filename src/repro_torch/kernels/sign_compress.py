@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.kernels import LANE
 from repro_torch.kernels import build
-from repro_torch.kernels._check import check_matrix, check_operand, row_count
+from repro_torch.kernels._check import (check_matrix, check_operand,
+                                        plain_route, row_count)
 from repro_torch.kernels.ref import sign_pack_rows_ref, sign_unpack_ref
 
 __all__ = ["sign_pack", "sign_unpack", "PACKED", "LANE"]
@@ -41,7 +42,7 @@ def sign_pack(x, counts):
     rows = row_count(x, "x")
     check_matrix(x, "x")
     check_operand(counts, "counts", torch.float32, (rows, 1), x.device)
-    if x.device.type == "cpu":
+    if plain_route(x):
         return sign_pack_rows_ref(x, counts)
     fn = build.load_function("sign_compress", "sign_pack_f32", _PACK_ARGTYPES)
     packed = torch.empty((rows, PACKED), dtype=torch.uint8, device=x.device)
@@ -63,7 +64,7 @@ def sign_unpack(packed, scales):
     check_operand(packed, "packed", torch.uint8, (rows, PACKED),
                   packed.device)
     check_operand(scales, "scales", torch.float32, (rows, 1), packed.device)
-    if packed.device.type == "cpu":
+    if plain_route(packed):
         return sign_unpack_ref(packed, scales)
     fn = build.load_function("sign_compress", "sign_unpack_f32",
                              _UNPACK_ARGTYPES)

@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.kernels import LANE
 from repro_torch.kernels import build
-from repro_torch.kernels._check import check_matrix, check_operand, row_count
+from repro_torch.kernels._check import (check_matrix, check_operand,
+                                        plain_route, row_count)
 from repro_torch.kernels.ref import (topk_rows_ref, topk_rows_unpack_ref,
                                      topk_width)
 
@@ -72,7 +73,7 @@ def topk_select(x, counts=None, *, fraction: float):
     check_matrix(x, "x")
     if counts is not None:
         check_operand(counts, "counts", torch.float32, (rows, 1), x.device)
-    if x.device.type == "cpu":
+    if plain_route(x):
         return topk_rows_ref(x, counts, fraction=fraction, width=w)
     fn = build.load_function("topk_select", "topk_select_f32",
                              _SELECT_ARGTYPES)
@@ -99,7 +100,7 @@ def topk_scatter(idx, vals):
                          f"with 1 ≤ W ≤ {MAX_WIDTH}")
     check_operand(idx, "idx", torch.int32, (rows, w), idx.device)
     check_operand(vals, "vals", torch.float32, (rows, w), idx.device)
-    if idx.device.type == "cpu":
+    if plain_route(idx):
         return topk_rows_unpack_ref(idx, vals, LANE)
     fn = build.load_function("topk_select", "topk_scatter_f32",
                              _SCATTER_ARGTYPES)

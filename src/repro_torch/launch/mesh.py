@@ -37,11 +37,22 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["BACKENDS", "DATA_AXIS", "INNER_TAG", "Layout", "MODEL_AXIS",
-           "POD_AXIS", "WorkerMesh", "init_workers", "make_layout",
-           "make_mesh", "rank_device"]
+__all__ = ["BACKENDS", "DATA_AXIS", "HW", "INNER_TAG", "Layout",
+           "MODEL_AXIS", "POD_AXIS", "WorkerMesh", "init_workers",
+           "make_layout", "make_mesh", "rank_device"]
 
 BACKENDS = ("nccl", "gloo")
+
+
+class HW:
+    """The card the roofline terms are taken on (the counterpart of the
+    reference's ``HW``, ``src/repro/launch/mesh.py:13-19``): NVIDIA's data
+    sheet for the H100 SXM5 80 GB HBM3 at its 700 W limit.  These are
+    data-sheet peaks, not measurements; no TPU figure remains here."""
+    PEAK_FLOPS_BF16 = 989.4e12      # dense bf16 tensor-core FLOP/s
+    HBM_BW = 3.35e12                # HBM3 bytes/s
+    ICI_BW = 450e9                  # NVLink bytes/s per direction
+    HBM_BYTES = 80e9                # HBM bytes
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -253,7 +264,17 @@ class WorkerMesh:
         return buf[:n].view(shape)
 
     def _sync(self):
-        torch.cuda.current_stream(self.device).synchronize()
+        """The staged wire's one deliberate host sync: the copies to the
+        pinned buffers must land before gloo reads them.  It is the one
+        site exempt from ``torch.cuda.set_sync_debug_mode`` (the round
+        contract's checks run rounds under "error"), so the mode is
+        switched off around it and restored."""
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            torch.cuda.current_stream(self.device).synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
 
     def all_reduce(self, t, group, op=dist.ReduceOp.SUM):
         """In-place ``all_reduce`` of ``t`` over ``group``; on a card under

@@ -197,7 +197,8 @@ def dispatch_rank(xf, top_w, key, counts, before, C: int, G: int,
     ``before`` plus its rank among this rank's slots of the key (in token
     order, as the reference's stable sort orders them), kept below C.
     Returns the (E, M, d) buffer of this rank's kept slots, expert-major
-    and in that order within an expert, and the combine metadata
+    and in that order within an expert (``min(G·C, N·k)`` rows an
+    expert, zero past its kept slots), and the combine metadata
     ``(sorted_e, pos, token_of_slot, w_of_slot, keep)``, each (1, N·k) in
     the sorted slot order (``pos``: the slot's row in its expert)."""
     N, d = xf.shape
@@ -216,7 +217,11 @@ def dispatch_rank(xf, top_w, key, counts, before, C: int, G: int,
     kept = torch.clamp(torch.minimum(C - before, counts), min=0)
     per_e = kept.reshape(E, G)
     kstart = (torch.cumsum(per_e, 1) - per_e).reshape(E * G)
-    M = max(int(per_e.sum(1).max()), 1)
+    # an expert's rows: a static bound on its kept slots here (at most C a
+    # group, and at most the rank's N·k slots), so no count is read on the
+    # host; the rows past an expert's kept slots stay zero and are never
+    # combined
+    M = min(G * C, N * k)
     sorted_e = sorted_key // G
     pos = kstart[sorted_key] + local
     row = torch.where(keep, sorted_e * M + pos, E * M)  # E·M: dropped

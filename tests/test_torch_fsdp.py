@@ -215,9 +215,10 @@ def test_profile_b_rounds_equal_one_rank_per_worker(eight, label):
 def test_profile_b_moe_runs_the_rank_slots(eight, label):
     """Under a split batch each rank's experts run only its own kept
     slots (which slots, ``test_profile_b_rounds_equal_one_rank_per_worker``
-    holds): its buffer holds, for every expert, as many rows as the most
-    that one expert keeps of them, and no more than the worker's (E, G·C)
-    buffer."""
+    holds): its buffer holds, for every expert, a row for each slot that
+    one expert keeps of them, in a static number of rows known without a
+    host read, the smaller of the worker's G·C and the rank's N·k slots,
+    so no more than the worker's (E, G·C) buffer."""
     res = eight[4]
     arch, over = RUNS[label]
     run = fsdp_ranks.own_run(arch, **over)
@@ -231,7 +232,9 @@ def test_profile_b_moe_runs_the_rank_slots(eight, label):
                 want[w]["keeps"]):
             assert table.shape[0] * fsdp_ranks.DATA == whole.shape[0]
             assert E == wE == run.model.n_experts
-            assert M == max(int(table.sum(0).max()), 1) <= wrows
+            kept = max(int(table.sum(0).max()), 1)
+            assert kept <= M == min(wrows, table.shape[0] * run.model.top_k)
+            assert M <= wrows
 
 
 @pytest.mark.parametrize("dim", [0, 1])
