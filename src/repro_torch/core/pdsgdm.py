@@ -62,6 +62,7 @@ from repro_torch.core.gossip import (CommBackend, HierarchicalComm,
                                      hier_bytes_per_round)
 from repro_torch.kernels import LANE
 from repro_torch.kernels import ops as kops
+from repro_torch.spans import ROUND_EXCHANGE, ROUND_GRAD, span
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["PDSGDMConfig", "PDSGDM"]
@@ -289,16 +290,19 @@ class PDSGDM:
                  if overlap and (gossip or self.overlap_refreshes) else None)
         losses = []
         for batch in _unstack(batches):
-            loss, grads = grads_fn(params, batch)
+            with span(ROUND_GRAD):
+                loss, grads = grads_fn(params, batch)
             params, state = self.local_step(state, params, grads)
             self._advance_host()
             if delta is not None and self.overlap_refreshes:
                 state = self.overlap_step_refresh(state, delta)
             losses.append(loss)
-        if gossip and overlap:
-            params, state = self.overlap_apply(state, params, delta)
-        elif gossip:
-            params, state = self.comm_round(state, params)
+        if gossip:
+            with span(ROUND_EXCHANGE):
+                if overlap:
+                    params, state = self.overlap_apply(state, params, delta)
+                else:
+                    params, state = self.comm_round(state, params)
         return params, state, torch.stack(losses)
 
     # -- kernel round: flatten once, local steps + gossip on (K, rows, 1024) --
@@ -545,7 +549,10 @@ class PDSGDM:
                                            gate, plan=plan)
         losses = []
         for batch in _unstack(batches):
-            loss, grads = grads_fn(plan.unflatten(x_mat), batch)
+            views = plan.unflatten(x_mat)
+            with span(ROUND_GRAD):
+                loss, grads = grads_fn(views, batch)
+            del views
             g_mat = plan.flatten(grads)
             # free the grad tree before the update allocates its outputs,
             # and the grad matrix before the next step's grads: at full
@@ -560,10 +567,12 @@ class PDSGDM:
             losses.append(loss)
         r = self._round_at(step)
         if gossip and overlap:
-            x_mat, mats = self.overlap_apply_mat(x_mat, mats, delta, r)
+            with span(ROUND_EXCHANGE):
+                x_mat, mats = self.overlap_apply_mat(x_mat, mats, delta, r)
         elif gossip and self.kernel_comm_supported:
-            x_mat, mats = self.comm_round_mat(
-                x_mat, mats, self.row_counts(plan, x_mat), r, plan=plan)
+            with span(ROUND_EXCHANGE):
+                x_mat, mats = self.comm_round_mat(
+                    x_mat, mats, self.row_counts(plan, x_mat), r, plan=plan)
         params = plan.unflatten(x_mat)
         state = self.unmat_state(plan, mats, state, step)
         if gossip and overlap:
@@ -573,7 +582,8 @@ class PDSGDM:
         elif gossip and not self.kernel_comm_supported:
             # e.g. CPD-SGDM with a codec that has no kernel format: the tree
             # comm round at the boundary
-            params, state = self.comm_round(state, params)
+            with span(ROUND_EXCHANGE):
+                params, state = self.comm_round(state, params)
         return params, state, torch.stack(losses)
 
     # -- comm-cost model ----------------------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.kernels import sign_compress as sc
 from repro_torch.kernels import topk_select as tk
 from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_shifted
 from repro_torch.kernels.momentum import momentum_update
+from repro_torch.spans import LAYOUT_FLATTEN, LAYOUT_UNFLATTEN, span
 from repro_torch.tree import leaf_order
 
 __all__ = ["KernelPlan", "PLAN_BLOCK_ROWS", "LANE", "momentum_update_mat",
@@ -135,12 +136,14 @@ class KernelPlan:
         the leaves' device."""
         first = tree[self.names[0]]
         lead = (first.shape[0],) if self.worker_dim else ()
-        mat = torch.zeros(lead + (self.rows, LANE), dtype=torch.float32,
-                          device=first.device)
-        for name, slot in zip(self.names, self.slots):
-            block = mat[..., slot.row_start:slot.row_start + slot.n_rows, :]
-            block.view(lead + (-1,))[..., :slot.size].copy_(
-                tree[name].reshape(lead + (-1,)))
+        with span(LAYOUT_FLATTEN):
+            mat = torch.zeros(lead + (self.rows, LANE), dtype=torch.float32,
+                              device=first.device)
+            for name, slot in zip(self.names, self.slots):
+                block = mat[..., slot.row_start:slot.row_start
+                            + slot.n_rows, :]
+                block.view(lead + (-1,))[..., :slot.size].copy_(
+                    tree[name].reshape(lead + (-1,)))
         return mat
 
     def unflatten(self, mat: torch.Tensor, dtype=None) -> dict:
@@ -148,10 +151,13 @@ class KernelPlan:
         dtype is f32; ``dtype`` overrides the recorded per-leaf dtypes."""
         lead = (mat.shape[0],) if self.worker_dim else ()
         out = {}
-        for name, slot in zip(self.names, self.slots):
-            block = mat[..., slot.row_start:slot.row_start + slot.n_rows, :]
-            flat = block.view(lead + (-1,))[..., :slot.size]
-            out[name] = flat.view(lead + slot.shape).to(dtype or slot.dtype)
+        with span(LAYOUT_UNFLATTEN):
+            for name, slot in zip(self.names, self.slots):
+                block = mat[..., slot.row_start:slot.row_start
+                            + slot.n_rows, :]
+                flat = block.view(lead + (-1,))[..., :slot.size]
+                out[name] = flat.view(lead + slot.shape).to(
+                    dtype or slot.dtype)
         return out
 
 

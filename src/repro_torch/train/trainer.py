@@ -40,6 +40,7 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.core.pdsgdm import PDSGDM
+from repro_torch.spans import MODEL_FORWARD, TRAINER_FLUSH, span
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["SimTrainer", "History", "ShardedTrainer", "gather_workers"]
@@ -110,8 +111,11 @@ class SimTrainer:
         self.opt = opt
         self.device = resolve_device(device)
         self.rounds_per_log = rounds_per_log
-        self._grad = torch.func.vmap(torch.func.grad_and_value(
-            lambda p, b: loss_fn(p, b)[0]))
+
+        def value(p, b):
+            with span(MODEL_FORWARD):
+                return loss_fn(p, b)[0]
+        self._grad = torch.func.vmap(torch.func.grad_and_value(value))
 
     def _grads_fn(self, params, batch):
         grads, losses = self._grad(params, batch)
@@ -156,15 +160,17 @@ class SimTrainer:
                                     max(1, -(-log_every // p)))
 
         def flush(losses, t0, params):
-            logged = len(hist.steps)
-            # .tolist() is the block's one host sync
-            _log_chunk(hist, torch.cat(losses).tolist(), t0, steps=steps,
-                       log_every=log_every, p=p, per_round_bytes=per_round)
-            new = len(hist.steps) - logged
-            if eval_fn is not None and new:
-                avg = tree_map(lambda x: x.mean(0, keepdim=True).expand_as(x)
-                               .contiguous(), params)
-                hist.eval_metric.extend([float(eval_fn(avg))] * new)
+            with span(TRAINER_FLUSH):
+                logged = len(hist.steps)
+                # .tolist() is the block's one host sync
+                _log_chunk(hist, torch.cat(losses).tolist(), t0, steps=steps,
+                           log_every=log_every, p=p,
+                           per_round_bytes=per_round)
+                new = len(hist.steps) - logged
+                if eval_fn is not None and new:
+                    avg = tree_map(lambda x: x.mean(0, keepdim=True)
+                                   .expand_as(x).contiguous(), params)
+                    hist.eval_metric.extend([float(eval_fn(avg))] * new)
 
         done = 0                                   # steps completed
         while done < n_rounds * p:
