@@ -366,6 +366,9 @@ FULL_WIDTH = {
                            seq=1024, batch=1, rows=226_560,  # lint: allow
                            used=226_369, plain_workers=8),
 }
+# the full-width paths whose momentum launch is also timed reading the
+# gradient's leaves (:func:`leaf_launch`): the benchmark's two models
+LEAF_PATHS = ("pd_sgdm_olmo1b", "pd_sgdm_mamba2")
 # the row blocks of the full-width checks: an eighth of a Mixtral worker,
 # so that the plain versions' temporaries and the int64 copies of
 # ``max_ulp`` fit beside the operands
@@ -630,7 +633,10 @@ def full_width_kernel_phase(torch, ops, bw, f32_peak, path: str) -> dict:
           f" ms against {timing['ms']:.5f} out of place (bound "
           f"{timing['bound_ms']:.5f}); plain version on {pw} rows")
     out["momentum_update"] = timing
-    del m, g
+    del g
+    if path in LEAF_PATHS:
+        timing.update(leaf_launch(torch, ops, plan, x, m, lr, gen, path))
+    del m
     x = x.view(shape)
     x[:, plan.used_rows:] = 0.0     # the plan's zero tail past the wire
     top = opt.comm.topology
@@ -660,11 +666,60 @@ def full_width_kernel_phase(torch, ops, bw, f32_peak, path: str) -> dict:
     del x
     gc.collect()
     torch.cuda.empty_cache()
-    keys = ("ms", "inplace_ms", "plain_ms", "plain_rows", "library_ms",
-            "bound_ms", "bound_by", "max_abs_err")
+    keys = ("ms", "inplace_ms", "leaves_ms", "flatten_ms", "plain_ms",
+            "plain_rows", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     return {name: dict({key: t[key] for key in keys if key in t},
                        path=path, shape=list(shape))
             for name, t in out.items()}
+
+
+def leaf_launch(torch, ops, plan, x, m, lr, gen, path: str) -> dict:
+    """PD-SGDM's local step at a full-width path's shape: the in-place
+    launch that reads the gradient's leaves where they lie
+    (``ops.Leaves``), held bit for bit against flattening them and the
+    matrix launch, with one launch and every leaf read in place
+    (``leaf_copies`` 0); then timed beside the flatten it replaces, over
+    5 launches.  ``x`` and ``m`` are the ``(K·rows, 1024)`` operands,
+    updated in place."""
+    from repro_torch.kernels.momentum import momentum_update
+    mu, wd = FULL_HYPER["mu"], FULL_HYPER["weight_decay"]
+    k = x.shape[0] // plan.rows
+    shapes = lm_model(path).param_shapes()
+    tree = {n: torch.randn((k,) + tuple(shapes[n]), generator=gen,
+                           device=x.device) for n in plan.names}
+    g = plan.flatten(tree)
+    xm, mm = x.clone(), m.clone()
+    ops.momentum_update_mat(xm, mm, g, mu=mu, lr=lr, weight_decay=wd,
+                            inplace=True)
+    del g
+    before = (momentum_update.launches, momentum_update.leaf_reads,
+              momentum_update.leaf_copies)
+    ops.momentum_update_mat(x.view(k, plan.rows, -1), m.view(k, plan.rows, -1),
+                            ops.Leaves(plan, tree), mu=mu, lr=lr,
+                            weight_decay=wd, inplace=True)
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(
+        (momentum_update.launches, momentum_update.leaf_reads,
+         momentum_update.leaf_copies), before))
+    if counts != (1, len(plan.names), 0):
+        raise AssertionError(f"{path} leaf launch: (launches, leaf reads, "
+                             f"leaf copies) {counts}")
+    if not (torch.equal(x, xm) and torch.equal(m, mm)):
+        raise AssertionError(f"{path} leaf launch differs from the flatten "
+                             "and the matrix launch")
+    del xm, mm
+    xs, ms = x.view(k, plan.rows, -1), m.view(k, plan.rows, -1)
+    out = dict(
+        leaves_ms=time_ms(torch, lambda: ops.momentum_update_mat(
+            xs, ms, ops.Leaves(plan, tree), mu=mu, lr=lr, weight_decay=wd,
+            inplace=True), reps=5, warmup=1),
+        flatten_ms=time_ms(torch, lambda: plan.flatten(tree), reps=5,
+                           warmup=1))
+    print(f"kernel momentum_update {path} in place on the gradient's "
+          f"{len(plan.names)} leaves: bit for bit the flatten and the matrix "
+          f"launch, 1 launch, 0 leaf copies; {out['leaves_ms']:.5f} ms, the "
+          f"flatten it replaces {out['flatten_ms']:.5f} ms")
+    return out
 
 
 def turns(torch, fns: dict) -> dict:
@@ -1623,6 +1678,24 @@ EXPECTED = {
                              "sign_pack": STEPS // P,
                              "sign_unpack": STEPS // P},
 }
+# the gradient leaves one step of each path reads in place and copies
+# first (``momentum_update.leaf_reads`` / ``leaf_copies``): PD's and CPD's
+# rounds hand the momentum launch every leaf; of ResNet-20's 61, the 21
+# conv kernels' grads (autograd leaves them as transposed views of the
+# HWIO leaf) and the 10-element head bias are copied; C-SGDM, MT and QG
+# flatten theirs and read none
+RESNET_LEAVES = (39, 22)
+LEAVES = {
+    **{path: RESNET_LEAVES for path in (
+        "pd_sgdm", "cpd_sgdm_sign", "cpd_sgdm_qsgd", "cpd_sgdm_topk",
+        "pd_sgdm_exp16", "pd_sgdm_onepeer", "pd_sgdm_churn",
+        "cpd_sgdm_sign_churn", "pd_sgdm_overlap", "pd_sgdm_bf16",
+        "pd_sgdm_hier", "pd_sgdm_overlap_churn")},
+    "cpd_sgdm_sparse": (1, 0),
+    "pd_sgdm_olmo1b": (8, 0), "pd_sgdm_mixtral": (13, 0),
+    "pd_sgdm_minicpm3": (17, 0), "pd_sgdm_mamba2": (12, 0),
+    "pd_sgdm_tinylm_hier": (12, 0), "cpd_sgdm_tinylm_sign": (12, 0),
+}
 OWNER = {"momentum_update": "pd_sgdm", "gossip_mix": "pd_sgdm",
          "sign_pack": "cpd_sgdm_sign", "sign_unpack": "cpd_sgdm_sign",
          "qsgd_quant": "cpd_sgdm_qsgd", "qsgd_dequant": "cpd_sgdm_qsgd",
@@ -1868,11 +1941,14 @@ def training_phase(torch, path: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+    mom = kernels["momentum_update"]
+    mom.leaf_reads = mom.leaf_copies = 0
     t0 = time.perf_counter()
     init, out, state, hist = drive(torch, opt, path, 0, STEPS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    leaves = (mom.leaf_reads, mom.leaf_copies)
     one = {k: v[0] for k, v in init.items()}
     cycle = opt.bytes_per_round_cycle(one)
     # bytes through the run's rounds, round r at cycle[r % T]
@@ -1901,11 +1977,16 @@ def training_phase(torch, path: str) -> dict:
     print(f"train: {path} {seconds:.3f} s for {STEPS} steps, "
           f"{seconds * opt.config.p / STEPS:.4f} s per round, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    print(f"train: {path} launches {launches}, bytes per round "
+    print(f"train: {path} launches {launches}, gradient leaves read in "
+          f"place {leaves[0]}, copied first {leaves[1]}, bytes per round "
           f"{cycle[0] if len(cycle) == 1 else cycle}, comm_mb {comm_mb}")
     want = {name: EXPECTED[path].get(name, 0) for name in kernels}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
+    want = tuple(STEPS * n for n in LEAVES.get(path, (0, 0)))
+    if leaves != want:
+        raise AssertionError(f"{path}: gradient leaves read in place and "
+                             f"copied first {leaves}, expected {want}")
     if cycle != WIRE_BYTES[path] or comm_mb != want_mb:
         raise AssertionError(f"{path}: {cycle} B per round, comm_mb "
                              f"{comm_mb}, expected {WIRE_BYTES[path]}")

@@ -12,7 +12,9 @@ runs one round and records it:
   collectives of a sharded round;
 * :class:`RoundWatch` counts the calls of ``grads_fn``, the optimizer's
   updates (``local_step``/``local_step_mat``) and the kernel layout's
-  ``KernelPlan.flatten``/``unflatten``, so each op, collective and flatten
+  ``KernelPlan.flatten``/``unflatten``/``leaf_table`` (the last the
+  momentum launch's read of the gradient's leaves where they lie, in
+  place of its flatten), so each op, collective and flatten
   knows the local step it ran in.
 
 Each check of the reference has a counterpart that returns violation
@@ -99,7 +101,9 @@ class RoundWatch:
     """Where the round is: gradients begun, updates done, inside a
     gradient or not; and the kernel layout's flattens in order, each
     ``(kind, key, grads, updates)``: the key is the tree's id for a
-    flatten, and for an unflatten the matrix's id and whether it copies."""
+    flatten and for a leaf table (kind ``"leaves"``: the tree handed to
+    the momentum launch as it lies), and for an unflatten the matrix's id
+    and whether it copies."""
     grads: int = 0
     updates: int = 0
     in_grad: bool = False
@@ -146,11 +150,17 @@ class RoundWatch:
         for name in ("local_step", "local_step_mat"):
             updates(name)
         flat, unflat = KernelPlan.flatten, KernelPlan.unflatten
+        table = KernelPlan.leaf_table
 
         def flatten(plan, tree):
             self.flattens.append(("flatten", id(tree), self.grads,
                                   self.updates))
             return flat(plan, tree)
+
+        def leaf_table(plan, tree):
+            self.flattens.append(("leaves", id(tree), self.grads,
+                                  self.updates))
+            return table(plan, tree)
 
         def unflatten(plan, mat, dtype=None):
             # whether it copies: an unflatten into f32 is views of the
@@ -163,10 +173,12 @@ class RoundWatch:
             return unflat(plan, mat, dtype)
 
         KernelPlan.flatten, KernelPlan.unflatten = flatten, unflatten
+        KernelPlan.leaf_table = leaf_table
         try:
             yield self
         finally:
             KernelPlan.flatten, KernelPlan.unflatten = flat, unflat
+            KernelPlan.leaf_table = table
             for name, own in saved.items():
                 if own is None:
                     delattr(opt, name)
@@ -376,10 +388,11 @@ def check_dense_no_collectives(rec: RoundRecord) -> List[str]:
 
 def check_kernel_flatten_once(rec: RoundRecord, p: int) -> List[str]:
     """The kernel layout flattens once: the params and each per-element
-    state tree once at the round boundary, the gradient once a step, and
-    no matrix is copied out of the layout twice at the end (an unflatten
-    into f32 is views; each step unflattens once, the views its gradient
-    reads)."""
+    state tree once at the round boundary, the gradient handed to the
+    layout once a step (flattened, or read as leaves by PD's in-place
+    momentum launch: a ``"leaves"`` event), and no matrix is
+    copied out of the layout twice at the end (an unflatten into f32 is
+    views; each step unflattens once, the views its gradient reads)."""
     out = []
     ev = rec.watch.flattens
     start = [i for (k, i, g, u) in ev if k == "flatten" and g == 0]
@@ -394,16 +407,18 @@ def check_kernel_flatten_once(rec: RoundRecord, p: int) -> List[str]:
                       else ""))
     for s in range(1, p + 1):
         n = sum(1 for (k, _i, g, u) in ev
-                if k == "flatten" and g == s and u == s - 1)
+                if k in ("flatten", "leaves") and g == s and u == s - 1)
         if n != 1:
-            out.append(f"kernel round: step {s} flattens {n} tree(s), "
-                       "expected its gradient once")
+            out.append(f"kernel round: step {s} hands {n} tree(s) to the "
+                       "layout (flattened or read as leaves), expected its "
+                       "gradient once")
         v = sum(1 for (k, _i, g, u) in ev
                 if k == "unflatten" and g == s - 1 and u == s - 1)
         if v > 1:
             out.append(f"kernel round: step {s} unflattens {v} times, "
                        "expected the one view its gradient reads")
-    late = [i for (k, i, g, u) in ev if k == "flatten" and u == p]
+    late = [i for (k, i, g, u) in ev
+            if k in ("flatten", "leaves") and u == p]
     if set(late) & set(start) or len(set(late)) != len(late):
         out.append("kernel round: a tree flattened again after the steps")
     ends = [i for (k, i, g, u) in ev

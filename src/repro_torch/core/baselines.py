@@ -26,6 +26,7 @@ from repro_torch.core.pdsgdm import PDSGDM, PDSGDMConfig
 from repro_torch.core.topology import complete
 from repro_torch.core.tracking import (MTDSGDMConfig, MTDSGDm, QGDSGDMConfig,
                                        QGDSGDm)
+from repro_torch.kernels import ops as kops
 
 __all__ = ["CSGDM", "d_sgd", "pd_sgd", "choco_sgd", "make_optimizer"]
 
@@ -47,9 +48,9 @@ class CSGDM(PDSGDM):
 
     # the kernel round: the mean of the gradient matrix, then one momentum
     # launch; no gossip
-    def local_step_mat(self, x_mat, mats, g_mat, step):
-        return super().local_step_mat(x_mat, mats, self.comm.mix(g_mat),
-                                      step)
+    def local_step_mat(self, x_mat, mats, g, step):
+        return super().local_step_mat(
+            x_mat, mats, self.comm.mix(kops.as_matrix(g)), step)
 
     def comm_round_mat(self, x_mat, mats, counts, r, *, plan=None):
         return x_mat, mats

@@ -343,15 +343,18 @@ class PDSGDM:
                 "buf": plan.unflatten(mats["mix_buf"], dtype=torch.float32)}
         return new_state
 
-    def local_step_mat(self, x_mat, mats, g_mat, step):
+    def local_step_mat(self, x_mat, mats, g, step):
         """One fused momentum update on the kernel layout (one launch),
         written over ``x_mat`` and ``mats["m"]``: both belong to the round
         (fresh from :meth:`KernelPlan.flatten` or from this launch), so no
         one else sees them change, and the round holds no copy of x' and
-        m' beside x and m."""
+        m' beside x and m.  ``g``: the gradient as ``kops.Leaves``, which
+        the launch reads leaf by leaf where autograd left them (no
+        gradient matrix is built), or as a matrix.  An override that needs
+        the gradient as a matrix takes ``kops.as_matrix(g)``."""
         cfg = self.config
         x_new, m_new = kops.momentum_update_mat(
-            x_mat, mats["m"], g_mat, mu=cfg.mu, lr=cfg.lr(step),
+            x_mat, mats["m"], g, mu=cfg.mu, lr=cfg.lr(step),
             weight_decay=cfg.weight_decay, nesterov=cfg.nesterov,
             inplace=True)
         return x_new, {**mats, "m": m_new}
@@ -525,8 +528,10 @@ class PDSGDM:
         """The fused round on the flatten-once kernel layout.
 
         Params and momentum are flattened into ``(K, rows, 1024)`` once;
-        each local step evaluates the grads on views of the param matrix,
-        flattens them (one copy) and runs one momentum launch; the gossip
+        each local step evaluates the grads on views of the param matrix
+        and hands them to :meth:`local_step_mat` as ``kops.Leaves``: PD's
+        one momentum launch reads them where they lie, and an override
+        that needs a matrix flattens them (one copy); the gossip
         runs on the same matrix; the trees are rebuilt once at the end.
         With ``overlap`` the stale correction is formed at the start, in a
         tail too (:meth:`overlap_begin_mat`), and lands at the end of a
@@ -553,13 +558,12 @@ class PDSGDM:
             with span(ROUND_GRAD):
                 loss, grads = grads_fn(views, batch)
             del views
-            g_mat = plan.flatten(grads)
-            # free the grad tree before the update allocates its outputs,
-            # and the grad matrix before the next step's grads: at full
-            # width each is a copy of the params
+            g = kops.Leaves(plan, grads)
+            # hold the grad tree only until the update has read it: at full
+            # width it is a copy of the params
             del grads
-            x_mat, mats = self.local_step_mat(x_mat, mats, g_mat, step)
-            del g_mat
+            x_mat, mats = self.local_step_mat(x_mat, mats, g, step)
+            del g
             if overlap and self.overlap_refreshes:
                 mats = self.overlap_refresh_mat(mats, delta)
             step = step + 1

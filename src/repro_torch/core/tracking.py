@@ -315,10 +315,11 @@ class MTDSGDm(PDSGDM):
         x_new, mats = super().overlap_apply_mat(x_mat, mats, delta, r)
         return x_new, {**mats, "mix_buf_c": mats["c"]}
 
-    def local_step_mat(self, x_mat, mats, g_mat, step):
+    def local_step_mat(self, x_mat, mats, g, step):
         """The tracking update as two fused AXPYs, then the momentum
         kernel on c."""
         cfg = self.config
+        g_mat = kops.as_matrix(g)
         g32 = (kops.gossip_mix_mat((g_mat, x_mat), (1.0, cfg.weight_decay))
                if cfg.weight_decay else g_mat)
         c_new = kops.gossip_mix_mat((mats["c"], g32, mats["g_prev"]),
@@ -486,12 +487,12 @@ class QGDSGDm(PDSGDM):
                                             dtype=torch.float32)
         return new_state
 
-    def local_step_mat(self, x_mat, mats, g_mat, step):
+    def local_step_mat(self, x_mat, mats, g, step):
         """One momentum launch; its m is discarded (the buffer moves only
         at a gossip)."""
         cfg = self.config
         x_new, _ = kops.momentum_update_mat(
-            x_mat, mats["m"], g_mat, mu=cfg.mu, lr=cfg.lr(step),
+            x_mat, mats["m"], kops.as_matrix(g), mu=cfg.mu, lr=cfg.lr(step),
             weight_decay=cfg.weight_decay, nesterov=False)
         return x_new, mats
 

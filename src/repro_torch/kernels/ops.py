@@ -14,7 +14,10 @@ with a leading worker dim.  ``KernelPlan`` maps a flat param dict onto it:
     extent that carries leaf data — what the wire ships.
 
 ``unflatten`` returns views into the matrix (no copy); ``flatten`` writes
-each leaf into a zeroed matrix (one copy per leaf).
+each leaf into a zeroed matrix (one copy per leaf).  A tree that one
+in-place momentum launch reads once (PD-SGDM's gradient) need not be
+flattened at all: :class:`Leaves` hands it over as it lies, and the launch
+reads each leaf through :meth:`KernelPlan.leaf_table`.
 """
 from __future__ import annotations
 
@@ -31,11 +34,13 @@ from repro_torch.kernels import row_gather as rg
 from repro_torch.kernels import sign_compress as sc
 from repro_torch.kernels import topk_select as tk
 from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_shifted
-from repro_torch.kernels.momentum import momentum_update
+from repro_torch.kernels.momentum import (MAX_LEAVES, LeafTable, leaf_table,
+                                          momentum_update)
 from repro_torch.spans import LAYOUT_FLATTEN, LAYOUT_UNFLATTEN, span
 from repro_torch.tree import leaf_order
 
-__all__ = ["KernelPlan", "PLAN_BLOCK_ROWS", "LANE", "momentum_update_mat",
+__all__ = ["KernelPlan", "Leaves", "PLAN_BLOCK_ROWS", "LANE", "as_matrix",
+           "momentum_update_mat",
            "gossip_mix_mat", "gossip_mix_shifted", "delayed_mix_mat",
            "tile_counts", "sign_pack", "sign_unpack", "qsgd_pack",
            "qsgd_unpack", "topk_pack", "topk_unpack", "row_gather",
@@ -146,6 +151,23 @@ class KernelPlan:
                     tree[name].reshape(lead + (-1,)))
         return mat
 
+    def leaf_table(self, tree: dict) -> LeafTable:
+        """The momentum kernel's table of ``tree``'s leaves on this layout
+        (:func:`repro_torch.kernels.momentum.leaf_table`): each leaf read
+        where it lies, from its slot's first row, or copied on its own
+        first where the kernel cannot read it there."""
+        first = tree[self.names[0]]
+        lead = (first.shape[0],) if self.worker_dim else ()
+        leaves = []
+        for name, slot in zip(self.names, self.slots):
+            leaf = tree[name]
+            if tuple(leaf.shape) != lead + slot.shape:
+                raise ValueError(f"leaf {name}: shape {tuple(leaf.shape)}, "
+                                 f"the plan's {lead + slot.shape}")
+            leaves.append(leaf)
+        return leaf_table(leaves, [s.row_start for s in self.slots],
+                          workers=lead[0] if lead else 1, rows=self.rows)
+
     def unflatten(self, mat: torch.Tensor, dtype=None) -> dict:
         """Inverse of :meth:`flatten`, as views into ``mat`` where the leaf
         dtype is f32; ``dtype`` overrides the recorded per-leaf dtypes."""
@@ -161,6 +183,22 @@ class KernelPlan:
         return out
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Leaves:
+    """A tree handed to a kernel on ``plan``'s layout as its leaves lie:
+    what ``plan.flatten(tree)`` would make, not yet made.  The in-place
+    momentum launch reads it through ``plan.leaf_table``; every other
+    consumer takes :func:`as_matrix`, the flatten."""
+    plan: KernelPlan
+    tree: dict
+
+
+def as_matrix(g) -> torch.Tensor:
+    """``g`` as a kernel matrix: :class:`Leaves` flattened (one copy a
+    leaf), a matrix as it is."""
+    return g.plan.flatten(g.tree) if isinstance(g, Leaves) else g
+
+
 def _rows2d(mat: torch.Tensor) -> torch.Tensor:
     """Collapse any leading worker dims onto the row axis: (..., R, 1024) →
     (N·R, 1024).  The kernels are elementwise, so rows of two workers may
@@ -174,10 +212,19 @@ def momentum_update_mat(x_mat, m_mat, g_mat, *, mu: float, lr,
                         inplace: bool = False):
     """Fused SGDM on the kernel layout; accepts (..., rows, 1024).  With
     ``inplace`` the update is written over ``x_mat`` and ``m_mat`` (folded
-    onto rows as views), which are returned."""
+    onto rows as views), which are returned.  ``g_mat`` may be
+    :class:`Leaves` of x's plan: the in-place launch reads each leaf
+    where it lies, through the plan's leaf table; out of place, or past
+    the ``MAX_LEAVES`` one launch's table holds, they are flattened
+    first."""
+    if isinstance(g_mat, Leaves):
+        g_mat = (g_mat.plan.leaf_table(g_mat.tree)
+                 if inplace and len(g_mat.plan.names) <= MAX_LEAVES
+                 else as_matrix(g_mat))
     if inplace:
+        g = g_mat if isinstance(g_mat, LeafTable) else _rows2d(g_mat)
         momentum_update(x_mat.view(-1, LANE), m_mat.view(-1, LANE),
-                        _rows2d(g_mat), lr, mu=mu, wd=weight_decay,
+                        g, lr, mu=mu, wd=weight_decay,
                         nesterov=nesterov, inplace=True)
         return x_mat, m_mat
     shape = x_mat.shape

@@ -21,8 +21,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["momentum_update_ref", "gossip_mix_ref", "gossip_shift_ref",
-           "tree_sum", "qsgd_bits",
+from repro_torch.kernels import LANE
+
+__all__ = ["momentum_update_ref", "leaf_matrix_ref", "gossip_mix_ref",
+           "gossip_shift_ref", "tree_sum", "qsgd_bits",
            "qsgd_inv_levels", "sign_pack_rows_ref", "sign_unpack_ref",
            "qsgd_rows_ref", "qsgd_rows_unpack_ref", "topk_width",
            "topk_rows_ref", "topk_rows_unpack_ref", "row_gather_ref",
@@ -36,6 +38,25 @@ def momentum_update_ref(x, m, g, lr, *, mu, wd=0.0, nesterov=False):
     m_new = mu * m + g
     d = (g + mu * m_new) if nesterov else m_new
     return x - lr * d, m_new
+
+
+def leaf_matrix_ref(table) -> torch.Tensor:
+    """The ``(workers, rows, LANE)`` g that the in-place momentum kernel
+    reads through a leaf ``table``
+    (:class:`repro_torch.kernels.momentum.LeafTable`): row r of worker k
+    from the last leaf that starts at or before r, its element
+    ``(r − row_start)·LANE + lane`` of the worker's slice; 0 at or past the
+    leaf's size and in rows before the first leaf."""
+    k, rows = table.workers, table.rows
+    first = table.leaves[0]
+    out = torch.zeros((k, rows * LANE), dtype=torch.float32,
+                      device=first.device)
+    ends = table.row_starts[1:] + (rows,)
+    for leaf, size, start, end in zip(table.leaves, table.sizes,
+                                      table.row_starts, ends):
+        n = min(size, (end - start) * LANE)
+        out[:, start * LANE:start * LANE + n] = leaf.reshape(k, -1)[:, :n]
+    return out.view(k, rows, LANE)
 
 
 def gossip_mix_ref(tensors, weights):

@@ -842,8 +842,8 @@ def test_kernels_bit_exact_past_two_to_the_31_elements():
 
 @pytest.mark.cuda
 def test_momentum_update_inplace_bit_exact_past_two_to_the_31_elements():
-    """``momentum_update(..., inplace=True)`` (the C entry
-    ``momentum_update_inplace_f32``, which PD-SGDM's round launches)
+    """``momentum_update(..., inplace=True)`` on a matrix (the C entry
+    ``momentum_update_leaves_f32`` with the one-entry table)
     writes over x and m exactly what the out-of-place launch returns, and
     so its plain version: at the main path's (4096, 1024) and a ragged 333
     rows, plain and Nesterov, and on (2,150,400, 1024) f32 operands, past
@@ -877,3 +877,123 @@ def test_momentum_update_inplace_bit_exact_past_two_to_the_31_elements():
     for r in range(0, rows, block):
         sl = slice(r, r + block)
         assert torch.equal(x[sl], xo[sl]) and torch.equal(m[sl], mo[sl]), r
+
+
+def _full_width_tree(arch, k, gen):
+    """Random worker-stacked leaves of ``arch`` at its published widths,
+    one layer, f32, and their ``KernelPlan``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.ops import KernelPlan
+    from repro_torch.models import make_model
+    model = make_model(dataclasses.replace(
+        get_config(arch).model, n_layers=1, param_dtype="float32",
+        compute_dtype="float32"))
+    tree = {n: torch.randn((k,) + tuple(s), generator=gen, device="cuda")
+            for n, s in model.param_shapes().items()}
+    return tree, KernelPlan.for_tree(tree, worker_dim=True)
+
+
+def _leaf_counters():
+    return (momentum_update.launches, momentum_update.leaf_reads,
+            momentum_update.leaf_copies)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b"])
+def test_momentum_leaf_table_bit_exact_at_full_width_leaf_shapes(arch):
+    """The in-place launch reading the gradient's leaves where they lie
+    (``ops.Leaves``, PD-SGDM's local step) writes over x and m exactly
+    what flattening the gradient and launching on the matrix writes, at
+    the model's full-width leaf shapes, K = 8 (OLMo-1B: 8 leaves, every
+    one whole rows; Mamba2-1.3B: 12, some ending mid-row, and an
+    alignment tail past ``used_rows``), plain and Nesterov.  One leaf is
+    handed over transposed (not contiguous): it is copied first and
+    counted in ``leaf_copies``, the rest in ``leaf_reads``; one launch a
+    step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    tree, plan = _full_width_tree(arch, 8, gen)
+    name = next(n for n in plan.names
+                if tree[n].dim() == 3 and min(tree[n].shape[1:]) > 1)
+    tree[name] = tree[name].transpose(1, 2).contiguous().transpose(1, 2)
+    assert not tree[name].is_contiguous()
+    lr = torch.tensor(0.25, device="cuda")
+    for nesterov in (False, True):
+        x, m = (torch.randn((8, plan.rows, LANE), generator=gen,
+                            device="cuda") for _ in range(2))
+        xm, mm = x.clone(), m.clone()
+        g = plan.flatten(tree)
+        kops.momentum_update_mat(xm, mm, g, mu=0.9, lr=lr, weight_decay=1e-4,
+                                 nesterov=nesterov, inplace=True)
+        del g
+        before = _leaf_counters()
+        got = kops.momentum_update_mat(x, m, kops.Leaves(plan, tree), mu=0.9,
+                                       lr=lr, weight_decay=1e-4,
+                                       nesterov=nesterov, inplace=True)
+        torch.cuda.synchronize()
+        assert got[0] is x and got[1] is m
+        n = len(plan.names)
+        assert tuple(a - b for a, b in zip(_leaf_counters(), before)) == (
+            1, n - 1, 1)
+        assert _same_bits(x, xm) and _same_bits(m, mm), (arch, nesterov)
+        del x, m, xm, mm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves", [64, 65])
+def test_momentum_leaf_table_past_one_struct_bit_exact(n_leaves):
+    """One launch's table holds 64 leaves: a tree of 64 is read through
+    it, a tree of 65 is flattened first (no leaf read), and
+    ``momentum_update`` refuses a table of 65; either way one launch a
+    step, bit for bit what the matrix launch writes: ragged leaves (sizes
+    4 to 5,000, some not a multiple of 4 and so copied first), K = 3,
+    plain and Nesterov.  A table that starts past row 0 reads 0 there, as
+    its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.momentum import leaf_table
+    from repro_torch.kernels.ref import leaf_matrix_ref
+    rng = np.random.default_rng(n_leaves)
+    sizes = rng.integers(4, 5000, size=n_leaves)
+    sizes[::7] = 4 * (sizes[::7] // 4)
+    gen = torch.Generator(device="cuda").manual_seed(n_leaves)
+    tree = {f"l{j:03d}": torch.randn((3, int(s)), generator=gen,
+                                      device="cuda")
+            for j, s in enumerate(sizes)}
+    plan = kops.KernelPlan.for_tree(tree, worker_dim=True)
+    lr = torch.tensor(0.05, device="cuda")
+    for nesterov in (False, True):
+        x, m = (torch.randn((3, plan.rows, LANE), generator=gen,
+                            device="cuda") for _ in range(2))
+        xm, mm = x.clone(), m.clone()
+        kops.momentum_update_mat(xm, mm, plan.flatten(tree), mu=0.9, lr=lr,
+                                 weight_decay=1e-4, nesterov=nesterov,
+                                 inplace=True)
+        before = _leaf_counters()
+        kops.momentum_update_mat(x, m, kops.Leaves(plan, tree), mu=0.9,
+                                 lr=lr, weight_decay=1e-4, nesterov=nesterov,
+                                 inplace=True)
+        torch.cuda.synchronize()
+        copies = int((sizes % 4 != 0).sum()) if n_leaves <= 64 else 0
+        reads = n_leaves - copies if n_leaves <= 64 else 0
+        assert tuple(a - b for a, b in zip(_leaf_counters(), before)) == (
+            1, reads, copies)
+        assert _same_bits(x, xm) and _same_bits(m, mm), nesterov
+    if n_leaves > 64:
+        with pytest.raises(ValueError, match="more than one launch holds"):
+            momentum_update(x.view(-1, LANE), m.view(-1, LANE),
+                            plan.leaf_table(tree), lr, mu=0.9, inplace=True)
+    # rows before the table's first leaf read 0
+    leaves = [torch.randn((2, 3000), generator=gen, device="cuda")
+              for _ in range(2)]
+    table = leaf_table(leaves, (5, 9), workers=2, rows=16)
+    x, m = (torch.randn((32, LANE), generator=gen, device="cuda")
+            for _ in range(2))
+    want = momentum_update(x, m, leaf_matrix_ref(table).view(-1, LANE), lr,
+                           mu=0.9, wd=1e-4)
+    momentum_update(x, m, table, lr, mu=0.9, wd=1e-4, inplace=True)
+    torch.cuda.synchronize()
+    assert _same_bits(x, want[0]) and _same_bits(m, want[1])

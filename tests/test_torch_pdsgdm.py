@@ -37,6 +37,7 @@ from repro_torch.core import (DenseComm, exponential,  # noqa: E402
                               make_topology, ring, schedules, torus)
 from repro_torch.kernels.gossip_mix import gossip_mix  # noqa: E402
 from repro_torch.kernels.momentum import momentum_update  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.ops import KernelPlan  # noqa: E402
 from repro_torch.models.resnet import resnet20_init, resnet20_loss  # noqa: E402
 from repro_torch.train.trainer import SimTrainer  # noqa: E402
@@ -171,18 +172,27 @@ def test_trainer_matches_reference_on_a_smooth_model():
                                    rtol=1e-3, atol=1e-4)
 
 
-def test_kernel_path_equals_tree_path():
+@pytest.mark.parametrize("route", ["flatten", "leaves"])
+def test_kernel_path_equals_tree_path(route, monkeypatch):
     """The port's kernel round against its own tree round, on one round of
     ResNet-20.  The p local steps are bit-identical (same ops, same
-    rounding).  The gossip sums the same three products, as an AXPY on one
-    side and as ``W @ flat`` on the other, so it is held to 1 ulp per added
-    term of Σⱼ|w_kj·x_j| (measured: 2 ulps, the bound).  Relative to the result the
-    gap is unbounded where the terms cancel (measured 8,420 ulps)."""
+    rounding), with the gradient read through the momentum launch's leaf
+    table (``leaves``: ResNet-20's leaves end mid-row, and the conv
+    kernels' grads and the 10-element head bias are copied first) and
+    handed over flattened (``flatten``, the hand-off before the table).
+    The gossip sums the same three products, as an AXPY on one side and
+    as ``W @ flat`` on the other, so it is held to 1 ulp per added term
+    of Σⱼ|w_kj·x_j| (measured: 2 ulps, the bound).  Relative to the result
+    the gap is unbounded where the terms cancel (measured 8,420 ulps)."""
     stacked, batches = _ref_setup()
     params = params_from_reference(stacked, "cpu")
     k_opt, t_opt = (make_optimizer("pd_sgdm", DenseComm(ring(K), device="cpu"),
                                    use_kernel=uk, **HYPER)
                     for uk in (True, False))
+    if route == "flatten":
+        step = k_opt.local_step_mat
+        monkeypatch.setattr(k_opt, "local_step_mat", lambda x, mats, g, s: (
+            step(x, mats, kops.as_matrix(g), s)), raising=False)
     grads_fn = SimTrainer(resnet20_loss, k_opt, device="cpu")._grads_fn
     round_batches = _port_batch_fn(batches)
     stack = {k: torch.stack([round_batches(t)[k] for t in range(P)])

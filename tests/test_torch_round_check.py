@@ -2,7 +2,8 @@
 (``repro_torch.analysis.round_check``): the reference's fast dense grid is
 green at head, and each seeded violation is caught with its own message —
 an extra exchange inside the steps, an ``.item()`` in ``grads_fn``, a
-float64 op, a second flatten of the params, and a live worker that reads a
+float64 op, a second flatten of the params, a step that hands its
+gradient to the layout twice or not at all, and a live worker that reads a
 dead worker's column.  The reference's own checks
 (``tests/test_analysis_jaxpr.py``) are the counterpart; the fake process
 group of the sharded case lives inside its ``fake_group`` block."""
@@ -12,7 +13,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.analysis import round_check as rc  # noqa: E402
 from repro_torch.analysis.run import fake_group, phase_dense  # noqa: E402
-from repro_torch.core import DenseComm, make_optimizer, ring  # noqa: E402
+from repro_torch.core import (DenseComm, complete,  # noqa: E402
+                              make_optimizer, ring)
+from repro_torch.core import SignCompressor  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 
 K = 8
 
@@ -32,8 +36,21 @@ def test_fast_dense_grid_green_at_head(capsys):
 
 
 def _opt(name="pd_sgdm", kernel=False, **kw):
+    if name == "c_sgdm":     # p = 1 on the complete graph
+        return make_optimizer(name, DenseComm(complete(K), device="cpu"),
+                              eta=0.05, use_kernel=kernel, **kw)
+    if name == "cpd_sgdm":
+        kw.update(gamma=0.4, compressor=SignCompressor())
     return make_optimizer(name, DenseComm(ring(K), device="cpu"), eta=0.05,
                           mu=0.9, p=3, use_kernel=kernel, **kw)
+
+
+def _flatten_route(opt):
+    """``opt``'s local step handed the gradient flattened into a matrix
+    (the hand-off before the leaf table), instead of ``ops.Leaves``."""
+    step = opt.local_step_mat
+    opt.local_step_mat = lambda x, mats, g, s: step(x, mats,
+                                                    kops.as_matrix(g), s)
 
 
 def _round(opt, grads_fn=rc.toy_grads_fn):
@@ -43,11 +60,31 @@ def _round(opt, grads_fn=rc.toy_grads_fn):
     return rc.trace_round(opt, params, state, batches, grads_fn=grads_fn)
 
 
-def test_clean_round_records_steps_and_flattens():
-    rec = _round(_opt(kernel=True))
-    assert rec.watch.grads == 3 and rec.watch.updates == 3
-    assert rc.check_round_steps(rec, 3) == []
-    assert rc.check_kernel_flatten_once(rec, 3) == []
+@pytest.mark.parametrize("name,route,handoff", [
+    ("pd_sgdm", "flatten", "flatten"),
+    ("pd_sgdm", "leaves", "leaves"),
+    ("cpd_sgdm", "leaves", "leaves"),
+    # these mix or track the gradient as a matrix: still flattened
+    ("c_sgdm", "leaves", "flatten"),
+    ("mt_dsgdm", "leaves", "flatten"),
+    ("qg_dsgdm", "leaves", "flatten"),
+])
+def test_clean_round_records_steps_and_flattens(name, route, handoff):
+    """A clean kernel round hands each step's gradient to the layout
+    once: read as leaves by PD's and CPD's in-place momentum launch, or
+    flattened where it is handed over as a matrix; C-SGDM, MT and QG
+    flatten theirs."""
+    opt = _opt(name, kernel=True)
+    if route == "flatten":
+        _flatten_route(opt)
+    p = opt.config.p
+    rec = _round(opt)
+    assert rec.watch.grads == p and rec.watch.updates == p
+    assert rc.check_round_steps(rec, p) == []
+    assert rc.check_kernel_flatten_once(rec, p) == []
+    kinds = [k for (k, _i, g, u) in rec.watch.flattens
+             if k in ("flatten", "leaves") and g == u + 1]
+    assert kinds == [handoff] * p
     assert rc.check_no_host_sync(rec) == [] and rc.check_no_f64(rec) == []
     names = {o.name for o in rec.ops}
     assert "aten::mm" in names or "aten::addmm" in names or names
@@ -69,9 +106,11 @@ def _f64_grads(params, batch):
     ("f64", rc.check_no_f64, "float64 operand"),
     ("flatten", None, "flattened more than once at the round boundary"),
     ("steps", None, "expected p=3 local steps"),
+    ("grad_twice", None, "step 2 hands 2 tree(s) to the layout"),
+    ("grad_none", None, "step 2 hands 0 tree(s) to the layout"),
 ])
 def test_seeded_violation_caught(seed, check, needle):
-    opt = _opt(kernel=seed == "flatten")
+    opt = _opt(kernel=seed in ("flatten", "grad_twice", "grad_none"))
     grads_fn = {"item": _item_grads, "f64": _f64_grads}.get(
         seed, rc.toy_grads_fn)
     if seed == "flatten":
@@ -86,6 +125,22 @@ def test_seeded_violation_caught(seed, check, needle):
         rec = rc.trace_round(opt, params, state, rc.toy_batches(3, K))
         v = rc.check_kernel_flatten_once(rec, 3)
         assert any("(the params among them)" in m for m in v), v
+    elif seed in ("grad_twice", "grad_none"):
+        # step 2's gradient read as leaves and also flattened, or
+        # replaced by a matrix that is not the gradient
+        inner = opt.local_step_mat
+
+        def local_step_mat(x_mat, mats, g, step):
+            calls[0] += 1
+            if calls[0] == 2:
+                if seed == "grad_twice":
+                    kops.as_matrix(g)        # flattened beside the leaf read
+                else:                        # never reaches the layout
+                    g = torch.zeros_like(x_mat)
+            return inner(x_mat, mats, g, step)
+        calls = [0]
+        opt.local_step_mat = local_step_mat
+        v = rc.check_kernel_flatten_once(_round(opt), 3)
     elif seed == "steps":
         params = rc.toy_params(K)
         batches = rc.toy_batches(4, K)             # a step too many

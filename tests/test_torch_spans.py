@@ -19,9 +19,10 @@ from repro_torch.core import (DenseComm, make_compressor, make_optimizer,
 from repro_torch.train.trainer import SimTrainer
 
 K, P, ROUNDS = 4, 2, 2
-# flattens a round on the kernel layout: x and m (CPD: x̂ too) once, and
-# each local step's gradient
-FLATTENS = {"pd": 2 + P, "cpd": 3 + P}
+# flattens a round on the kernel layout: x and m (CPD: x̂ too) once; each
+# local step's gradient is read as leaves by the momentum launch, not
+# flattened
+FLATTENS = {"pd": 2, "cpd": 3}
 
 
 def _loss(params, batch):

@@ -92,10 +92,21 @@ def test_seeded_worker_axis_all_gather_caught():
     assert "outside the gradient" in v[0]
 
 
-def test_seeded_out_of_place_momentum_caught():
+@pytest.mark.parametrize("route", ["flatten", "leaves"])
+def test_seeded_out_of_place_momentum_caught(route, monkeypatch):
+    """The watch sees each momentum call of a sharded kernel round (a
+    ``worker_dim=False`` plan), in place with x and m written over, and
+    catches an out-of-place one; ``leaves``: the gradient handed over as
+    ``ops.Leaves`` and read through the leaf table (as K = 1);
+    ``flatten``: handed over flattened into a matrix."""
     from repro_torch.kernels import ops as kops
     with fake_group(K):
         pack = _pack(kernel=True)
+        if route == "flatten":
+            step = pack.opt.local_step_mat
+            monkeypatch.setattr(pack.opt, "local_step_mat", lambda x, mats,
+                                g, s: step(x, mats, kops.as_matrix(g), s),
+                                raising=False)
         good = []
         _traced(pack, good)
         assert len(good) == 2 and wc.check_in_place(good, expected=2) == []
