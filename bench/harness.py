@@ -155,10 +155,21 @@ def reference_readings(setup: Setup, stream, precision: str = "f32",
 
 @dataclasses.dataclass
 class Traced:
-    """What a per-layer reader reads: the traced window's device events
-    ``(name, cat, start_us, end_us, in_exchange)`` (see
-    :func:`bench.tracing.device_events`), its length and busy time, and
-    the work it held."""
+    """What a per-layer reader reads, of the traced window:
+
+    * ``dev``: its device events ``(name, cat, start_us, end_us,
+      in_exchange)`` (see :func:`bench.tracing.device_events`);
+    * ``events``: the whole trace's chrome-trace events, host and device,
+      whose ``user_annotation`` events hold the program's spans (read
+      through :mod:`bench.spans`) and the harness's window and exchange;
+    * ``counters``: each of the program's counters
+      (:meth:`bench.program.Program.counters`) by name, its change over the
+      window's ``train`` call;
+    * its length and busy time, and the work it held: rounds, tokens,
+      the traffic's sequence and workers, the parameters and the layout's
+      used rows a worker, the configuration's ``model``, the card's peaks
+      (``peaks.json``) and the device milliseconds of each
+      :func:`bench.tracing.kind`."""
     dev: list
     window_s: float
     busy_s: float
@@ -171,6 +182,8 @@ class Traced:
     model: dict
     peaks: dict
     ms_by_kind: dict
+    events: list = dataclasses.field(default_factory=list)
+    counters: dict = dataclasses.field(default_factory=dict)
 
 
 def _peaks() -> dict:
@@ -180,17 +193,20 @@ def _peaks() -> dict:
 
 def traced_window(setup: Setup, x, feed, rounds: int) -> tuple:
     """One ``train`` call of ``rounds`` rounds under the profiler, the
-    optimizer's exchange inside spans of its own: ``(Traced, breakdown,
-    history)``."""
+    optimizer's exchange inside spans of its own, the program's counters
+    read on either side of it: ``(Traced, breakdown, history)``."""
     from torch.profiler import ProfilerActivity, profile, record_function
     acts = [ProfilerActivity.CPU]
     if torch.device(setup.device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    before = setup.prog.counters()
     with setup.prog.exchange_spans(tracing.EXCHANGE), \
             profile(activities=acts) as prof:
         with record_function(tracing.WINDOW):
             _, _, hist = setup.prog.train(x, feed, rounds * setup.p)
             _sync(setup.device)
+    after = setup.prog.counters()
+    counters = {k: v - before.get(k, 0) for k, v in after.items()}
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -207,7 +223,8 @@ def traced_window(setup: Setup, x, feed, rounds: int) -> tuple:
         tokens=rounds * setup.p * setup.tokens_per_step, seq=t["seq"],
         workers=t["workers"], elems=setup.elems, blocks=setup.used_rows,
         model=setup.cell.model, peaks=_peaks(),
-        ms_by_kind=tracing.ms_by_kind(dev))
+        ms_by_kind=tracing.ms_by_kind(dev), events=events,
+        counters=counters)
     return traced, tracing.breakdown(events, dev, lo, hi), hist
 
 

@@ -8,7 +8,8 @@ over the model's loss.  What the benchmark takes from the program is
 this object, its ``train`` call, and the parameter shapes it declares;
 in a traced window it puts the optimizer's exchange inside spans of its
 own (:meth:`Program.exchange_spans`), so that the trace can tell the
-exchange's products from the gradient's.
+exchange's products from the gradient's, and reads the program's counters
+on either side of the window (:meth:`Program.counters`).
 """
 from __future__ import annotations
 
@@ -70,6 +71,27 @@ class Program:
             yield
         finally:
             del self.opt.comm_round_mat
+
+    def counters(self) -> dict:
+        """The program's counters by name, as they stand: the port's
+        ``repro_torch.spans.counters()`` where it has one; else each kernel
+        wrapper's launches under the wrapper's name, as
+        ``analysis.round_check.kernel_launches`` lists them, and the
+        momentum launch's ``momentum_update.leaf_reads`` and
+        ``momentum_update.leaf_copies``; ``{}`` where the port has
+        neither."""
+        try:
+            from repro_torch import spans
+            if hasattr(spans, "counters"):
+                return dict(spans.counters())
+            from repro_torch.analysis.round_check import kernel_launches
+            from repro_torch.kernels.momentum import momentum_update
+        except ImportError:
+            return {}
+        out = dict(kernel_launches())
+        for k in ("leaf_reads", "leaf_copies"):
+            out[f"momentum_update.{k}"] = getattr(momentum_update, k)
+        return out
 
     def train(self, params, batch_fn, steps: int, **kw):
         """``SimTrainer.train``: ``(params, state, history)``."""

@@ -18,10 +18,9 @@ the spans lie in the same trace as the device events, on one clock:
 
 Both return None where the trace holds none of the spans asked for (a
 program that has no spans), and 0 where the spans are there but nothing
-fell in them.  They read the whole trace's events, host and device:
-a per-layer reader gets only :class:`bench.harness.Traced`, whose
-``dev`` holds the device events alone, so no metric reads the spans
-until ``Traced`` carries the trace's events too (``PERF.md`` §7).
+fell in them.  They read the whole trace's events, host and device,
+which a per-layer reader finds in :class:`bench.harness.Traced`'s
+``events``.
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ launched from a second thread while the first is inside the gradient's
 span), a flatten of the gradient, a momentum kernel outside every span,
 an exchange and a flush, whose copy to the host is followed by an idle
 gap.  A kernel launched inside the last flush runs after the window.
-Then on the traces of the tiny cells' program on the CPU."""
+The five span metrics' readers on the same trace through
+:class:`bench.harness.Traced`.  Then on the traces of the tiny cells'
+program on the CPU."""
 import os
 import tempfile
 from pathlib import Path
@@ -13,6 +15,7 @@ from pathlib import Path
 import pytest
 
 from bench import harness, spans, spec, tracing, weights
+from bench.spec import ROOT, reader
 
 FIXTURE = Path(__file__).with_name("trace_spans.json")
 NO_SPANS = Path(__file__).with_name("trace_small.json")
@@ -141,3 +144,76 @@ def test_intervals_are_disjoint_and_sorted(fixture):
                           (spans.ROUND_GRAD, spans.MODEL_FORWARD))
     # two rounds: each forward inside its gradient
     assert ivs == [(1100, 1300), (1600, 1750)]
+
+
+SPAN_METRICS = ("grad_ms_per_round", "forward_ms_per_round",
+                "layout_ms_per_round", "exchange_ms_per_round",
+                "flush_idle_ms_per_round")
+
+
+class _Root:
+    root = ROOT
+
+
+def _traced(window: Window, rounds: int) -> harness.Traced:
+    return harness.Traced(
+        dev=window.dev, window_s=(window.hi - window.lo) * 1e-6,
+        busy_s=tracing.busy_us(window.dev, window.lo, window.hi) * 1e-6,
+        rounds=rounds, tokens=1000, seq=4, workers=2, elems=1000, blocks=1,
+        model={}, peaks={}, ms_by_kind=tracing.ms_by_kind(window.dev),
+        events=window.events)
+
+
+@pytest.mark.parametrize("metric,want", [
+    # the fixture's two rounds, each sum worked above from its events:
+    # sgemms 50 + 30 us and backward kernels 80 + 40 us
+    ("grad_ms_per_round", 0.200 / 2),
+    # the sgemms alone
+    ("forward_ms_per_round", 0.080 / 2),
+    # fill 10, copy 15, the gradients' copies 12 and 10
+    ("layout_ms_per_round", 0.047 / 2),
+    # the gossip kernels, 18 and 20 us
+    ("exchange_ms_per_round", 0.038 / 2),
+    # the gaps at 1,475-1,625 and 1,880-2,000 us
+    ("flush_idle_ms_per_round", 0.270 / 2),
+])
+def test_span_metric_readers(fixture, metric, want):
+    assert reader(_Root(), metric)(_traced(fixture, 2)) == \
+        pytest.approx(want)
+
+
+@pytest.mark.parametrize("metric", SPAN_METRICS)
+def test_span_metric_without_spans_is_left_out(metric):
+    # a trace with no program span, and a Traced that carries no events
+    bare = _traced(Window(tracing.load(NO_SPANS)), 2)
+    assert reader(_Root(), metric)(bare) is None
+    assert reader(_Root(), metric)(
+        harness.Traced(**{**bare.__dict__, "events": []})) is None
+
+
+def test_span_metrics_and_momentum_hold_the_busy_ms(fixture):
+    # gradient + layout + exchange + momentum: the busy time a round, less
+    # the flushes' two 5 us copies to the host
+    traced = _traced(fixture, 2)
+    read = {m: reader(_Root(), m)(traced) for m in SPAN_METRICS}
+    momentum = traced.ms_by_kind["momentum"] / 2
+    assert read["grad_ms_per_round"] + read["layout_ms_per_round"] + \
+        read["exchange_ms_per_round"] + momentum == \
+        pytest.approx(traced.busy_s * 1e3 / 2 - 0.005)
+
+
+def test_traced_window_carries_the_programs_spans(tiny_root):
+    # the harness's traced window of the tiny dense cell on the CPU: the
+    # trace's events hold the program's gradient and flush spans, and
+    # each counter's change over the window is there
+    setup = harness.Setup(spec.load("tiny-dense.pd", root=tiny_root), 12,
+                          "cpu")
+    x = weights.stack(setup.x0(), setup.cell.traffic["workers"])
+    traced, _brk, _hist = harness.traced_window(
+        setup, x, setup.stream(2 * setup.p).feed(0), 2)
+    names = {e.get("name") for e in traced.events
+             if e.get("cat") == "user_annotation"}
+    assert {spans.ROUND_GRAD, spans.TRAINER_FLUSH} <= names
+    assert len(tracing.spans(traced.events, spans.ROUND_GRAD)) == \
+        2 * setup.p
+    assert set(traced.counters) == set(setup.prog.counters())
