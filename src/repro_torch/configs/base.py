@@ -2,9 +2,14 @@
 
 Port of ``src/repro/configs/base.py``: the same frozen dataclasses, field
 for field and default for default, so ``dataclasses.asdict`` of a port
-config equals the reference's.  Fields that only the TPU backend reads
+config holds the reference's.  Fields that only the TPU backend reads
 (``remat``, ``fsdp_min_size``, ``kernel_interpret``, the sharding levers)
-are kept as inert data.
+are kept as inert data.  ``ModelCfg`` has four fields of its own, for
+DeepSeek-V2's expert layer (``PORT_ONLY``): an expert width other than
+``d_ff``, shared experts, an expert layer that holds only some of the
+experts it routes over, and top-k gates left un-normalised; at their
+defaults a config is the reference's.  MLA takes a direct query where
+``q_lora_rank`` is 0 or None.
 """
 from __future__ import annotations
 
@@ -13,7 +18,14 @@ from typing import Optional, Tuple
 
 from repro_torch.kernels import LANE
 
-__all__ = ["LayerSpec", "ModelCfg", "ParallelCfg", "OptimCfg", "RunCfg"]
+__all__ = ["LayerSpec", "ModelCfg", "ParallelCfg", "OptimCfg", "RunCfg",
+           "PORT_ONLY"]
+
+
+# ModelCfg's fields that the reference's ModelCfg lacks, at their defaults
+# in every registered config
+PORT_ONLY = {"moe_d_ff": None, "n_shared_experts": 0, "experts_held": None,
+             "moe_norm_topk": True}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +60,13 @@ class ModelCfg:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     moe_groups: int = 1             # per-group dispatch (see moe.MoECfg)
-    # --- MLA (minicpm3)
+    moe_d_ff: Optional[int] = None  # an expert's width (None: d_ff)
+    n_shared_experts: int = 0       # experts every token passes through
+    experts_held: Optional[int] = None  # routed experts held (None: all)
+    moe_norm_topk: bool = True      # renormalise the top-k gates
+    # --- MLA (minicpm3; deepseek-v2 with q_lora_rank 0 or None)
     use_mla: bool = False
-    q_lora_rank: int = 768
+    q_lora_rank: Optional[int] = 768
     kv_lora_rank: int = 256
     qk_nope_dim: int = 64
     qk_rope_dim: int = 32
@@ -86,10 +102,18 @@ class ModelCfg:
     def n_repeats(self) -> int:
         return self.n_layers // len(self.pattern)
 
+    @property
+    def expert_d_ff(self) -> int:
+        """An expert's width: ``moe_d_ff``, or ``d_ff`` where it is None."""
+        return self.moe_d_ff or self.d_ff
+
     def params_count(self) -> int:
-        """Approximate parameter count (embeddings + blocks + head)."""
+        """Approximate parameter count (embeddings + blocks + head): the
+        matrices of every layer, an expert layer's router, its held
+        experts and its shared ones; norms and biases are left out."""
         d, f, v = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim
+        gate = 3 if self.gated_mlp else 2
         total = v * d * (1 if self.tie_embeddings else 2)
         for spec in self.pattern:
             n = self.n_repeats
@@ -98,9 +122,11 @@ class ModelCfg:
                 total += n * self.n_heads * hd * d
             elif spec.mixer == "mla":
                 qk = self.qk_nope_dim + self.qk_rope_dim
-                total += n * (d * self.q_lora_rank
-                              + self.q_lora_rank * self.n_heads * qk
-                              + d * self.kv_lora_rank + d * self.qk_rope_dim
+                q_lora = self.q_lora_rank or 0
+                q = (d * q_lora + q_lora * self.n_heads * qk if q_lora
+                     else d * self.n_heads * qk)
+                total += n * (q + d * self.kv_lora_rank
+                              + d * self.qk_rope_dim
                               + self.kv_lora_rank * self.n_heads
                               * (self.qk_nope_dim + self.v_head_dim)
                               + self.n_heads * self.v_head_dim * d)
@@ -111,19 +137,22 @@ class ModelCfg:
                                    + di // self.ssm_headdim)
                               + 4 * conv + di * d)
             if spec.ffn in ("dense", "dense+moe"):
-                total += n * d * f * (3 if self.gated_mlp else 2)
+                total += n * d * f * gate
             if spec.ffn in ("moe", "dense+moe"):
-                total += n * (d * self.n_experts
-                              + self.n_experts * d * f
-                              * (3 if self.gated_mlp else 2))
+                held = (self.n_experts if self.experts_held is None
+                        else self.experts_held)
+                total += n * (d * self.n_experts + (
+                    held + self.n_shared_experts) * d * self.expert_d_ff
+                    * gate)
         return total
 
     def active_params_count(self) -> int:
-        """Params touched per token (MoE: top_k of n_experts)."""
+        """Params touched per token (MoE: top_k of n_experts, and every
+        shared expert)."""
         if self.n_experts == 0:
             return self.params_count()
         dense_cfg = dataclasses.replace(
-            self, n_experts=max(self.top_k, 1),
+            self, n_experts=max(self.top_k, 1), experts_held=None,
             pattern=self.pattern)
         return dense_cfg.params_count()
 

@@ -266,7 +266,18 @@ def shard_plan(cfg, shapes: Dict[str, tuple], size: int, index: int = 0,
                fsdp_size: int = 1, fsdp_index: int = 0) -> ShardPlan:
     """The plan of a model of config ``cfg`` with whole per-worker leaf
     ``shapes`` (``Model.param_shapes(whole=True)``), over a model axis of
-    ``size`` and an FSDP axis of ``fsdp_size``."""
+    ``size`` and an FSDP axis of ``fsdp_size``.  Raises ``ValueError``
+    naming each field away from its default that no split is written for:
+    DeepSeek-V2's expert layer (``PORT_ONLY``) and MLA's direct query."""
+    from repro_torch.configs.base import PORT_ONLY
+    bad = [f for f, default in PORT_ONLY.items()
+           if getattr(cfg, f, default) != default]
+    if getattr(cfg, "use_mla", False) and not cfg.q_lora_rank:
+        bad.append("q_lora_rank")
+    if bad:
+        raise ValueError(f"shard_plan: no split for {', '.join(bad)} "
+                         f"(the sharded backend takes them at their "
+                         f"defaults)")
     return ShardPlan(int(size), int(index), dict(shapes),
                      {n: param_split(n, cfg, int(size)) for n in shapes},
                      int(fsdp_size), int(fsdp_index),

@@ -18,7 +18,9 @@ are f32, scaled by ``head_dim ** -0.5``, masked entries filled with
 probabilities cast to v's dtype.
 
 MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2): the queries
-come from a low-rank ``wdq`` → RMSNorm ``q_norm`` → ``wuq``, the keys'
+come from a low-rank ``wdq`` → RMSNorm ``q_norm`` → ``wuq``, or where
+``q_lora_rank`` is 0 or None (DeepSeek-V2-Lite) from one direct ``wq``
+(d, heads·(qk_nope_dim + qk_rope_dim)); the keys'
 and values' shared latent from ``wdkv`` → RMSNorm ``kv_norm``, expanded
 per head by ``wuk`` and ``wuv``; ``wkr`` gives one rotary key head of
 ``qk_rope_dim``, broadcast (``expand``, no copy) to every head after its
@@ -60,6 +62,9 @@ cache to its decode step; the port writes where the donated buffer
 would be reused).  Under ``tp`` a rank's GQA cache holds its
 ``n_kv_heads/tp`` heads, and ``wo`` stays row-parallel; MLA's latents
 stay whole on every rank and are expanded by the rank's heads.
+
+The training pass of the MLA mixer (:func:`mla_apply`) runs inside the
+span :data:`repro_torch.spans.ATTN_MLA`.
 """
 from __future__ import annotations
 
@@ -71,6 +76,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (apply_rope, copy_to_model, dense,
                                        rmsnorm, row_dense, tp_active)
+from repro_torch.spans import ATTN_MLA, span
 
 __all__ = ["AttnCfg", "attention_apply", "attention_prefill",
            "attention_decode", "init_kv_cache", "attend_full",
@@ -91,8 +97,9 @@ class AttnCfg:
     q_chunk: int = 1024      # blockwise query-chunk length  # lint: allow
     blockwise_threshold: int = 8192  # use blockwise when seq >= this
     rope_theta: float = 10000.0
-    # MLA dims (minicpm3 / deepseek-v2 style); read by the MLA path only
-    q_lora_rank: int = 768
+    # MLA dims (minicpm3 / deepseek-v2 style); read by the MLA path only;
+    # q_lora_rank 0 or None: a direct query
+    q_lora_rank: Optional[int] = 768
     kv_lora_rank: int = 256
     qk_nope_dim: int = 64
     qk_rope_dim: int = 32
@@ -311,10 +318,13 @@ def _mla_qkv(params, x, cfg: AttnCfg, cos, sin, positions, tp=None):
     ``tp`` the latents' and the rotary head's gradients summed over the
     worker's ranks."""
     b, s, _ = x.shape
-    cq = copy_to_model(rmsnorm(params["q_norm"], dense(params["wdq"], x)),
-                       tp)
-    q = dense(params["wuq"], cq).reshape(b, s, cfg.n_heads,
-                                         cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if cfg.q_lora_rank:
+        cq = copy_to_model(rmsnorm(params["q_norm"],
+                                   dense(params["wdq"], x)), tp)
+        q = dense(params["wuq"], cq)
+    else:
+        q = dense(params["wq"], copy_to_model(x, tp))
+    q = q.reshape(b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
                                  dim=-1)
     q_rope = apply_rope(q_rope, cos, sin, positions)
@@ -364,11 +374,13 @@ def _mha(cfg: AttnCfg) -> AttnCfg:
 
 def mla_apply(params, x, cfg: AttnCfg, cos, sin, positions=None, tp=None):
     """Multi-head latent attention of ``x`` (b, s, d) with params ``{"wdq",
-    "q_norm", "wuq", "wdkv", "kv_norm", "wkr", "wuk", "wuv", "wo"}``;
-    ``cos``/``sin`` are tables of ``qk_rope_dim``.  Under ``tp`` this
-    rank's heads of ``wuq``/``wuk``/``wuv``/``wo``, the output summed over
-    the worker's ranks."""
-    return _mla_attention(params, x, cfg, cos, sin, positions, tp)[0]
+    "q_norm", "wuq", "wdkv", "kv_norm", "wkr", "wuk", "wuv", "wo"}`` (a
+    direct query: ``"wq"`` in place of the first three); ``cos``/``sin``
+    are tables of ``qk_rope_dim``.  Under ``tp`` this rank's heads of
+    ``wuq``/``wuk``/``wuv``/``wo``, the output summed over the worker's
+    ranks."""
+    with span(ATTN_MLA):
+        return _mla_attention(params, x, cfg, cos, sin, positions, tp)[0]
 
 
 def mla_prefill(params, x, cfg: AttnCfg, cos, sin, max_len: int,

@@ -52,18 +52,47 @@ are the reference's.  The rank's buffer holds only its own kept slots,
 experts run about 1/D of the worker's rows on each of D ranks.  M is
 read on the host once a call: this path runs in plain autograd on the
 sharded backend, never under ``vmap``.
+
+DeepSeek-V2's expert layer adds four things, each off by default:
+
+* ``d_ff`` is the experts' width, which may differ from the dense MLP's;
+* ``n_shared`` shared experts, one gated MLP of width ``n_shared·d_ff``
+  (``params["shared"]``, as :func:`repro_torch.models.layers.mlp` takes
+  it) on every token, added to the routed sum;
+* ``norm_topk`` False: the slots are weighted by their gates as the
+  softmax gave them, not renormalised over the top-k;
+* ``held`` experts ``first … first + held − 1`` of the ``n_experts`` the
+  router scores: a card's share of a layer divided over several by
+  expert parallelism.  The router, its top-k and the capacity C (of
+  ``n_experts``) are the whole layer's, so a slot's rank in its expert
+  is what it would be on any card; the buffer and the expert products
+  cover the held experts alone (``wi``/``wg``/``wo`` hold ``held``
+  experts), and a slot routed to another expert adds nothing.  The
+  output is this card's part of the layer: the shares of all cards,
+  with the shared experts counted once, sum to the whole layer's.  The
+  sharded backend (``inner``) holds every expert.
+
+The layer's steps run inside the spans :data:`repro_torch.spans.MOE_ROUTE`
+(router and load-balance loss), :data:`~repro_torch.spans.MOE_DISPATCH`,
+:data:`~repro_torch.spans.MOE_EXPERTS` (routed and shared products) and
+:data:`~repro_torch.spans.MOE_COMBINE`, and each call counts its slots
+and its expert rows (:func:`repro_torch.spans.counters`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (copy_to_model, dense,
+from repro_torch import spans
+from repro_torch.models.layers import (copy_to_model, dense, mlp,
                                        reduce_from_model)
+from repro_torch.spans import (MOE_COMBINE, MOE_DISPATCH, MOE_EXPERTS,
+                               MOE_ROUTE, span)
 
 __all__ = ["MoECfg", "moe_apply", "capacity", "route", "dispatch",
            "dispatch_rank"]
@@ -79,6 +108,26 @@ class MoECfg:
     router_aux_weight: float = 0.01
     gated: bool = True
     n_groups: int = 1           # 1: one global sort; G: per-group sorts
+    n_shared: int = 0           # shared experts, of width d_ff each
+    held: Optional[int] = None  # experts held here (None: n_experts)
+    first: int = 0              # the first held expert's id
+    norm_topk: bool = True      # renormalise the top-k gates
+
+    def __post_init__(self):
+        if not 0 <= self.first <= self.first + self.n_held <= \
+                self.n_experts:
+            raise ValueError(f"experts {self.first} … "
+                             f"{self.first + self.n_held - 1} held of "
+                             f"{self.n_experts}")
+
+    @property
+    def n_held(self) -> int:
+        return self.n_experts if self.held is None else self.held
+
+    @property
+    def partial(self) -> bool:
+        """Whether some routed experts lie elsewhere."""
+        return self.n_held < self.n_experts
 
 
 def capacity(n_tokens: int, cfg: MoECfg) -> int:
@@ -87,18 +136,28 @@ def capacity(n_tokens: int, cfg: MoECfg) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def _slot_weights(top_w, cfg: MoECfg):
+    """Each slot's weight: its gate, renormalised over the token's top-k
+    unless ``norm_topk`` is off."""
+    if not cfg.norm_topk:
+        return top_w
+    return top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+
+
 def dispatch(xg, top_w, top_e, C: int, cfg: MoECfg):
     """Sort-based dispatch of G groups at once.
 
     xg: (G, n, d); top_w, top_e: (G, n, k), the gates' top-k.  Returns the
-    (G, E, C, d) buffer and the combine metadata ``(sorted_e, rank,
-    token_of_slot, w_of_slot, keep)``, each (G, n·k) in the sorted slot
-    order; ``keep`` is False on the dropped slots.
+    (G, H, C, d) buffer of the H held experts and the combine metadata
+    ``(sorted_e, rank, token_of_slot, w_of_slot, keep)``, each (G, n·k) in
+    the sorted slot order (``sorted_e`` the held expert's index, from
+    ``first``); ``keep`` is False on the dropped slots and on those routed
+    to experts not held.
     """
     G, n, d = xg.shape
     k, E = cfg.top_k, cfg.n_experts
     dev = xg.device
-    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    top_w = _slot_weights(top_w, cfg)
     flat_e = top_e.reshape(G, n * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)          # (G, n·k)
     sorted_e = torch.gather(flat_e, -1, order)
@@ -110,18 +169,28 @@ def dispatch(xg, top_w, top_e, C: int, cfg: MoECfg):
     rank = (torch.arange(n * k, device=dev)
             - torch.gather(starts, -1, sorted_e))
     keep = rank < C
+    H = cfg.n_held
+    if cfg.partial:
+        # the held experts' counts and starts; the others' slots drop
+        lo = cfg.first
+        counts, starts = counts[:, lo:lo + H], starts[:, lo:lo + H]
+        local = sorted_e - lo
+        here = (local >= 0) & (local < H)
+        keep = keep & here
+        # a slot elsewhere reads held expert 0 at rank C − 1 and is masked
+        sorted_e = torch.where(here, local, 0)
     # buf[g, e, c] is sorted slot starts[e] + c where c < counts[e]
     slots = torch.arange(C, device=dev)
-    valid = slots < counts[..., None]                            # (G, E, C)
-    pos = torch.where(valid, starts[..., None] + slots, 0).reshape(G, E * C)
+    valid = slots < counts[..., None]                            # (G, H, C)
+    pos = torch.where(valid, starts[..., None] + slots, 0).reshape(G, H * C)
     tok = torch.gather(token_of_slot, -1, pos)
     base = (torch.arange(G, device=dev) * n)[:, None]
     rows = torch.index_select(xg.reshape(G * n, d), 0,
                               (tok + base).reshape(-1))
-    buf = torch.where(valid.reshape(G * E * C, 1), rows,
+    buf = torch.where(valid.reshape(G * H * C, 1), rows,
                       torch.zeros((), dtype=xg.dtype, device=dev))
     meta = (sorted_e, rank, token_of_slot, w_of_slot, keep)
-    return buf.reshape(G, E, C, d), meta
+    return buf.reshape(G, H, C, d), meta
 
 
 def _combine(out_buf, meta, n: int):
@@ -204,7 +273,7 @@ def dispatch_rank(xf, top_w, key, counts, before, C: int, G: int,
     N, d = xf.shape
     k, E = cfg.top_k, cfg.n_experts
     dev = xf.device
-    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    top_w = _slot_weights(top_w, cfg)
     order = torch.argsort(key, stable=True)
     sorted_key = key[order]
     token_of_slot = order // k
@@ -234,43 +303,80 @@ def dispatch_rank(xf, top_w, key, counts, before, C: int, G: int,
 def moe_apply(params, x, cfg: MoECfg, tp=None, inner=None):
     """x: (b, s, d) → (y, aux_loss); ``params`` as the reference's
     ``{"router": {"w"}, "wi", "wg", "wo"}`` (under ``tp`` the experts'
-    slices of f).  ``inner``: the group of ranks over which the worker's
-    batch is split (this rank's aux loss is then its share)."""
+    slices of f), with ``"shared"`` (``{"wi", "wg", "wo"}``, each
+    ``{"w"}``) where ``n_shared`` > 0.  ``inner``: the group of ranks over
+    which the worker's batch is split (this rank's aux loss is then its
+    share)."""
     b, s, d = x.shape
     N = b * s
     E, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(N, d)
 
-    gates, top_w, top_e = route(params, xf, cfg)
+    with span(MOE_ROUTE):
+        gates, top_w, top_e = route(params, xf, cfg)
 
-    # the Switch load-balance loss: w · E · Σ_e P_e f_e
-    ones = (top_e[..., None] == torch.arange(E, device=x.device)).to(
-        torch.float32).sum(-2)
-    if inner is None:
-        P_e = gates.mean(0)
-        f_e = ones.mean(0) / k
-    else:
-        Nw = N * inner.size                    # the worker's tokens
-        P_e = gates.sum(0) / Nw
-        f_e = inner.all_reduce(ones.sum(0), dist.ReduceOp.SUM) / Nw / k
-    aux = cfg.router_aux_weight * E * torch.sum(P_e * f_e)
+        # the Switch load-balance loss: w · E · Σ_e P_e f_e
+        ones = (top_e[..., None] == torch.arange(E, device=x.device)).to(
+            torch.float32).sum(-2)
+        if inner is None:
+            P_e = gates.mean(0)
+            f_e = ones.mean(0) / k
+        else:
+            Nw = N * inner.size                    # the worker's tokens
+            P_e = gates.sum(0) / Nw
+            f_e = inner.all_reduce(ones.sum(0), dist.ReduceOp.SUM) / Nw / k
+        aux = cfg.router_aux_weight * E * torch.sum(P_e * f_e)
 
     if inner is not None:
-        G, n = _groups(N * inner.size, cfg)
-        key, counts = slot_keys(top_e, inner.index * N, G, n, cfg)
-        # the slots of each (expert, group) on the worker's earlier ranks
-        before = inner.all_gather(counts[None], 0)[:inner.index].sum(0)
-        buf, meta = dispatch_rank(xf, top_w, key, counts, before,
-                                  capacity(n, cfg), G, cfg)
-        out = _expert_ffn(params, buf, tp)
-        y = _combine(out[None], meta, N).reshape(N, d)
+        if cfg.partial:
+            raise ValueError("moe_apply: a split batch (inner) holds every "
+                             "expert; held < n_experts is not supported")
+        with span(MOE_DISPATCH):
+            G, n = _groups(N * inner.size, cfg)
+            key, counts = slot_keys(top_e, inner.index * N, G, n, cfg)
+            # the slots of each (expert, group) on the worker's earlier
+            # ranks
+            before = inner.all_gather(counts[None], 0)[:inner.index].sum(0)
+            buf, meta = dispatch_rank(xf, top_w, key, counts, before,
+                                      capacity(n, cfg), G, cfg)
+        with span(MOE_EXPERTS):
+            out = _expert_ffn(params, buf, tp)
+            shared = _shared(params, xf, cfg)
+        with span(MOE_COMBINE):
+            y = _combine(out[None], meta, N).reshape(N, d)
+            y = _add_shared(y, shared)
+        _count(N * k, buf.shape[0] * buf.shape[1])
         return y.reshape(b, s, d).to(x.dtype), aux
 
     G, n = _groups(N, cfg)
     C = capacity(n, cfg)
-    buf, meta = dispatch(xf.reshape(G, n, d), top_w.reshape(G, n, k),
-                         top_e.reshape(G, n, k), C, cfg)
-    ebuf = buf.transpose(0, 1).reshape(E, G * C, d)       # expert-major
-    out = _expert_ffn(params, ebuf, tp).reshape(E, G, C, d).transpose(0, 1)
-    y = _combine(out, meta, n).reshape(N, d)
+    H = cfg.n_held
+    with span(MOE_DISPATCH):
+        buf, meta = dispatch(xf.reshape(G, n, d), top_w.reshape(G, n, k),
+                             top_e.reshape(G, n, k), C, cfg)
+        ebuf = buf.transpose(0, 1).reshape(H, G * C, d)   # expert-major
+    with span(MOE_EXPERTS):
+        out = _expert_ffn(params, ebuf, tp).reshape(H, G, C, d).transpose(
+            0, 1)
+        shared = _shared(params, xf, cfg)
+    with span(MOE_COMBINE):
+        y = _combine(out, meta, n).reshape(N, d)
+        y = _add_shared(y, shared)
+    _count(N * k, H * G * C)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _shared(params, xf, cfg: MoECfg):
+    """The shared experts' output on every token (None without them)."""
+    return mlp(params["shared"], xf) if cfg.n_shared else None
+
+
+def _add_shared(y, shared):
+    return y if shared is None else y + shared.to(torch.float32)
+
+
+def _count(slots: int, rows: int):
+    """One call's counters, from its shapes alone."""
+    spans.count(spans.MOE_CALLS)
+    spans.count(spans.MOE_SLOTS, slots)
+    spans.count(spans.MOE_EXPERT_ROWS, rows)

@@ -57,7 +57,9 @@ each repeat's leaves are gathered inside its pass, as in training.
 Params are a flat dict named by the reference's key paths
 (``embed.table``, ``blocks.pos0.attn.wq.w`` with a leading ``n_repeats``
 dim, ``final_norm.scale``, ``lm_head.w``; a non-parametric norm has no
-leaf; an MoE FFN adds ``blocks.posN.moe.{router.w, wg, wi, wo}``, a
+leaf; an MoE FFN adds ``blocks.posN.moe.{router.w, wg, wi, wo}``, the
+experts stacked over the ``experts_held`` it holds, and with shared
+experts ``blocks.posN.moe.shared.{wg, wi, wo}.w``; a
 Mamba mixer ``blocks.posN.mamba.{A_log, D, conv_b, conv_w, dt_bias,
 in_proj.w, norm.scale, out_proj.w}``).
 :class:`_Net` registers exactly those names on the meta device and
@@ -78,7 +80,7 @@ import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.configs.base import LayerSpec, ModelCfg
 from repro_torch.configs.shapes import torch_dtype
 from repro_torch.models import attention as attn_lib
@@ -177,10 +179,13 @@ class _Layer(nn.Module):
         elif spec.mixer == "mla":
             self.attn = nn.Module()
             h, qk = a.n_heads, a.qk_nope_dim + a.qk_rope_dim
-            self.attn.wdq = _dense(d, a.q_lora_rank, lead, device)
-            self.attn.q_norm = _Params({"scale": (a.q_lora_rank,)}, lead,
-                                       device)
-            self.attn.wuq = _dense(a.q_lora_rank, h * qk, lead, device)
+            if a.q_lora_rank:
+                self.attn.wdq = _dense(d, a.q_lora_rank, lead, device)
+                self.attn.q_norm = _Params({"scale": (a.q_lora_rank,)},
+                                           lead, device)
+                self.attn.wuq = _dense(a.q_lora_rank, h * qk, lead, device)
+            else:
+                self.attn.wq = _dense(d, h * qk, lead, device)
             self.attn.wdkv = _dense(d, a.kv_lora_rank, lead, device)
             self.attn.kv_norm = _Params({"scale": (a.kv_lora_rank,)}, lead,
                                         device)
@@ -208,12 +213,19 @@ class _Layer(nn.Module):
             if cfg.gated_mlp:
                 self.mlp.wg = _dense(d, cfg.d_ff, lead, device)
         if spec.ffn in ("moe", "dense+moe"):
-            E, f = m.n_experts, m.d_ff
-            shapes = {"wi": (E, d, f), "wo": (E, f, d)}
+            H, f = m.n_held, m.d_ff
+            shapes = {"wi": (H, d, f), "wo": (H, f, d)}
             if m.gated:
-                shapes["wg"] = (E, d, f)
+                shapes["wg"] = (H, d, f)
             self.moe = _Params(shapes, lead, device)
-            self.moe.router = _dense(d, E, lead, device)
+            self.moe.router = _dense(d, m.n_experts, lead, device)
+            if m.n_shared:
+                fs = m.n_shared * f
+                self.moe.shared = nn.Module()
+                self.moe.shared.wi = _dense(d, fs, lead, device)
+                self.moe.shared.wo = _dense(fs, d, lead, device)
+                if m.gated:
+                    self.moe.shared.wg = _dense(d, fs, lead, device)
 
     def forward(self, lp: dict, x, cos, sin, positions, inner=None):
         """This position with params ``lp`` (one repeat's, ``_tree(self,
@@ -525,6 +537,8 @@ class Model:
 
     def __init__(self, cfg: ModelCfg, tp=None, fsdp=None):
         self.cfg = cfg
+        spans.show_moe(any(p.ffn in ("moe", "dense+moe")
+                           for p in cfg.pattern))
         self.param_dtype = torch_dtype(cfg.param_dtype)
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
         self.attn_cfg = AttnCfg(
@@ -536,10 +550,12 @@ class Model:
             qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
             v_head_dim=cfg.v_head_dim)
         self.moe_cfg = moe_lib.MoECfg(
-            d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
-            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            d_model=cfg.d_model, d_ff=cfg.expert_d_ff,
+            n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor,
             router_aux_weight=cfg.router_aux_weight, gated=cfg.gated_mlp,
-            n_groups=cfg.moe_groups)
+            n_groups=cfg.moe_groups, n_shared=cfg.n_shared_experts,
+            held=cfg.experts_held, norm_topk=cfg.moe_norm_topk)
         self.mamba_cfg = mamba_lib.Mamba2Cfg(
             d_model=cfg.d_model, d_state=cfg.ssm_state,
             headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,

@@ -1,7 +1,10 @@
 """The port's configs against the reference's: every field of every
 registered architecture, its smoke reduction and its long-context
 variant, compared exactly by ``dataclasses.asdict``; the derived counts;
-the input shapes and the concrete batch's structure."""
+the input shapes and the concrete batch's structure.  The port's
+``ModelCfg`` has fields the reference's lacks (``PORT_ONLY``, DeepSeek-V2's
+expert layer): every field the reference has is compared, and the port's
+own are held at their defaults in every registered config."""
 import dataclasses
 
 import numpy as np
@@ -16,9 +19,20 @@ from repro.configs import shapes as r_shapes  # noqa: E402
 from repro.configs.base import OptimCfg as ROptimCfg  # noqa: E402
 from repro.configs.base import ParallelCfg as RParallelCfg  # noqa: E402
 from repro_torch.configs import registry, shapes  # noqa: E402
+from repro_torch.configs.base import PORT_ONLY  # noqa: E402
 from repro_torch.configs.base import OptimCfg, ParallelCfg  # noqa: E402
 
 NAMES = list(r_registry.ARCHS)
+
+
+def _assert_same(ours, theirs):
+    """``asdict(ours) == asdict(theirs)`` over every field of the
+    reference's, and the port-only fields of ``ours`` (a ``RunCfg`` or a
+    ``ModelCfg``) at their defaults."""
+    a = dataclasses.asdict(ours)
+    model = a["model"] if "model" in a else a
+    assert {k: model.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    assert a == dataclasses.asdict(theirs)
 
 
 def test_registry_names():
@@ -32,7 +46,7 @@ def test_registry_names():
 @pytest.mark.parametrize("name", NAMES)
 def test_config_equals_reference(name):
     ours, theirs = registry.get_config(name), r_registry.get_config(name)
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    _assert_same(ours, theirs)
     m, rm = ours.model, theirs.model
     assert m.params_count() == rm.params_count()
     assert m.active_params_count() == rm.active_params_count()
@@ -40,7 +54,7 @@ def test_config_equals_reference(name):
                                                   rm.n_repeats)
     long_ours = registry.long_ctx_variant(m)
     long_theirs = r_registry.long_ctx_variant(rm)
-    assert dataclasses.asdict(long_ours) == dataclasses.asdict(long_theirs)
+    _assert_same(long_ours, long_theirs)
     for shape in shapes.SHAPES.values():
         assert registry.shape_supported(m, shape) == \
             r_registry.shape_supported(rm, r_shapes.SHAPES[shape.name])
@@ -50,7 +64,7 @@ def test_config_equals_reference(name):
 def test_smoke_config_equals_reference(name):
     ours, theirs = registry.get_smoke_config(name), \
         r_registry.get_smoke_config(name)
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    _assert_same(ours, theirs)
     assert ours.model.params_count() == theirs.model.params_count()
 
 
